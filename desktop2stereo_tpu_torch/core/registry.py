@@ -1,0 +1,121 @@
+"""Model registry for the port: the Depth-Anything family.
+
+The same `ModelSpec` facts as `desktop2stereo_tpu/core/registry.py` (family,
+ViT variant, patch size, normalization, metric-ness, HF repo, resolution
+menu), restricted to the family the port builds today.  The other families
+are ROADMAP items; `get_spec` raises for them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+# ViT variant dims: (hidden, layers, heads, mlp_dim)
+VIT_VARIANTS = {
+    "vits": (384, 12, 6, 1536),
+    "vitsplus": (384, 12, 6, 2304),
+    "vitb": (768, 12, 12, 3072),
+    "vitl": (1024, 24, 16, 4096),
+    "vitg": (1536, 40, 24, 6144),
+}
+
+# Encoder layers (0-indexed outputs) that feed the DPT neck, per variant.
+DPT_LAYER_IDS = {
+    "vits": (2, 5, 8, 11),
+    "vitb": (2, 5, 8, 11),
+    "vitl": (4, 11, 17, 23),
+    "vitg": (9, 19, 29, 39),
+}
+
+# DPT neck channel pyramid per variant (HF DepthAnythingConfig.neck_hidden_sizes).
+NECK_CHANNELS = {
+    "vits": (48, 96, 192, 384),
+    "vitb": (96, 192, 384, 768),
+    "vitl": (256, 512, 1024, 1024),
+    "vitg": (384, 768, 1536, 1536),
+}
+FUSION_CHANNELS = {"vits": 64, "vitb": 128, "vitl": 256, "vitg": 384}
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    family: str
+    variant: str
+    hf_repo: str
+    patch_size: int = 14
+    metric: bool = False
+    max_depth: float = 1.0
+    norm_family: str = "imagenet"
+    resolutions: Optional[Tuple[int, ...]] = None
+    square_only: bool = False
+    force_fp32: bool = False
+
+    @property
+    def dims(self) -> Tuple[int, int, int, int]:
+        return VIT_VARIANTS[self.variant]
+
+    @property
+    def dpt_layers(self) -> Tuple[int, ...]:
+        return DPT_LAYER_IDS[self.variant]
+
+    @property
+    def neck_channels(self) -> Tuple[int, ...]:
+        return NECK_CHANNELS[self.variant]
+
+    @property
+    def fusion_channels(self) -> int:
+        return FUSION_CHANNELS[self.variant]
+
+
+_DA_MENU = (196, 238, 294, 336, 392, 448, 518)  # patch-14 resolution menu
+
+_SIZE = {"small": "vits", "base": "vitb", "large": "vitl", "giant": "vitg"}
+
+MODEL_REGISTRY: Dict[str, ModelSpec] = {}
+
+
+def _register(name: str, variant: str, repo: str, metric: bool = False,
+              max_depth: float = 1.0) -> None:
+    MODEL_REGISTRY[name] = ModelSpec(
+        name=name, family="depth_anything", variant=variant, hf_repo=repo,
+        metric=metric, max_depth=max_depth, resolutions=_DA_MENU)
+
+
+for _size in ("Small", "Base", "Large"):
+    _v = _SIZE[_size.lower()]
+    _register(f"Depth-Anything-V2-{_size}", _v,
+              f"depth-anything/Depth-Anything-V2-{_size}-hf")
+    _register(f"Depth-Anything-V2-Metric-Outdoor-{_size}", _v,
+              f"depth-anything/Depth-Anything-V2-Metric-Outdoor-{_size}-hf",
+              metric=True, max_depth=80.0)
+    _register(f"Depth-Anything-V2-Metric-Indoor-{_size}", _v,
+              f"depth-anything/Depth-Anything-V2-Metric-Indoor-{_size}-hf",
+              metric=True, max_depth=20.0)
+
+for _size in ("small", "base", "large"):
+    _register(f"depth-anything-{_size}", _SIZE[_size],
+              f"LiheYoung/depth-anything-{_size}-hf")
+_register("depth-anything-indoor-large", "vitl",
+          "lc700x/depth-anything-indoor-large-hf", metric=True)
+_register("depth-anything-outdoor-large", "vitl",
+          "lc700x/depth-anything-outdoor-large-hf", metric=True)
+
+for _size in ("Small", "Base", "Large"):
+    _owner = "lc700x" if _size == "Base" else "xingyang1"
+    _register(f"Distill-Any-Depth-{_size}", _SIZE[_size.lower()],
+              f"{_owner}/Distill-Any-Depth-{_size}-hf")
+
+_register("depth-ai", "vitl", "lc700x/depth-ai-hf", metric=True)
+
+
+def get_spec(name: str) -> ModelSpec:
+    try:
+        return MODEL_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown model {name!r} for the torch port (only the "
+            f"depth_anything family is ported; ROADMAP A4 (VDA) and A5 "
+            f"(other families) cover the rest); registered: "
+            f"{sorted(MODEL_REGISTRY)}") from None

@@ -1,0 +1,140 @@
+"""DINOv2 ViT encoder, the backbone of the Depth-Anything family.
+
+Port of `desktop2stereo_tpu/models/dinov2.py`: patch-14 embedding as reshape +
+one matmul, cls token + bicubically interpolated position embeddings,
+pre-norm blocks with LayerScale, exact-GELU MLP (tanh form in bf16), fused
+qkv, and the final LayerNorm on each selected hidden state.  NHWC pixels in,
+[B, N, D] tokens throughout.  Attention goes through `multi_head_attention`,
+which runs the CUDA kernel on every layer when the tensors are on the GPU.
+
+Module and parameter names follow the JAX parameter tree so `from_flax`
+maps it mechanically (see models/from_flax.py).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from desktop2stereo_tpu_torch.ops.activations import gelu
+from desktop2stereo_tpu_torch.ops.attention import multi_head_attention
+from desktop2stereo_tpu_torch.ops.resize import resize
+
+LN_EPS = 1e-6
+PRETRAIN_GRID = 37  # 518 / 14: the position table holds 37² + 1 entries
+
+
+class PatchEmbed(nn.Module):
+    """Conv2d(3, D, k=p, s=p) as patch vectors (order p_h, p_w, C) @ weightᵀ."""
+
+    def __init__(self, hidden_size: int, patch_size: int = 14) -> None:
+        super().__init__()
+        self.patch_size = patch_size
+        self.weight = nn.Parameter(torch.empty(hidden_size, patch_size * patch_size * 3))
+        self.bias = nn.Parameter(torch.zeros(hidden_size))
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = pixels.shape
+        p = self.patch_size
+        gh, gw = H // p, W // p
+        x = pixels[:, : gh * p, : gw * p]  # a stride-p conv drops the remainder
+        x = x.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, gh * gw, p * p * C)
+        return F.linear(x, self.weight, self.bias)
+
+
+class Dinov2Embeddings(nn.Module):
+    def __init__(self, hidden_size: int, patch_size: int = 14) -> None:
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.patch_size = patch_size
+        self.patch_embeddings = PatchEmbed(hidden_size, patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_size))
+        self.position_embeddings = nn.Parameter(
+            torch.zeros(1, PRETRAIN_GRID * PRETRAIN_GRID + 1, hidden_size))
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        B, H, W, _ = pixels.shape
+        gh, gw = H // self.patch_size, W // self.patch_size
+        tokens = self.patch_embeddings(pixels)
+        pos = self.position_embeddings
+        cls_pos, patch_pos = pos[:, :1], pos[:, 1:]
+        M = PRETRAIN_GRID
+        if (gh, gw) != (M, M):
+            # HF interpolates in f32, bicubic, align_corners=False
+            grid = patch_pos.reshape(M, M, self.hidden_size).float()
+            grid = resize(grid, (gh, gw), mode="bicubic")
+            patch_pos = grid.reshape(1, gh * gw, self.hidden_size).to(pos.dtype)
+        pos_full = torch.cat([cls_pos, patch_pos], dim=1)
+        cls = self.cls_token.expand(B, 1, self.hidden_size).to(tokens.dtype)
+        return torch.cat([cls, tokens], dim=1) + pos_full.to(tokens.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, hidden_size: int, mlp_dim: int) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(hidden_size, mlp_dim)
+        self.fc2 = nn.Linear(mlp_dim, hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
+        self.proj = nn.Linear(hidden_size, hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, D = x.shape
+        hd = D // self.num_heads
+        # strided views of the fused projection; the kernel reads them as is
+        q, k, v = (t.unflatten(-1, (self.num_heads, hd))
+                   for t in self.qkv(x).split(D, dim=-1))
+        out = multi_head_attention(q, k, v).reshape(B, N, D)
+        return self.proj(out)
+
+
+class Dinov2Layer(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int) -> None:
+        super().__init__()
+        self.norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.attention = Attention(hidden_size, num_heads)
+        self.layer_scale1 = nn.Parameter(torch.ones(hidden_size))
+        self.norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.mlp = Mlp(hidden_size, mlp_dim)
+        self.layer_scale2 = nn.Parameter(torch.ones(hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attention(self.norm1(x)) * self.layer_scale1.to(x.dtype)
+        return x + self.mlp(self.norm2(x)) * self.layer_scale2.to(x.dtype)
+
+
+class Dinov2Encoder(nn.Module):
+    """ViT trunk returning the LayerNorm'd hidden states of `out_layers`
+    (0-indexed).  Layers after the last selected one feed nothing and are
+    not built, as in the JAX module."""
+
+    def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
+                 mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14) -> None:
+        super().__init__()
+        self.out_layers = tuple(sorted(out_layers))
+        self.embeddings = Dinov2Embeddings(hidden_size, patch_size)
+        n_run = min(num_layers, max(self.out_layers) + 1)
+        self.layer = nn.ModuleList(
+            Dinov2Layer(hidden_size, num_heads, mlp_dim) for _ in range(n_run))
+        self.layernorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+
+    def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = self.embeddings(pixels)
+        outputs = []
+        for i, layer in enumerate(self.layer):
+            x = layer(x)
+            if i in self.out_layers:
+                outputs.append(self.layernorm(x))
+        return tuple(outputs)

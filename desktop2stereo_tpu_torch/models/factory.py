@@ -1,0 +1,62 @@
+"""Model factory: registry name → (model, spec), random weights from a seed.
+
+Port of `desktop2stereo_tpu/models/factory.py:build_bound` for the
+depth_anything family.  No checkpoint exists offline, so weights are random,
+drawn from a seeded `torch.Generator` with flax's default initializers
+(truncated-normal lecun kernels, zero biases, unit LayerNorm and LayerScale,
+zero cls/position tables).  Weights from a JAX parameter tree load through
+`models/from_flax.py` instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
+from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
+from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
+from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
+
+# std of N(0,1) truncated to ±2, the correction flax's truncated_normal
+# initializer divides by so the drawn variance is the requested one
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_random(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded flax-style init of every kernel (biases and tables as built)."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            _lecun_(m.weight, m.in_features, gen)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
+            _lecun_(m.weight, m.weight[0].numel(), gen)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, PatchEmbed):
+            _lecun_(m.weight, m.weight.shape[1], gen)
+        elif isinstance(m, ConvTransposeSameStride):
+            _lecun_(m.weight, m.weight.shape[0], gen)
+    return model
+
+
+def build_bound(name: str, device: torch.device | str = "cpu",
+                dtype: torch.dtype = torch.float32,
+                seed: int = 0) -> Tuple[DepthAnything, ModelSpec]:
+    """Registry name → (eval-mode model on `device` in `dtype`, spec).
+
+    The weights are drawn on the CPU, so one seed gives the same model on
+    every device."""
+    spec = get_spec(name)
+    model = init_random(DepthAnything.from_spec(spec), seed)
+    return model.to(device=device, dtype=dtype).eval(), spec

@@ -1,0 +1,68 @@
+"""JAX (flax) parameter tree → state_dict of the port's modules.
+
+The port names its modules after the flax tree, so the mapping is
+mechanical:
+
+- a path component `name_<i>` (flax's `layer_3`, `reassemble_0`, `conv_1`,
+  `fusion_2`) becomes `name.<i>` (an nn.ModuleList entry);
+- Dense kernels [in, out] become Linear weights [out, in];
+- Conv kernels HWIO become Conv2d weights OIHW;
+- the neck's conv-transpose kernels are stored (C, O, f, f) on both sides and
+  are kept as they are;
+- LayerNorm `scale` becomes `weight`; every other leaf keeps its name.
+
+Arrays are numpy (or anything `np.asarray` takes), so this module needs
+no JAX.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from desktop2stereo_tpu_torch.models.dpt import REASSEMBLE_FACTORS
+
+_INDEXED = re.compile(r"^(.*)_(\d+)$")
+_CONV_TRANSPOSE = {f"neck.reassemble.{i}.resize.kernel"
+                   for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        m = _INDEXED.match(k)
+        name = f"{m.group(1)}.{m.group(2)}" if m else k
+        path = f"{prefix}.{name}" if prefix else name
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params (with or without the top-level "params" key) → state_dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        a = np.array(leaf, dtype=np.float32)  # a writable copy
+        head, _, name = path.rpartition(".")
+        if name == "kernel":
+            if path in _CONV_TRANSPOSE:
+                pass                               # (C, O, f, f) on both sides
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)        # HWIO → OIHW
+            elif a.ndim == 2:
+                a = a.T                            # [in, out] → [out, in]
+            else:
+                raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        key = f"{head}.{name}" if head else name
+        state[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return state

@@ -1,0 +1,77 @@
+"""Attention kernel (csrc/attention.cu) and its plain version.
+
+Replaces `desktop2stereo_tpu/ops/pallas/flash_attention.py:flash_attention`.
+Layout [B, N, H, hd] as in the JAX package.  The kernel takes bf16 q/k/v with
+hd = 64, a contiguous head dim and 16-byte aligned rows, reading q/k/v
+through their strides (the views of a fused qkv projection need no copy),
+and returns a fresh contiguous bf16 [B, N, H, 64].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
+
+HEAD_DIM = 64
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL = CudaLibrary("attention.cu", {
+    "d2s_attention_fwd": [_P, _P, _P, _P, _I, _I, _I,
+                          _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                          ctypes.c_float, _P],
+})
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain softmax(QKᵀ/√hd)·V over materialised f32 logits; the counterpart
+    of `desktop2stereo_tpu/ops/attention.py:xla_attention` (probabilities are
+    cast to q's dtype before the P·V product, output in q's dtype)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", probs, v.to(q.dtype))
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError for anything the kernel does not take."""
+    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"attention kernel needs equal [B,N,H,hd] q/k/v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"attention kernel needs head dim {HEAD_DIM}, "
+                         f"got {q.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"attention kernel needs bf16 {name}, got {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"attention kernel needs a contiguous head dim "
+                             f"for {name}, strides {t.stride()}")
+        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"attention kernel needs 16-byte aligned rows for "
+                             f"{name}: strides {t.stride()}, ptr {t.data_ptr()}")
+    if q.shape[1] == 0 or q.shape[0] * q.shape[2] > 65535:
+        raise ValueError(f"attention kernel: unsupported shape {tuple(q.shape)}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B,N,H,hd] → [B,N,H,hd].  CPU tensors take `attention_ref`; CUDA
+    tensors take the kernel or raise."""
+    devices = {q.device, k.device, v.device}
+    if devices == {torch.device("cpu")}:
+        return attention_ref(q, k, v)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"attention: q/k/v must share one CUDA device (or "
+                         f"all be on the CPU), got {sorted(map(str, devices))}")
+    check_inputs(q, k, v)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    KERNEL.call(
+        "d2s_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, N, H, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], 1.0 / math.sqrt(D), stream)
+    return out

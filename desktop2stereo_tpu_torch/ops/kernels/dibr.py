@@ -1,0 +1,240 @@
+"""Both-eyes DIBR kernel (csrc/dibr_pair.cu) and its plain version.
+
+Replaces `desktop2stereo_tpu/ops/pallas/dibr.py:dibr_render_pair_planar` as
+the flagship tail uses it (`out_mode="eyes_u8"`, then an XLA concat and
+transpose): the kernel writes the finished Half-SBS [eh, 2·ew, 3] or
+Half-TAB [2·eh, ew, 3] u8 frame.  Inputs are the eye-size planar rgb
+[3, eh, ew] f32 (0..255) and depth [eh, ew] f32 in [0, 1].  No edge padding:
+clamp-to-edge reads on the true frame equal the JAX kernel's reads of its
+edge-padded frame.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
+
+SEARCH_RADIUS = 12
+DEPTH_TOLERANCE = 0.012
+EDGE_MARGIN = 0.05
+VSHIFT = 2
+ARRANGEMENTS = ("sbs", "tab")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = CudaLibrary(
+    "dibr_pair.cu",
+    {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _F, _F, _F, ctypes.c_double,
+                            _I, _P]},
+    # no contracted multiply-adds: keeps the kernel within rounding of the
+    # plain version, whose every op rounds on its own
+    extra_flags=("-fmad=false",),
+)
+
+
+def _cols(x: torch.Tensor, off: int) -> torch.Tensor:
+    """x[..., clamp(j + off)] (clamp-to-edge column shift)."""
+    w = x.shape[-1]
+    idx = (torch.arange(w, device=x.device) + off).clamp_(0, w - 1)
+    return x.index_select(-1, idx)
+
+
+def _rows(x: torch.Tensor, off: int) -> torch.Tensor:
+    """x[..., clamp(i + off), :] (clamp-to-edge row shift)."""
+    h = x.shape[-2]
+    idx = (torch.arange(h, device=x.device) + off).clamp_(0, h - 1)
+    return x.index_select(-2, idx)
+
+
+def _smoothstep(t: torch.Tensor) -> torch.Tensor:
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a·b + c rounded once to f32 (f32 operands; the f64 product is exact).
+
+    The JAX kernel's warp position is sensitive to one ulp: a px that
+    rounds differently moves `frac`, and the bilinear warp turns that into
+    up to ~4e-3 of a 0..255 value.  XLA contracts the multiply-adds that
+    lead to it (centre smooth, depth shaping plus convergence, warp
+    position) into fused ones, so the plain version and the CUDA kernel
+    round those once as well."""
+    def f64(x):
+        if isinstance(x, torch.Tensor):
+            return x.double()
+        return float(np.float32(x))
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def _edge_coords(idx: torch.Tensor, n: int, scale: float):
+    """(u·scale, (1-u)·scale) for u = (idx+0.5)/n, rounded as XLA compiles
+    the JAX kernel: 1/n and `scale` fold into one f32 constant, and 1-u is a
+    fused multiply-add."""
+    c = idx + 0.5
+    r = np.float32(1.0 / n)
+    s = np.float32(scale)
+    return c * float(r * s), _fma(-c, r, 1.0) * float(s)
+
+
+def dibr_pair_eyes_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
+                       depth_strength: float, convergence: float,
+                       feather: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version, up to quantisation: (left, right) planar f32 [3, eh, ew].
+
+    Per pixel: a 3-tap centre depth smooth and depth shaping, a smoothstep
+    edge falloff, the disocclusion confidence from the ±2 px depth jump, a
+    forward (depth-weighted) and a backward (plain) push-pull sweep over RAW
+    depth, ±2-row vertical taps, then per eye a bilinear warp at the
+    depth-driven position and the confidence blend; optional edge feather.
+    """
+    rgb, d = rgb_h, dep_h
+    H, W = d.shape
+    h_lo = _cols(d, -2) * 0.5 + _cols(d, -1) * 0.5  # tap at -1.5 px
+    h_hi = _cols(d, 1) * 0.5 + _cols(d, 2) * 0.5    # tap at +1.5 px
+    smooth = _fma(h_hi, 0.15, _fma(d, 0.7, h_lo * 0.15))
+    cdi = -smooth
+    jump = (_cols(d, -2) - _cols(d, 2)).abs()
+    conf_base = _smoothstep(((jump - 0.04) / (0.10 - 0.04)).clamp(0.0, 1.0))
+    # shaped depth (-s)·(1 + 0.35·(1 - s)), plus the convergence offset
+    shaped_conv = _fma(-smooth, _fma(0.35, 1.0 - smooth, 1.0), convergence)
+
+    col = torch.arange(W, dtype=torch.float32, device=d.device).expand(H, W)
+    lo, hi = _edge_coords(col, W, np.float32(1.0) / np.float32(EDGE_MARGIN))
+    e1 = _smoothstep(lo.clamp(0.0, 1.0))  # smoothstep edge falloff,
+    e2 = _smoothstep(hi.clamp(0.0, 1.0))  # EDGE_MARGIN of the width
+    shift_base = shaped_conv * (depth_strength * (e1 * e2))  # XLA's association
+
+    # inpaint sweeps: neighbour taps read RAW depth, only cdi is smoothed
+    inv_raw = 1.0 - d
+    thr = cdi + DEPTH_TOLERANCE
+    pre_w = 1.0 - 10.0 * cdi
+
+    def sweep(direction: int, depth_weighted: bool, decay: float):
+        acc = torch.zeros_like(rgb)
+        wsum = torch.zeros_like(d)
+        for t in range(1, SEARCH_RADIUS + 1):
+            off = direction * t
+            s_inv = _cols(inv_raw, off)
+            dist = math.exp(-float(t) * decay)
+            if depth_weighted:
+                w = dist * pre_w + (10.0 * dist) * s_inv
+            else:
+                w = torch.full_like(d, dist)
+            w = torch.where((s_inv > thr) & (wsum <= 5.0), w, 0.0)
+            acc = acc + _cols(rgb, off) * w
+            wsum = wsum + w
+        return acc, wsum
+
+    fwd_c, fwd_w = sweep(-1, True, 0.15)
+    bwd_c, bwd_w = sweep(+1, False, 0.2)
+
+    vadd = torch.zeros_like(rgb)
+    vert_w = torch.full_like(d, 0.5)
+    for off in (-VSHIFT, VSHIFT):
+        w = torch.where((1.0 - _rows(d, off)) > cdi + DEPTH_TOLERANCE * 0.5,
+                        0.25, 0.0)
+        vadd = vadd + _rows(rgb, off) * w
+        vert_w = vert_w + w
+    inv_vw = 1.0 / vert_w
+
+    need_bwd = fwd_w < 2.0
+    best_w = fwd_w + torch.where(need_bwd, bwd_w, 0.0)
+    found = best_w > 0.01
+    scale = 0.5 / best_w.clamp_min(1e-12)
+    best_c = fwd_c + torch.where(need_bwd, bwd_c, 0.0)
+    filled = torch.where(found, (best_c * scale + vadd) * inv_vw, rgb)
+
+    if feather > 0.0:
+        # (fade_l·fade_r·fade_t·fade_b)^0.7, smoothstep fades over `feather`
+        row = torch.arange(H, dtype=torch.float32, device=d.device)[:, None].expand(H, W)
+        fu, fu1 = _edge_coords(col, W, 1.0 / feather)
+        fv, fv1 = _edge_coords(row, H, 1.0 / feather)
+        fmask = (_smoothstep(fu.clamp(0.0, 1.0)) * _smoothstep(fu1.clamp(0.0, 1.0))
+                 * _smoothstep(fv.clamp(0.0, 1.0))
+                 * _smoothstep(fv1.clamp(0.0, 1.0))) ** 0.7
+
+    eyes = []
+    for eye in (-abs(ipd / 2.0), abs(ipd / 2.0)):
+        # px = col - eye·shift·W, with eye·W folded to one f32 constant
+        disp = float(np.float32(eye) * np.float32(W))
+        px = _fma(shift_base, -disp, col)
+        oob = (px < 0.0) | (px > W - 1.0)
+        pxc = px.clamp(0.0, W - 1.0)
+        i0f = torch.floor(pxc)
+        frac = pxc - i0f
+        i0 = i0f.long()
+        i1 = (i0 + 1).clamp_(max=W - 1)
+        g0 = torch.gather(rgb, 2, i0.expand(3, H, W))
+        g1 = torch.gather(rgb, 2, i1.expand(3, H, W))
+        color = g0 * (1.0 - frac) + g1 * frac
+        conf = torch.where(oob, 1.0, conf_base)
+        out = color + conf * (filled - color)
+        if feather > 0.0:
+            out = out * fmask
+        eyes.append(out)
+    return eyes[0], eyes[1]
+
+
+def quantize_u8(x: torch.Tensor) -> torch.Tensor:
+    """clip(x + 0.5, 0, 255) truncated to u8 (the kernels' rounding)."""
+    return (x + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def dibr_pair_half_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
+                       depth_strength: float, convergence: float,
+                       feather: float = 0.0, arrangement: str = "sbs") -> torch.Tensor:
+    """Plain version of `dibr_pair_half`: the finished u8 HWC frame."""
+    left, right = dibr_pair_eyes_ref(
+        rgb_h, dep_h, ipd=ipd, depth_strength=depth_strength,
+        convergence=convergence, feather=feather)
+    axis = 2 if arrangement == "sbs" else 1
+    both = torch.cat([quantize_u8(left), quantize_u8(right)], dim=axis)
+    return both.permute(1, 2, 0).contiguous()
+
+
+def check_inputs(rgb_h: torch.Tensor, dep_h: torch.Tensor, arrangement: str) -> None:
+    """Raise ValueError for anything the kernel does not take."""
+    if arrangement not in ARRANGEMENTS:
+        raise ValueError(f"arrangement must be one of {ARRANGEMENTS}, got {arrangement!r}")
+    if rgb_h.ndim != 3 or rgb_h.shape[0] != 3 or dep_h.shape != rgb_h.shape[1:]:
+        raise ValueError(f"dibr kernel needs rgb [3,eh,ew] and depth [eh,ew], got "
+                         f"{tuple(rgb_h.shape)} and {tuple(dep_h.shape)}")
+    for name, t in (("rgb", rgb_h), ("depth", dep_h)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"dibr kernel needs f32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"dibr kernel needs a contiguous {name}")
+    eh, ew = dep_h.shape
+    if eh == 0 or ew == 0 or eh > 65535:
+        raise ValueError(f"dibr kernel: unsupported eye size {eh}x{ew}")
+
+
+def dibr_pair_half(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
+                   depth_strength: float, convergence: float,
+                   feather: float = 0.0, arrangement: str = "sbs") -> torch.Tensor:
+    """Both eyes → u8 [eh, 2·ew, 3] ("sbs") or [2·eh, ew, 3] ("tab").
+    CPU tensors take `dibr_pair_half_ref`; CUDA tensors take the kernel or
+    raise."""
+    kw = dict(ipd=ipd, depth_strength=depth_strength, convergence=convergence,
+              feather=feather, arrangement=arrangement)
+    if rgb_h.device.type == "cpu" and dep_h.device.type == "cpu":
+        check_inputs(rgb_h, dep_h, arrangement)
+        return dibr_pair_half_ref(rgb_h, dep_h, **kw)
+    if rgb_h.device != dep_h.device or rgb_h.device.type != "cuda":
+        raise ValueError(f"dibr: rgb and depth must share one CUDA device (or "
+                         f"both be on the CPU), got {rgb_h.device}, {dep_h.device}")
+    check_inputs(rgb_h, dep_h, arrangement)
+    eh, ew = dep_h.shape
+    tab = arrangement == "tab"
+    shape = (2 * eh, ew, 3) if tab else (eh, 2 * ew, 3)
+    out = torch.empty(shape, dtype=torch.uint8, device=rgb_h.device)
+    stream = torch.cuda.current_stream(rgb_h.device).cuda_stream
+    KERNEL.call("d2s_dibr_pair_half", rgb_h.data_ptr(), dep_h.data_ptr(),
+                out.data_ptr(), eh, ew, float(ipd), float(depth_strength),
+                float(convergence), float(feather), int(tab), stream)
+    return out

@@ -1,0 +1,71 @@
+"""The port's attention against the JAX package's, on the CPU in f32.
+
+On the CPU the port's attention runs its plain version, `attention_ref`;
+the CUDA kernel it stands beside is checked on the card (test_torch_cuda.py
+and chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from desktop2stereo_tpu.ops.attention import xla_attention
+from desktop2stereo_tpu.ops.pallas.flash_attention import flash_attention
+from desktop2stereo_tpu_torch.ops.attention import attention_ref, multi_head_attention
+from desktop2stereo_tpu_torch.ops.kernels import attention as K
+
+TOL = 1e-5  # f32 softmax attention, summation-order rounding
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 4, 64), (1, 200, 2, 64)])
+def test_attention_ref_matches_xla_and_pallas(shape):
+    q, k, v = _qkv(shape, seed=sum(shape))
+    got = attention_ref(*map(torch.from_numpy, (q, k, v))).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    np.testing.assert_allclose(got, np.asarray(xla_attention(jq, jk, jv)), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(flash_attention(jq, jk, jv, interpret=True)),
+                               atol=TOL, rtol=0)
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    q, k, v = map(torch.from_numpy, _qkv((1, 37, 3, 32), seed=1))
+    launches = K.KERNEL.launches
+    assert torch.equal(multi_head_attention(q, k, v), attention_ref(q, k, v))
+    assert K.KERNEL.launches == launches
+
+
+def test_strided_qkv_views_match_contiguous():
+    """The model hands attention strided views of its fused qkv projection."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((2, 50, 3 * 128)).astype(np.float32))
+    q, k, v = (t.unflatten(-1, (2, 64)) for t in qkv.split(128, dim=-1))
+    assert q.stride() == (50 * 384, 384, 64, 1)
+    want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(multi_head_attention(q, k, v), want, atol=0, rtol=0)
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,match", [
+    (lambda: (_bf16((1, 8, 2, 32)),) * 3, "head dim 64"),
+    (lambda: (_bf16((1, 8, 2, 64)), _bf16((1, 9, 2, 64)), _bf16((1, 8, 2, 64))), "equal"),
+    (lambda: (torch.zeros(1, 8, 2, 64),) * 3, "bf16"),
+    (lambda: (_bf16((1, 8, 64, 2)).transpose(-1, -2),) * 3, "contiguous head dim"),
+    (lambda: (_bf16((1, 8, 2, 66))[..., :64],) * 3, "aligned"),
+])
+def test_kernel_input_checks_raise(case, match):
+    with pytest.raises(ValueError, match=match):
+        K.check_inputs(*case())
+
+
+def test_kernel_input_checks_accept_qkv_views():
+    qkv = _bf16((1, 778, 3 * 1024))
+    K.check_inputs(*(t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1)))

@@ -1,0 +1,70 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an NVIDIA GPU and nvcc, so they skip elsewhere (the CPU tests
+cover the plain versions against the JAX package).  On a CUDA host:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from desktop2stereo_tpu_torch.ops.kernels import attention as K2
+from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 778, 16, 64), (2, 130, 4, 64), (1, 1370, 12, 64), (3, 1, 2, 64)])
+def test_attention_kernel_matches_plain(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+    before = K2.KERNEL.launches
+    got = K2.attention(q, k, v)
+    assert K2.KERNEL.launches == before + 1
+    want = K2.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    # bf16 output rounding and bf16 probabilities vs an f32 softmax
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def test_attention_kernel_reads_qkv_views(dev):
+    qkv = torch.randn(1, 778, 3 * 1024, device=dev).bfloat16()
+    q, k, v = (t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1))
+    got = K2.attention(q, k, v)
+    want = K2.attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_attention_kernel_refuses_other_head_dims(dev):
+    q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        K2.attention(q, q, q)
+
+
+@pytest.mark.parametrize("eh,ew", [(2160, 1920), (50, 200), (96, 256)])
+@pytest.mark.parametrize("feather", [0.0, 0.02])
+@pytest.mark.parametrize("arrangement", ["sbs", "tab"])
+def test_dibr_kernel_matches_plain(dev, eh, ew, feather, arrangement):
+    rng = np.random.default_rng(eh + ew)
+    rgb = torch.from_numpy(rng.random((3, eh, ew), dtype=np.float32) * 255).to(dev)
+    dep = torch.from_numpy(rng.random((eh, ew), dtype=np.float32)).to(dev)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01, feather=feather,
+              arrangement=arrangement)
+    before = K1.KERNEL.launches
+    got = K1.dibr_pair_half(rgb, dep, **kw)
+    assert K1.KERNEL.launches == before + 1
+    want = K1.dibr_pair_half_ref(rgb, dep, **kw)
+    torch.cuda.synchronize()
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3

@@ -1,0 +1,48 @@
+"""The torch port imports neither JAX nor the JAX package.
+
+A CUDA host need not have JAX, flax or PyYAML, so every module of
+`desktop2stereo_tpu_torch` (and chip_smoke.py) must import without them.
+Checked in a fresh interpreter, since this test process has JAX loaded.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import desktop2stereo_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    pkg = desktop2stereo_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
+
+
+def test_port_has_the_slice_modules():
+    mods = set(_modules())
+    for name in ("core.registry", "core.runtime", "ops.normalize", "ops.resize",
+                 "ops.activations", "ops.attention", "ops.depth_post",
+                 "ops.kernels.attention", "ops.kernels.dibr", "ops.kernels.build",
+                 "models.dinov2", "models.dpt", "models.depth_anything",
+                 "models.factory", "models.from_flax", "pipeline.programs",
+                 "pipeline.engine", "pipeline.metrics"):
+        assert f"desktop2stereo_tpu_torch.{name}" in mods, name
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'desktop2stereo_tpu', 'yaml'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
