@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the torch port's flagship frame path once on one NVIDIA GPU.
+"""Drive the torch port's frame paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-The flagship path is Depth-Anything-V2-Large (DINOv2 ViT-L/14, seeded random
-weights) at depth resolution 518 on a 4K BGRA capture, Half-SBS out:
-`build_bound` → `ProgramCache` → `FrameEngine`, through the two hand-written
-CUDA kernels of `desktop2stereo_tpu_torch` (attention on all 24 encoder
-layers, the both-eyes DIBR pass once per frame).
+Model: Depth-Anything-V2-Large (DINOv2 ViT-L/14, seeded random weights) at
+depth resolution 518 on a 4K BGRA capture, through `build_bound` →
+`ProgramCache` → `FrameEngine` and the four hand-written CUDA kernels of
+`desktop2stereo_tpu_torch`: attention (K2) on all 24 encoder layers, the
+both-eyes DIBR pass (K1: the finished Half-SBS frame, or both f32 eyes for
+the generic tail), the fast compositor's warp (K3), and the single-eye DIBR
+(K5) behind `ops.stereo.dibr_render`.
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: nvcc builds both kernels from `desktop2stereo_tpu_torch/csrc`;
+2. build: nvcc builds the four kernel sources, all at once;
 3. kernel parity on the card against the plain PyTorch versions;
 4. kernel times (CUDA events, median of interleaved runs) beside the plain
-   versions at the flagship shapes;
-5. main path: warmup, then FRAMES synthetic 4K frames through FrameEngine;
-   output shape/dtype, finite depth, and launch counts (24 attention
-   launches and one DIBR launch per frame) are checked; frames/s and
-   per-stage ms are printed;
-6. reference: one small frame through the same program on the card (bf16)
-   and on the CPU in f32 (plain versions), compared.
+   versions, one PyTorch library call where one computes the same function,
+   and the bound (bytes over the memory rate, operations over the peak);
+5. flagship path: Half-SBS (fused tail), FRAMES 4K frames through
+   FrameEngine; launch counts (24 attention + one K1 per frame);
+6. reference: one small frame through the flagship program on the card
+   (bf16) and on the CPU in f32 (plain versions), compared;
+7. generic tail, high quality: Full-SBS, FRAMES frames; K1 eyes once a frame;
+8. generic tail, fast quality: Half-SBS, FRAMES frames; K3 twice a frame;
+9. mode cycling: all nine display modes twice, switched live after every
+   delivered frame; each output shape and K1 once a frame (none in Depth);
+10. `dibr_render` at 4K, both eyes: K5 twice;
+11. reference for the generic tail (Full-SBS high, Half-SBS fast).
+
+Every phase that drives a path sets the kernels' launch counts to 0 just
+before it and reads them just after.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.  A JSON report with every number also
@@ -35,23 +45,28 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_MODEL = "Depth-Anything-V2-Large"
-FRAME_SHAPE = (2160, 3840, 4)        # 4K BGRA capture; Half-SBS out at 4K
+FRAME_SHAPE = (2160, 3840, 4)        # 4K BGRA capture, output height 2160
 EYE = (FRAME_SHAPE[0], FRAME_SHAPE[1] // 2)
+FULL = FRAME_SHAPE[:2]               # the generic tail's eyes: full width
 ATTN_SHAPE = (1, 778, 16, 64)        # ViT-L/14 at 294x518: 21*37 + 1 tokens
-FRAMES = 40
+FRAMES = 30
 TIMED_RUNS = 25
 SEED = 0
+IPD, STRENGTH = 0.064, 2.0
 
-# K1 (u8 output): at most 1 LSB off, on at most 0.1% of the pixels
+# K1 / K5 (u8 after quantisation): at most 1 LSB off, on at most 0.1% of values
 DIBR_MAX_LSB = 1
 DIBR_MAX_SHARE = 1e-3
 # K2 (bf16 in/out, f32 accumulation) vs the f32 plain version on unit-normal
 # inputs: bf16 output rounding (2^-9 relative) plus bf16 probabilities
 ATTN_MAX_ABS = 2e-2
+# K3 (f32 on 0..255 values, the same px on both sides): lerp rounding only
+WARP_MAX_ABS = 1e-3
 # Whole path, card bf16 vs CPU f32 on one small frame.  bf16 drift through
 # 24 layers and the percentile normalisation moves depth by a few hundredths
 # and turns into warp shifts at depth edges, so the SBS bound is on the mean
@@ -59,6 +74,18 @@ ATTN_MAX_ABS = 2e-2
 REF_DEPTH_MEAN_ABS = 0.03
 REF_SBS_MEAN_LSB = 3.0
 REF_SBS_SHARE_OVER_32 = 0.03
+
+# The card's peaks for the bound: HBM bytes/s and dense FLOP/s (bf16 tensor
+# cores; f32 outside them), NVIDIA's data sheets.  The SXM part unless the
+# name says otherwise.
+PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12, 60e12),
+         "H100": (3.35e12, 989e12, 67e12)}
+# f32 operations per output pixel of the elementwise kernels, counted from
+# their sources with every sweep tap taken (the most the data can need):
+# K3 lerp per channel 4 + floor/frac/clamps 2; K5 24 taps x 12 + 2 vertical
+# taps x 6 + warp 14 + blend 9 + centre 10; K1 the shared taps once, warp
+# and blend per eye, the shaping and falloff once
+OPS_PER_PX = {"warp3": 14, "dibr_fill": 330, "dibr_pair": 360}
 
 
 def log(msg: str) -> None:
@@ -72,14 +99,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def flagship_config(programs):
+def peaks(name: str):
+    return next((v for k, v in PEAKS.items() if k in name), PEAKS["H100"])
+
+
+def bound_ms(name: str, nbytes: float, flops: float, tensor_core: bool):
+    """(least ms the card could take, "bytes" or "operations")."""
+    bw, bf16, f32 = peaks(name)
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / (bf16 if tensor_core else f32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def config(programs, mode="Half-SBS", quality="high"):
     """bench.py's flagship settings (Settings defaults otherwise), with the
     model-resolution depth a null sink takes."""
     return programs.ProgramConfig(
         model_name=FLAGSHIP_MODEL, depth_resolution=518, output_height=2160,
-        display_mode="Half-SBS", ipd=0.064, depth_strength=2.0, convergence=0.0,
+        display_mode=mode, ipd=IPD, depth_strength=STRENGTH, convergence=0.0,
         foreground_scale=0.0, aa_strength=2.0, ema_alpha=0.9,
-        temporal_smooth=True, quality="high", emit_depth="model")
+        temporal_smooth=True, quality=quality, emit_depth="model")
 
 
 def synthetic_frames(np, count: int, h: int, w: int, seed: int):
@@ -98,18 +137,19 @@ def synthetic_frames(np, count: int, h: int, w: int, seed: int):
     return frames
 
 
-def time_pair(torch, plain, kernel, runs: int = TIMED_RUNS, reps: int = 10, warm: int = 3):
-    """Median ms per call of each callable: CUDA events around `reps`
-    back-to-back calls (so the host's launch latency hides behind the device
-    work), `runs` samples each, the two callables in alternating turns."""
+def time_calls(torch, fns, runs: int = TIMED_RUNS, reps: int = 10, warm: int = 3):
+    """Median ms per call of each callable in `fns` (name → fn): CUDA events
+    around `reps` back-to-back calls (so the host's launch latency hides
+    behind the device work), `runs` samples each, the callables in turns
+    whose order flips every sample."""
     for _ in range(warm):
-        plain()
-        kernel()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
+    times = {name: [] for name in fns}
+    items = list(fns.items())
     for i in range(runs):
-        order = (("plain", plain), ("kernel", kernel))
-        for name, fn in (order if i % 2 == 0 else order[::-1]):
+        for name, fn in (items if i % 2 == 0 else items[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -118,7 +158,22 @@ def time_pair(torch, plain, kernel, runs: int = TIMED_RUNS, reps: int = 10, warm
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / reps)
-    return statistics.median(times["plain"]), statistics.median(times["kernel"])
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def u8_diff(torch, got, want):
+    """(max LSB, share of values that differ) after u8 quantisation."""
+    q = lambda x: (x + 0.5).clamp(0.0, 255.0).to(torch.uint8).int()  # noqa: E731
+    diff = (q(got) - q(want)).abs()
+    return int(diff.max().item()), (diff > 0).float().mean().item()
+
+
+def check_u8(name, lsb, share, extra=""):
+    ok = lsb <= DIBR_MAX_LSB and share <= DIBR_MAX_SHARE
+    log(f"[parity] {name}: max {lsb} LSB (tol {DIBR_MAX_LSB}), differing {share:.2e} "
+        f"(tol {DIBR_MAX_SHARE:.0e}){extra} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
 
 class SaturatingSource:
@@ -150,14 +205,136 @@ class CheckingNullSink:
         self.shape = shape
         self.count = 0
 
-    def push(self, sbs, depth, stats) -> None:
+    def check(self, sbs, depth, shape) -> None:
         import numpy as np
 
-        if sbs.shape != self.shape or sbs.dtype != np.uint8:
-            raise AssertionError(f"frame {sbs.dtype} {sbs.shape}, want uint8 {self.shape}")
+        if sbs.shape != shape or sbs.dtype != np.uint8:
+            raise AssertionError(f"frame {sbs.dtype} {sbs.shape}, want uint8 {shape}")
         if depth is None or not np.isfinite(depth).all():
             raise AssertionError("depth missing or not finite")
+
+    def push(self, sbs, depth, stats) -> None:
+        self.check(sbs, depth, self.shape)
         self.count += 1
+
+
+class LockstepSource:
+    """Hands out the next frame only after the sink delivered the previous
+    one, so a switch made in the sink applies to exactly the next frame."""
+
+    def __init__(self, frames, count: int) -> None:
+        import threading
+
+        self.frames = frames
+        self.count = count
+        self.sent = 0
+        self.delivered = threading.Event()
+        self.delivered.set()
+
+    def grab(self):
+        if self.sent == self.count:
+            return None
+        if not self.delivered.wait(timeout=120.0):
+            raise TimeoutError("the sink delivered no frame for 120 s")
+        self.delivered.clear()
+        frame = self.frames[self.sent % len(self.frames)]
+        self.sent += 1
+        return frame
+
+
+class CyclingSink(CheckingNullSink):
+    """Checks each frame against its mode's shape and the K1 launches so far,
+    then requests the next display mode."""
+
+    def __init__(self, program, source, k1, modes, shapes) -> None:
+        super().__init__(None)
+        self.program, self.source, self.k1 = program, source, k1
+        self.modes, self.shapes = modes, shapes
+        self.k1_want = 0
+
+    def push(self, sbs, depth, stats) -> None:
+        mode = self.modes[self.count % len(self.modes)]
+        self.check(sbs, depth, self.shapes[mode])
+        self.k1_want += mode != "Depth"
+        if self.k1.launches != self.k1_want:
+            raise AssertionError(f"{mode}: {self.k1.launches} K1 launches after "
+                                 f"{self.count + 1} frames, want {self.k1_want}")
+        self.count += 1
+        self.program.cycle_display_mode()
+        self.source.delivered.set()
+
+
+def run_engine(FrameEngine, program, source, sink, counters, frames):
+    """Counts to 0, frames through FrameEngine, counts read: (fps, counts, stats)."""
+    engine = FrameEngine(source, program, sink, target_fps=0.0)
+    source.engine = engine
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    stats = engine.run(duration=600.0)
+    wall_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in counters.items()}
+    if engine.frames != frames or sink.count + engine.out_box.dropped != frames:
+        raise AssertionError(f"{engine.frames} frames run, {sink.count} delivered, "
+                             f"{engine.out_box.dropped} superseded; want {frames} run")
+    return frames / wall_s, counts, stats
+
+
+def stage_times(torch, programs, program, frame_np, cfg, spec, dev, generic: bool):
+    """Per-stage device ms at the stage seams (CUDA events, host launch gaps
+    included), median of TIMED_RUNS frames after 3 warm ones."""
+    p = program.program
+    state = programs.init_state(*programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]), device=dev)
+    names = ("pre", "model", "post", "stereo") if generic else ("pre", "model", "tail")
+    times = {n: [] for n in names + ("step",)}
+    with torch.inference_mode():
+        frame = torch.from_numpy(frame_np).to(dev)
+        for i in range(TIMED_RUNS + 3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            rgb, model_in = p.preprocess(frame)
+            ev[1].record()
+            raw = p.model_stage(model_in)
+            ev[2].record()
+            if generic:
+                small = p.post_stage(raw, state.ema_depth)
+                ev[3].record()
+                out, _ = p.stereo_stage(rgb, small)
+            else:
+                out, _, small = p.post_stereo_stage(raw, state.ema_depth, rgb)
+            ev[-1].record()
+            ev[-1].synchronize()
+            state = programs.FrameState(ema_depth=small)
+            if i >= 3:
+                for j, n in enumerate(names):
+                    times[n].append(ev[j].elapsed_time(ev[j + 1]))
+                times["step"].append(ev[0].elapsed_time(ev[-1]))
+    return {k: statistics.median(v) for k, v in times.items()}, out
+
+
+def reference_check(torch, name, card_prog, cpu_prog, frame):
+    sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
+    t0 = time.perf_counter()
+    sbs_r, depth_r = cpu_prog(frame)
+    cpu_s = time.perf_counter() - t0
+    if not torch.isfinite(depth_c).all() or sbs_c.shape != sbs_r.shape:
+        raise AssertionError(f"reference {name}: non-finite depth or shape mismatch")
+    d_err = (depth_c - depth_r).abs()
+    s_err = (sbs_c.int() - sbs_r.int()).abs().float()
+    ref = {"depth_mean_abs": d_err.mean().item(), "depth_max_abs": d_err.max().item(),
+           "sbs_mean_lsb": s_err.mean().item(), "sbs_max_lsb": s_err.max().item(),
+           "sbs_share_over_32": (s_err > 32).float().mean().item(), "cpu_s": cpu_s,
+           "shape": list(sbs_c.shape)}
+    ok = (ref["depth_mean_abs"] <= REF_DEPTH_MEAN_ABS and ref["sbs_mean_lsb"] <= REF_SBS_MEAN_LSB
+          and ref["sbs_share_over_32"] <= REF_SBS_SHARE_OVER_32)
+    log(f"[reference] {name}, 216x384 frame, card bf16 vs CPU f32: depth mean "
+        f"{ref['depth_mean_abs']:.4f} (tol {REF_DEPTH_MEAN_ABS}) max {ref['depth_max_abs']:.4f}; "
+        f"sbs {tuple(sbs_c.shape)} mean {ref['sbs_mean_lsb']:.3f} LSB (tol {REF_SBS_MEAN_LSB}) "
+        f"max {ref['sbs_max_lsb']:.0f}, >32 LSB {ref['sbs_share_over_32']:.2e} "
+        f"(tol {REF_SBS_SHARE_OVER_32}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"reference {name}: the card's output disagrees with the CPU f32 run")
+    return ref
 
 
 def main() -> int:
@@ -167,20 +344,28 @@ def main() -> int:
         return 2
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "measures the port on an NVIDIA GPU and has no CPU mode", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from desktop2stereo_tpu_torch.core.config import DISPLAY_MODES
     from desktop2stereo_tpu_torch.core.runtime import cuda_policy
     from desktop2stereo_tpu_torch.models.factory import build_bound
+    from desktop2stereo_tpu_torch.ops import stereo as S
     from desktop2stereo_tpu_torch.ops.kernels import attention as K2
     from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
+    from desktop2stereo_tpu_torch.ops.kernels import dibr_fill as K5
+    from desktop2stereo_tpu_torch.ops.kernels import warp as K3
     from desktop2stereo_tpu_torch.pipeline import programs
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
 
     report = {}
+    # launch counters by kernel (K1's two entry points share one)
+    counters = {"attention": K2.KERNEL, "dibr_pair": K1.KERNEL, "warp": K3.KERNEL,
+                "dibr_fill": K5.KERNEL}
 
     # -- 1. device ---------------------------------------------------------
     policy = cuda_policy(0, allow_tf32=False)
@@ -189,29 +374,32 @@ def main() -> int:
     log(card)
     log(f"[device] {policy.name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"compute {policy.compute_dtype}, TF32 matmul/cudnn "
-        f"{torch.backends.cuda.matmul.allow_tf32}/{torch.backends.cudnn.allow_tf32}")
+        f"{torch.backends.cuda.matmul.allow_tf32}/{torch.backends.cudnn.allow_tf32}; "
+        f"peaks for the bound {peaks(policy.name)}")
     report["card"] = card
 
-    # -- 2. build ----------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    for k in (K2.KERNEL, K1.KERNEL):
-        k.lib  # builds (if the hashed .so is missing) and loads
+    libs = list(counters.values())
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.lib, libs))  # builds (if missing) and loads
     build_s = time.perf_counter() - t0
-    log(f"[build] attention.cu + dibr_pair.cu built (nvcc "
-        + ", ".join(f"{k.source.name} {k.build_seconds:.2f} s" if k.build_seconds is not None
-                    else f"{k.source.name} already built" for k in (K2.KERNEL, K1.KERNEL))
-        + f") and loaded in {build_s:.2f} s")
+    log("[build] " + ", ".join(
+        f"{k.source.name} {k.build_seconds:.2f} s" if k.build_seconds is not None
+        else f"{k.source.name} already built" for k in libs)
+        + f" (nvcc in parallel); all loaded in {build_s:.2f} s")
     report["build_s"] = build_s
 
     # -- 3. kernel parity ----------------------------------------------------
-    dibr_worst = 0
+    worst = {"dibr_pair_half": 0.0, "dibr_pair_eyes": 0.0, "attention": 0.0,
+             "warp": 0.0, "dibr_fill": 0.0}
     for (eh, ew) in (EYE, (50, 200), (96, 256)):
         rng = np.random.default_rng(eh + ew)
         rgb = torch.from_numpy(rng.random((3, eh, ew), dtype=np.float32) * 255).to(dev)
         dep = torch.from_numpy(rng.random((eh, ew), dtype=np.float32)).to(dev)
-        for feather in (0.0, programs.FEATHER_WIDTH):
+        for feather in (0.0, S.FEATHER_WIDTH):
             for arrangement in ("sbs", "tab"):
-                kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01,
+                kw = dict(ipd=IPD, depth_strength=STRENGTH, convergence=0.01,
                           feather=feather, arrangement=arrangement)
                 got = K1.dibr_pair_half(rgb, dep, **kw)
                 want = K1.dibr_pair_half_ref(rgb, dep, **kw)
@@ -219,17 +407,26 @@ def main() -> int:
                 if got.shape != want.shape or got.dtype != torch.uint8:
                     raise AssertionError(f"dibr {got.dtype} {tuple(got.shape)} vs {tuple(want.shape)}")
                 diff = (got.int() - want.int()).abs()
-                lsb = int(diff.max().item())
-                share = (diff > 0).float().mean().item()
-                dibr_worst = max(dibr_worst, lsb)
-                ok = lsb <= DIBR_MAX_LSB and share <= DIBR_MAX_SHARE
-                log(f"[parity] dibr eye {eh}x{ew} feather={feather} {arrangement}: "
-                    f"max {lsb} LSB (tol {DIBR_MAX_LSB}), differing {share:.2e} "
-                    f"(tol {DIBR_MAX_SHARE:.0e}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("dibr kernel disagrees with its plain version")
+                lsb, share = int(diff.max().item()), (diff > 0).float().mean().item()
+                worst["dibr_pair_half"] = max(worst["dibr_pair_half"], lsb)
+                check_u8(f"dibr half eye {eh}x{ew} feather={feather} {arrangement}", lsb, share)
 
-    attn_worst = 0.0
+    for (h, w) in (FULL, (50, 200), (96, 256)):
+        rng = np.random.default_rng(h * w)
+        rgb = torch.from_numpy(rng.random((3, h, w), dtype=np.float32) * 255).to(dev)
+        dep = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        kw = dict(ipd=IPD, depth_strength=STRENGTH, convergence=0.01)
+        got = K1.dibr_pair_eyes(rgb, dep, **kw)
+        want = K1.dibr_pair_eyes_ref(rgb, dep, **kw)
+        torch.cuda.synchronize()
+        for side, g, wt in zip(("left", "right"), got, want):
+            if g.shape != (3, h, w) or g.dtype != torch.float32:
+                raise AssertionError(f"dibr eyes {g.dtype} {tuple(g.shape)}")
+            lsb, share = u8_diff(torch, g, wt)
+            f32 = (g - wt).abs().max().item()
+            worst["dibr_pair_eyes"] = max(worst["dibr_pair_eyes"], f32)
+            check_u8(f"dibr eyes {h}x{w} {side}", lsb, share, f"; f32 max abs {f32:.3e}")
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for shape, views in ((ATTN_SHAPE, True), (ATTN_SHAPE, False),
                          ((2, 130, 4, 64), False), ((1, 1370, 12, 64), False)):
@@ -244,143 +441,262 @@ def main() -> int:
         want = K2.attention_ref(q.float(), k.float(), v.float())
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        attn_worst = max(attn_worst, err)
+        worst["attention"] = max(worst["attention"], err)
         ok = err <= ATTN_MAX_ABS and got.shape == want.shape
         log(f"[parity] attention {list(shape)}{' qkv views' if views else ''} bf16: "
             f"max abs err {err:.3e} (tol {ATTN_MAX_ABS:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("attention kernel disagrees with its plain version")
 
+    def fast_px(dep):
+        """The fast compositor's reflected warp position, left eye."""
+        W = dep.shape[1]
+        shifts = -dep * STRENGTH * (IPD * W) * S.DEPTH_STRENGTH_SBS
+        base = torch.arange(W, dtype=torch.float32, device=dep.device)[None, :]
+        return S._reflect_coords(base + shifts, W).contiguous()
+
+    for (h, w, c) in ((*FULL, 3), (50, 200, 3), (96, 256, 3), (9, 1, 3)):
+        rng = np.random.default_rng(h + w + c)
+        img = torch.from_numpy(rng.random((h, w, c), dtype=np.float32) * 255).to(dev)
+        dep = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        px = fast_px(dep)
+        got = K3.horizontal_sample(img, px)
+        want = K3.horizontal_sample_ref(img, px)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst["warp"] = max(worst["warp"], err)
+        ok = err <= WARP_MAX_ABS and got.shape == want.shape
+        log(f"[parity] warp [{h},{w},{c}] reflected px at strength {STRENGTH}: max abs err "
+            f"{err:.3e} (tol {WARP_MAX_ABS:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("warp kernel disagrees with its plain version")
+
+    def fill_inputs(h, w, seed, eye=-IPD / 2):
+        """rgb, RAW depth, conf and clamped px as dibr_render builds them."""
+        rng = np.random.default_rng(seed)
+        rgb = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32) * 255).to(dev)
+        dep = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        _, px, _, conf = S.dibr_geometry(dep, eye, STRENGTH, 0.01)
+        return rgb, dep, conf.contiguous(), px.clamp(0.0, w - 1.0).contiguous()
+
+    for (h, w) in (FULL, (50, 200), (96, 256)):
+        args = fill_inputs(h, w, seed=h + 2 * w)
+        for sign in (-1.0, 1.0):
+            got = K5.dibr_warp_fill_blend(*args, sweep_sign=sign)
+            want = K5.dibr_warp_fill_blend_ref(*args, sweep_sign=sign)
+            torch.cuda.synchronize()
+            lsb, share = u8_diff(torch, got, want)
+            f32 = (got - want).abs().max().item()
+            worst["dibr_fill"] = max(worst["dibr_fill"], f32)
+            check_u8(f"dibr_fill {h}x{w} sweep {sign:+.0f}", lsb, share,
+                     f"; f32 max abs {f32:.3e}")
+
     # -- 4. kernel times -----------------------------------------------------
+    timing = {}
     rng = np.random.default_rng(1)
-    rgb = torch.from_numpy(rng.random((3, *EYE), dtype=np.float32) * 255).to(dev)
-    dep = torch.from_numpy(rng.random(EYE, dtype=np.float32)).to(dev)
-    dkw = dict(ipd=0.064, depth_strength=2.0, convergence=0.0, feather=0.0, arrangement="sbs")
-    dibr_plain_ms, dibr_ms = time_pair(
-        torch, lambda: K1.dibr_pair_half_ref(rgb, dep, **dkw),
-        lambda: K1.dibr_pair_half(rgb, dep, **dkw))
+    rgb_e = torch.from_numpy(rng.random((3, *EYE), dtype=np.float32) * 255).to(dev)
+    dep_e = torch.from_numpy(rng.random(EYE, dtype=np.float32)).to(dev)
+    dkw = dict(ipd=IPD, depth_strength=STRENGTH, convergence=0.0)
+    t = time_calls(torch, {"plain": lambda: K1.dibr_pair_half_ref(rgb_e, dep_e, **dkw),
+                           "kernel": lambda: K1.dibr_pair_half(rgb_e, dep_e, **dkw)})
+    px_e = EYE[0] * EYE[1]
+    timing["dibr_pair_half"] = dict(t, library=None, shape=f"eye {EYE[0]}x{EYE[1]} Half-SBS",
+                                    bound=bound_ms(policy.name, 4 * 4 * px_e + 2 * 3 * px_e,
+                                                   OPS_PER_PX["dibr_pair"] * px_e, False))
+    del rgb_e, dep_e
+
+    rgb_f = torch.from_numpy(rng.random((3, *FULL), dtype=np.float32) * 255).to(dev)
+    dep_f = torch.from_numpy(rng.random(FULL, dtype=np.float32)).to(dev)
+    t = time_calls(torch, {"plain": lambda: K1.dibr_pair_eyes_ref(rgb_f, dep_f, **dkw),
+                           "kernel": lambda: K1.dibr_pair_eyes(rgb_f, dep_f, **dkw)})
+    px_f = FULL[0] * FULL[1]
+    timing["dibr_pair_eyes"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} eyes f32",
+                                    bound=bound_ms(policy.name, 4 * 4 * px_f + 2 * 3 * 4 * px_f,
+                                                   OPS_PER_PX["dibr_pair"] * px_f, False))
+    del rgb_f, dep_f
+
     B, N, H, D = ATTN_SHAPE
     qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
-    attn_plain_ms, attn_ms = time_pair(
-        torch, lambda: K2.attention_ref(q, k, v), lambda: K2.attention(q, k, v))
-    for name, ms, plain_ms in ((f"dibr eye {EYE[0]}x{EYE[1]} Half-SBS", dibr_ms, dibr_plain_ms),
-                               (f"attention {list(ATTN_SHAPE)} bf16 qkv views", attn_ms,
-                                attn_plain_ms)):
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
-            f"(median of {TIMED_RUNS} samples of 10 back-to-back calls; {card})")
-    del rgb, dep, qkv, q, k, v
+    q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
+    qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))  # [B,H,N,D]
+    t = time_calls(torch, {"plain": lambda: K2.attention_ref(q, k, v),
+                           "kernel": lambda: K2.attention(q, k, v),
+                           "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+    timing["attention"] = dict(t, shape=f"{list(ATTN_SHAPE)} bf16 qkv views",
+                               bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
+                                              4 * B * H * N * N * D, True))
+    del qkv, q, k, v, qh, kh, vh
 
-    # -- 5. main path ------------------------------------------------------
+    rng = np.random.default_rng(2)
+    img = torch.from_numpy(rng.random((*FULL, 3), dtype=np.float32) * 255).to(dev)
+    dep = torch.from_numpy(rng.random(FULL, dtype=np.float32)).to(dev)
+    px = fast_px(dep)
+    # the library yardstick: grid_sample on NCHW with the row held fixed
+    img_nchw = img.permute(2, 0, 1)[None].contiguous()
+    gy = torch.linspace(-1.0, 1.0, FULL[0], device=dev)[:, None].expand(FULL)
+    grid = torch.stack([px / (FULL[1] - 1) * 2.0 - 1.0, gy], dim=-1)[None].contiguous()
+    t = time_calls(torch, {
+        "plain": lambda: K3.horizontal_sample_ref(img, px),
+        "kernel": lambda: K3.horizontal_sample(img, px),
+        "library": lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                         padding_mode="border", align_corners=True)})
+    timing["warp"] = dict(t, shape=f"[{FULL[0]},{FULL[1]},3] f32",
+                          bound=bound_ms(policy.name, (3 * 4 * 2 + 4) * px_f,
+                                         OPS_PER_PX["warp3"] * px_f, False))
+    del img, dep, px, img_nchw, grid, gy
+
+    args = fill_inputs(*FULL, seed=3)
+    t = time_calls(torch, {"plain": lambda: K5.dibr_warp_fill_blend_ref(*args, sweep_sign=-1.0),
+                           "kernel": lambda: K5.dibr_warp_fill_blend(*args, sweep_sign=-1.0)})
+    timing["dibr_fill"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} one eye",
+                               bound=bound_ms(policy.name, (3 * 4 * 2 + 3 * 4) * px_f,
+                                              OPS_PER_PX["dibr_fill"] * px_f, False))
+    del args
+    for name, tm in timing.items():
+        lib = f", library {tm['library']:.4f} ms" if tm.get("library") is not None else ""
+        log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms, plain "
+            f"{tm['plain']:.4f} ms{lib}, bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]}) "
+            f"per call (median of {TIMED_RUNS} samples of 10 back-to-back calls; {card})")
+    torch.cuda.empty_cache()
+
+    # -- 5. flagship path: Half-SBS, fused tail -------------------------------
     t0 = time.perf_counter()
     model, spec = build_bound(FLAGSHIP_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED)
     model_build_s = time.perf_counter() - t0
-    cfg = flagship_config(programs)
-    program = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
-    warm = program.warmup(FRAME_SHAPE)
-    log(f"[main] {FLAGSHIP_MODEL} built in {model_build_s:.1f} s; first calls "
-        + ", ".join(f"{k} {v:.2f}" for k, v in warm.items()))
-
-    frames = synthetic_frames(np, 4, FRAME_SHAPE[0], FRAME_SHAPE[1], SEED)
-    out_shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)  # output height 2160 keeps 4K
-    source = SaturatingSource(frames, FRAMES)
-    sink = CheckingNullSink(out_shape)
-    engine = FrameEngine(source, program, sink, target_fps=0.0)
-    source.engine = engine
-    K2.KERNEL.launches = 0
-    K1.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    stats = engine.run(duration=600.0)
-    wall_s = time.perf_counter() - t0
-    n_attn, n_dibr = K2.KERNEL.launches, K1.KERNEL.launches
     layers = len(model.backbone.layer)  # 24 for ViT-L
-    log(f"[main] {engine.frames} frames, {sink.count} delivered, {engine.dropped} dropped; "
-        f"launches: attention {n_attn} (want {layers}x{FRAMES}), dibr {n_dibr} (want {FRAMES})")
-    # the source waits for the engine, so no input frame is dropped; the
-    # sink side stays latest-wins, so a delivered frame may be superseded
-    if engine.frames != FRAMES or sink.count + engine.out_box.dropped != FRAMES:
-        raise AssertionError(f"{engine.frames} frames run, {sink.count} delivered, "
-                             f"{engine.out_box.dropped} superseded; want {FRAMES} run")
-    if n_attn != layers * FRAMES or n_dibr != FRAMES:
-        raise AssertionError("a kernel of the path was not launched once per layer/frame")
-    engine_fps = FRAMES / wall_s
+    frames = synthetic_frames(np, 4, FRAME_SHAPE[0], FRAME_SHAPE[1], SEED)
+    paths = {}
 
-    # per-stage device time, the three stage seams timed with CUDA events
-    p = program.program
-    state = programs.init_state(*programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]), device=dev)
-    stage_ms = {"pre": [], "model": [], "tail": [], "step": []}
-    with torch.inference_mode():
-        frame_dev = torch.from_numpy(frames[0]).to(dev)
-        for i in range(TIMED_RUNS + 3):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            rgb_h, model_in = p.preprocess(frame_dev)
-            ev[1].record()
-            raw = p.model_stage(model_in)
-            ev[2].record()
-            sbs, _, small = p.post_stereo_stage(raw, state.ema_depth, rgb_h)
-            ev[3].record()
-            ev[3].synchronize()
-            state = programs.FrameState(ema_depth=small)
-            if i >= 3:
-                for name, a, b in (("pre", 0, 1), ("model", 1, 2), ("tail", 2, 3), ("step", 0, 3)):
-                    stage_ms[name].append(ev[a].elapsed_time(ev[b]))
-    stage_med = {k: statistics.median(v) for k, v in stage_ms.items()}
-    log(f"[main] engine {engine_fps:.2f} frames/s over {FRAMES} frames "
-        f"(fps counter {stats.fps:.2f}); stage ms pre {stage_med['pre']:.3f}, "
-        f"model {stage_med['model']:.3f}, tail {stage_med['tail']:.3f}, "
-        f"step {stage_med['step']:.3f} (CUDA events at the stage seams, host launch "
-        f"gaps included, median of {TIMED_RUNS}); {card}")
-    if tuple(sbs.shape) != out_shape or sbs.dtype != torch.uint8:
-        raise AssertionError(f"step output {sbs.dtype} {tuple(sbs.shape)}")
+    def drive(name, mode, quality, want_shape, want):
+        """Warm up, run FRAMES frames through FrameEngine, check the counts
+        `want` (kernel → launches per frame), time the stages."""
+        cfg = config(programs, mode, quality)
+        program = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
+        warm = program.warmup(FRAME_SHAPE)
+        source = SaturatingSource(frames, FRAMES)
+        sink = CheckingNullSink(want_shape)
+        fps, counts, stats = run_engine(FrameEngine, program, source, sink, counters, FRAMES)
+        log(f"[{name}] {mode} {quality}: {FRAMES} frames, {sink.count} delivered; launches "
+            + ", ".join(f"{k} {n} (want {want.get(k, 0) * FRAMES})" for k, n in counts.items()))
+        if any(counts[k] != want.get(k, 0) * FRAMES for k in counts):
+            raise AssertionError(f"{name}: a kernel was not launched as the path needs")
+        generic = not program.program.fused(*FRAME_SHAPE[:2])
+        stages, out = stage_times(torch, programs, program, frames[0], cfg, spec, dev, generic)
+        if tuple(out.shape) != want_shape or out.dtype != torch.uint8:
+            raise AssertionError(f"{name}: step output {out.dtype} {tuple(out.shape)}")
+        log(f"[{name}] engine {fps:.2f} frames/s over {FRAMES} frames (fps counter "
+            f"{stats.fps:.2f}); stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f" (CUDA events at the stage seams, host launch gaps included, median of "
+            f"{TIMED_RUNS}); first calls " + ", ".join(f"{k} {v:.2f}" for k, v in warm.items())
+            + f"; {card}")
+        paths[name] = dict(mode=mode, quality=quality, engine_fps=fps, fps_counter=stats.fps,
+                           stage_ms=stages, warmup_s=warm, launches=counts)
+        return cfg
+
+    log(f"[main] {FLAGSHIP_MODEL} built in {model_build_s:.1f} s")
+    flagship_cfg = drive("main", "Half-SBS", "high", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
+                         {"attention": layers, "dibr_pair": 1})
 
     # -- 6. reference on a small frame: card bf16 vs CPU f32 ----------------
     small_frame = synthetic_frames(np, 1, 216, 384, SEED + 1)[0]
-    card_prog = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
-    sbs_c, depth_c = (t.cpu() for t in card_prog(small_frame))
-    del model, program, card_prog
-    torch.cuda.empty_cache()
     cpu_model, _ = build_bound(FLAGSHIP_MODEL, device="cpu", dtype=torch.float32, seed=SEED)
-    t0 = time.perf_counter()
-    sbs_r, depth_r = programs.ProgramCache(cfg, cpu_model, spec, compute_dtype=torch.float32)(small_frame)
-    cpu_s = time.perf_counter() - t0
-    if not torch.isfinite(depth_c).all() or sbs_c.shape != sbs_r.shape:
-        raise AssertionError("reference frame: non-finite depth or shape mismatch")
-    d_err = (depth_c - depth_r).abs()
-    s_err = (sbs_c.int() - sbs_r.int()).abs().float()
-    ref = {"depth_mean_abs": d_err.mean().item(), "depth_max_abs": d_err.max().item(),
-           "sbs_mean_lsb": s_err.mean().item(), "sbs_max_lsb": s_err.max().item(),
-           "sbs_share_over_32": (s_err > 32).float().mean().item(), "cpu_s": cpu_s}
-    ok = (ref["depth_mean_abs"] <= REF_DEPTH_MEAN_ABS and ref["sbs_mean_lsb"] <= REF_SBS_MEAN_LSB
-          and ref["sbs_share_over_32"] <= REF_SBS_SHARE_OVER_32)
-    log(f"[reference] 216x384 frame, card bf16 vs CPU f32: depth mean {ref['depth_mean_abs']:.4f} "
-        f"(tol {REF_DEPTH_MEAN_ABS}) max {ref['depth_max_abs']:.4f}; sbs mean "
-        f"{ref['sbs_mean_lsb']:.3f} LSB (tol {REF_SBS_MEAN_LSB}) max {ref['sbs_max_lsb']:.0f}, "
-        f">32 LSB {ref['sbs_share_over_32']:.2e} (tol {REF_SBS_SHARE_OVER_32}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the card's output disagrees with the CPU f32 reference")
+    refs = {}
 
+    def reference(name, cfg):
+        card_prog = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
+        cpu_prog = programs.ProgramCache(cfg, cpu_model, spec, compute_dtype=torch.float32)
+        refs[name] = reference_check(torch, f"{cfg.display_mode} {cfg.quality}", card_prog,
+                                     cpu_prog, small_frame)
+
+    reference("main", flagship_cfg)
+
+    # -- 7./8. generic tail, high and fast quality ----------------------------
+    full_cfg = drive("generic_high", "Full-SBS", "high", (FRAME_SHAPE[0], 2 * FRAME_SHAPE[1], 3),
+                     {"attention": layers, "dibr_pair": 1})
+    fast_cfg = drive("generic_fast", "Half-SBS", "fast", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
+                     {"attention": layers, "warp": 2})
+
+    # -- 9. mode cycling: every mode twice, switched after each frame -------
+    h, w = FRAME_SHAPE[:2]
+    shapes = {m: (h, w, 3) for m in DISPLAY_MODES}
+    shapes.update({"Full-SBS": (h, 2 * w, 3), "Full-TAB": (2 * h, w, 3)})
+    cycle = programs.ProgramCache(config(programs), model, spec,
+                                  compute_dtype=policy.compute_dtype)
+    n_cycle = 2 * len(DISPLAY_MODES)
+    source = LockstepSource(frames, n_cycle)
+    sink = CyclingSink(cycle, source, K1.KERNEL, DISPLAY_MODES, shapes)
+    for kern in counters.values():
+        kern.launches = 0
+    engine = FrameEngine(source, cycle, sink, target_fps=0.0)
+    t0 = time.perf_counter()
+    engine.run(duration=600.0)
+    cycle_s = time.perf_counter() - t0
+    cycle_counts = {n: kern.launches for n, kern in counters.items()}
+    want_k1 = n_cycle - 2  # Depth, twice, runs no DIBR
+    log(f"[cycle] {sink.count} frames through all {len(DISPLAY_MODES)} modes twice in "
+        f"{cycle_s:.2f} s, each output shape checked; launches "
+        + ", ".join(f"{k} {n}" for k, n in cycle_counts.items())
+        + f" (want dibr_pair {want_k1}, attention {layers * n_cycle})")
+    if (sink.count != n_cycle or cycle_counts["dibr_pair"] != want_k1
+            or cycle_counts["attention"] != layers * n_cycle):
+        raise AssertionError("mode cycling: frames or launches off")
+    report["cycle"] = dict(frames=sink.count, seconds=cycle_s, launches=cycle_counts)
+    del cycle, engine
+
+    # -- 10. dibr_render at 4K, both eyes: K5 ---------------------------------
+    rng = np.random.default_rng(4)
+    rgb = torch.from_numpy(rng.random((*FULL, 3), dtype=np.float32) * 255).to(dev)
+    dep = torch.from_numpy(rng.random(FULL, dtype=np.float32)).to(dev)
+    for kern in counters.values():
+        kern.launches = 0
+    eyes = [S.dibr_render(rgb, dep, e * IPD / 2, STRENGTH, 0.0) for e in (-1, 1)]
+    torch.cuda.synchronize()
+    render_counts = {n: kern.launches for n, kern in counters.items()}
+    ok = (render_counts["dibr_fill"] == 2 and sum(render_counts.values()) == 2
+          and all(bool(torch.isfinite(e).all()) and e.min().item() >= 0.0
+                  and e.max().item() <= 255.0 and e.shape == rgb.shape for e in eyes))
+    log(f"[dibr_render] both eyes at {FULL[0]}x{FULL[1]}: launches "
+        + ", ".join(f"{k} {n}" for k, n in render_counts.items())
+        + f" (want dibr_fill 2); outputs finite in [0, 255] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("dibr_render did not run K5 twice, or its output is off")
+    del rgb, dep, eyes
+
+    # -- 11. reference for the generic tail ------------------------------------
+    reference("generic_high", full_cfg)
+    reference("generic_fast", fast_cfg)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, key, launches):
+        tm = timing[key]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": float(worst[key]), "ms": tm["kernel"],
+                "plain_ms": tm["plain"], "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1], "library_ms": tm.get("library")}
+
+    csrc = "desktop2stereo_tpu_torch/csrc/"
+    pallas = "desktop2stereo_tpu/ops/pallas/"
     kernels = [
-        {"name": "attention", "route": "cuda",
-         "source": "desktop2stereo_tpu_torch/csrc/attention.cu",
-         "replaces": "desktop2stereo_tpu/ops/pallas/flash_attention.py:79",
-         "launches": n_attn, "max_abs_err": attn_worst, "ms": attn_ms,
-         "plain_ms": attn_plain_ms},
-        {"name": "dibr_pair_half", "route": "cuda",
-         "source": "desktop2stereo_tpu_torch/csrc/dibr_pair.cu",
-         "replaces": "desktop2stereo_tpu/ops/pallas/dibr.py:535",
-         "launches": n_dibr, "max_abs_err": float(dibr_worst), "ms": dibr_ms,
-         "plain_ms": dibr_plain_ms},
+        entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
+              "dibr_pair_half", paths["main"]["launches"]["dibr_pair"]),
+        entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
+              "dibr_pair_eyes", paths["generic_high"]["launches"]["dibr_pair"]),
+        entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention", paths["main"]["launches"]["attention"]),
+        entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
+              paths["generic_fast"]["launches"]["warp"]),
+        entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
+              render_counts["dibr_fill"]),
     ]
-    report.update(kernels=kernels, frames=FRAMES, engine_fps=engine_fps,
-                  fps_counter=stats.fps, stage_ms=stage_med, warmup_s=warm,
-                  model_build_s=model_build_s, reference=ref,
+    report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
+                  reference=refs, model_build_s=model_build_s,
                   torch=torch.__version__, cuda=torch.version.cuda)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

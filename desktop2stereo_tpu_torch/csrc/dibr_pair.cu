@@ -1,12 +1,14 @@
 // Both stereo eyes in one pass: depth pre-smooth and shaping, edge falloff,
 // disocclusion confidence, push-pull background inpaint, vertical blur,
-// per-eye bilinear warp and confidence blend, optional edge feather, u8
-// quantisation, and the Half-SBS / Half-TAB arrangement of the finished
-// HWC frame.
+// per-eye bilinear warp and confidence blend, optional edge feather, then
+// either u8 quantisation into the Half-SBS / Half-TAB arrangement of the
+// finished HWC frame (d2s_dibr_pair_half) or both eyes as planar f32
+// (d2s_dibr_pair_eyes, the generic stereo tail's full-width eyes).
 //
 // Replaces: desktop2stereo_tpu/ops/pallas/dibr.py:dibr_render_pair_planar
-// (kernel body _dibr_pair_kernel, out_mode="eyes_u8"), plus the XLA concat
-// and CHW->HWC transpose that follow it in pipeline/programs.py.  The TPU
+// (kernel body _dibr_pair_kernel): out_mode="eyes_u8" plus the XLA concat
+// and CHW->HWC transpose that follow it in pipeline/programs.py, and
+// out_mode="eyes" as ops/stereo.py:stereo_compose calls it.  The TPU
 // kernel owns a full-width row tile in VMEM, reads +-1 tile row halos, and
 // decomposes the data-dependent warp into lane-group gathers over an
 // edge-padded frame.  On the GPU the warp is a plain indexed load, so none
@@ -24,7 +26,9 @@
 // within rounding of the plain PyTorch version (dibr_pair_half_ref).
 //
 // What bounds it on the H100: at the 4K eye (2160 x 1920) the kernel reads
-// 4 f32 planes (~66 MB) and writes 25 MB of u8; each pixel's 24 sweep taps,
+// 4 f32 planes (~66 MB) and writes 25 MB of u8 (~27 us at 3.35 TB/s); the
+// eyes mode at the full 4K frame (2160 x 3840) reads 133 MB and writes two
+// f32 eyes, 199 MB (~99 us).  Each pixel's 24 sweep taps,
 // 4 vertical taps and 2 warp gathers hit neighbouring addresses that L1/L2
 // serve, so it should be bound by L1/L2 bandwidth and HBM, not arithmetic.
 // Row-tiling through shared memory is the obvious next step.
@@ -90,9 +94,13 @@ __device__ __forceinline__ uint8_t quantize(float x) {
   return (uint8_t)(int)fminf(fmaxf(x + 0.5f, 0.0f), 255.0f);
 }
 
+// kEyes = false: out0 is the u8 Half-SBS/TAB frame (out1 unused);
+// kEyes = true: out0 / out1 are the left / right planar f32 [3, H, W] eyes.
+template <bool kEyes>
 __global__ void dibr_pair_kernel(const float* __restrict__ rgb,
                                  const float* __restrict__ dep,
-                                 uint8_t* __restrict__ out, DibrParams p) {
+                                 void* __restrict__ out0,
+                                 void* __restrict__ out1, DibrParams p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
   const int W = p.width;
@@ -201,7 +209,9 @@ __global__ void dibr_pair_kernel(const float* __restrict__ rgb,
     const int i1 = min(i0 + 1, W - 1);
     const float conf = oob ? 1.0f : conf_base;
     size_t o;
-    if (p.tab) {
+    if (kEyes) {
+      o = (size_t)y * W + x;
+    } else if (p.tab) {
       o = ((size_t)(e * H + y) * W + x) * 3;
     } else {
       o = ((size_t)y * (2 * W) + (size_t)e * W + x) * 3;
@@ -213,26 +223,17 @@ __global__ void dibr_pair_kernel(const float* __restrict__ rgb,
       const float color = g0 * (1.0f - frac) + g1 * frac;
       float val = color + conf * (filled[c] - color);
       if (p.feather) val = val * fmask;
-      out[o + c] = quantize(val);
+      if (kEyes) {
+        static_cast<float*>(e == 0 ? out0 : out1)[c * plane + o] = val;
+      } else {
+        static_cast<uint8_t*>(out0)[o + c] = quantize(val);
+      }
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* d2s_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// rgb: contiguous planar [3, height, width] f32 (0..255); dep: contiguous
-// [height, width] f32 in [0, 1]; out: contiguous u8, [height, 2*width, 3]
-// (tab = 0) or [2*height, width, 3] (tab = 1).
-int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int height,
-                       int width, float ipd, float depth_strength,
-                       float convergence, double feather, int tab,
-                       void* stream) {
+DibrParams make_params(int height, int width, float ipd, float depth_strength,
+                       float convergence, double feather, int tab) {
   DibrParams p;
   p.height = height;
   p.width = width;
@@ -259,12 +260,50 @@ int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int height,
     p.fwd_b[t - 1] = (float)(10.0 * fw);
     p.bwd_w[t - 1] = (float)exp(-(double)t * 0.2);
   }
+  return p;
+}
+
+template <bool kEyes>
+int launch(const void* rgb, const void* dep, void* out0, void* out1,
+           const DibrParams& p, void* stream) {
   const dim3 block(128);
-  const dim3 grid((width + block.x - 1) / block.x, height);
-  dibr_pair_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rgb), static_cast<const float*>(dep),
-      static_cast<uint8_t*>(out), p);
+  const dim3 grid((p.width + block.x - 1) / block.x, p.height);
+  dibr_pair_kernel<kEyes><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rgb), static_cast<const float*>(dep), out0,
+      out1, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* d2s_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// rgb: contiguous planar [3, height, width] f32 (0..255); dep: contiguous
+// [height, width] f32 in [0, 1]; out: contiguous u8, [height, 2*width, 3]
+// (tab = 0) or [2*height, width, 3] (tab = 1).
+int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int height,
+                       int width, float ipd, float depth_strength,
+                       float convergence, double feather, int tab,
+                       void* stream) {
+  return launch<false>(rgb, dep, out, nullptr,
+                       make_params(height, width, ipd, depth_strength,
+                                   convergence, feather, tab),
+                       stream);
+}
+
+// rgb, dep as above; out_l, out_r: contiguous planar [3, height, width] f32,
+// unfeathered (the generic tail feathers the eyes itself).
+int d2s_dibr_pair_eyes(const void* rgb, const void* dep, void* out_l,
+                       void* out_r, int height, int width, float ipd,
+                       float depth_strength, float convergence, void* stream) {
+  return launch<true>(rgb, dep, out_l, out_r,
+                      make_params(height, width, ipd, depth_strength,
+                                  convergence, 0.0, 0),
+                      stream);
 }
 
 }  // extern "C"

@@ -11,12 +11,13 @@ zero cls/position tables).  Weights from a JAX parameter tree load through
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
+from desktop2stereo_tpu_torch.core.runtime import COMPUTE_DTYPE, cuda_policy
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
 from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
@@ -50,13 +51,20 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def build_bound(name: str, device: torch.device | str = "cpu",
-                dtype: torch.dtype = torch.float32,
+def build_bound(name: str, device: Optional[torch.device | str] = None,
+                dtype: Optional[torch.dtype] = None,
                 seed: int = 0) -> Tuple[DepthAnything, ModelSpec]:
     """Registry name → (eval-mode model on `device` in `dtype`, spec).
 
-    The weights are drawn on the CPU, so one seed gives the same model on
-    every device."""
+    `device=None` is the CUDA device policy's (`cuda_policy()`, which raises
+    without CUDA); a caller that wants the CPU says so.  `dtype=None` is the
+    policy's compute dtype on a CUDA device and float32 on the CPU.  The
+    weights are drawn on the CPU, so one seed gives the same model on every
+    device."""
+    if device is None:
+        device = cuda_policy().device
+    if dtype is None:
+        dtype = COMPUTE_DTYPE if torch.device(device).type == "cuda" else torch.float32
     spec = get_spec(name)
     model = init_random(DepthAnything.from_spec(spec), seed)
     return model.to(device=device, dtype=dtype).eval(), spec

@@ -1,12 +1,14 @@
 """Both-eyes DIBR kernel (csrc/dibr_pair.cu) and its plain version.
 
-Replaces `desktop2stereo_tpu/ops/pallas/dibr.py:dibr_render_pair_planar` as
-the flagship tail uses it (`out_mode="eyes_u8"`, then an XLA concat and
-transpose): the kernel writes the finished Half-SBS [eh, 2·ew, 3] or
-Half-TAB [2·eh, ew, 3] u8 frame.  Inputs are the eye-size planar rgb
-[3, eh, ew] f32 (0..255) and depth [eh, ew] f32 in [0, 1].  No edge padding:
-clamp-to-edge reads on the true frame equal the JAX kernel's reads of its
-edge-padded frame.
+Replaces `desktop2stereo_tpu/ops/pallas/dibr.py:dibr_render_pair_planar` in
+its two uses: the flagship tail's (`out_mode="eyes_u8"`, then an XLA concat
+and transpose), where `dibr_pair_half` writes the finished Half-SBS
+[eh, 2·ew, 3] or Half-TAB [2·eh, ew, 3] u8 frame; and the generic stereo
+tail's (`out_mode="eyes"`), where `dibr_pair_eyes` writes both eyes as planar
+f32 [3, h, w] at the full frame width.  Inputs are planar rgb [3, h, w] f32
+(0..255) and depth [h, w] f32 in [0, 1].  No edge padding: clamp-to-edge
+reads on the true frame equal the JAX kernel's reads of its edge-padded
+frame.  Both entry points launch the same kernel and count on one `KERNEL`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
+from desktop2stereo_tpu_torch.ops.kernels.warp import clamp_shift
 
 SEARCH_RADIUS = 12
 DEPTH_TOLERANCE = 0.012
@@ -30,25 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaLibrary(
     "dibr_pair.cu",
     {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _F, _F, _F, ctypes.c_double,
-                            _I, _P]},
+                            _I, _P],
+     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]},
     # no contracted multiply-adds: keeps the kernel within rounding of the
     # plain version, whose every op rounds on its own
     extra_flags=("-fmad=false",),
 )
-
-
-def _cols(x: torch.Tensor, off: int) -> torch.Tensor:
-    """x[..., clamp(j + off)] (clamp-to-edge column shift)."""
-    w = x.shape[-1]
-    idx = (torch.arange(w, device=x.device) + off).clamp_(0, w - 1)
-    return x.index_select(-1, idx)
-
-
-def _rows(x: torch.Tensor, off: int) -> torch.Tensor:
-    """x[..., clamp(i + off), :] (clamp-to-edge row shift)."""
-    h = x.shape[-2]
-    idx = (torch.arange(h, device=x.device) + off).clamp_(0, h - 1)
-    return x.index_select(-2, idx)
 
 
 def _smoothstep(t: torch.Tensor) -> torch.Tensor:
@@ -94,11 +84,11 @@ def dibr_pair_eyes_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
     """
     rgb, d = rgb_h, dep_h
     H, W = d.shape
-    h_lo = _cols(d, -2) * 0.5 + _cols(d, -1) * 0.5  # tap at -1.5 px
-    h_hi = _cols(d, 1) * 0.5 + _cols(d, 2) * 0.5    # tap at +1.5 px
+    h_lo = clamp_shift(d, -2, -1) * 0.5 + clamp_shift(d, -1, -1) * 0.5  # tap at -1.5 px
+    h_hi = clamp_shift(d, 1, -1) * 0.5 + clamp_shift(d, 2, -1) * 0.5    # tap at +1.5 px
     smooth = _fma(h_hi, 0.15, _fma(d, 0.7, h_lo * 0.15))
     cdi = -smooth
-    jump = (_cols(d, -2) - _cols(d, 2)).abs()
+    jump = (clamp_shift(d, -2, -1) - clamp_shift(d, 2, -1)).abs()
     conf_base = _smoothstep(((jump - 0.04) / (0.10 - 0.04)).clamp(0.0, 1.0))
     # shaped depth (-s)·(1 + 0.35·(1 - s)), plus the convergence offset
     shaped_conv = _fma(-smooth, _fma(0.35, 1.0 - smooth, 1.0), convergence)
@@ -119,14 +109,14 @@ def dibr_pair_eyes_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
         wsum = torch.zeros_like(d)
         for t in range(1, SEARCH_RADIUS + 1):
             off = direction * t
-            s_inv = _cols(inv_raw, off)
+            s_inv = clamp_shift(inv_raw, off, -1)
             dist = math.exp(-float(t) * decay)
             if depth_weighted:
                 w = dist * pre_w + (10.0 * dist) * s_inv
             else:
                 w = torch.full_like(d, dist)
             w = torch.where((s_inv > thr) & (wsum <= 5.0), w, 0.0)
-            acc = acc + _cols(rgb, off) * w
+            acc = acc + clamp_shift(rgb, off, -1) * w
             wsum = wsum + w
         return acc, wsum
 
@@ -136,9 +126,9 @@ def dibr_pair_eyes_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
     vadd = torch.zeros_like(rgb)
     vert_w = torch.full_like(d, 0.5)
     for off in (-VSHIFT, VSHIFT):
-        w = torch.where((1.0 - _rows(d, off)) > cdi + DEPTH_TOLERANCE * 0.5,
+        w = torch.where((1.0 - clamp_shift(d, off, -2)) > cdi + DEPTH_TOLERANCE * 0.5,
                         0.25, 0.0)
-        vadd = vadd + _rows(rgb, off) * w
+        vadd = vadd + clamp_shift(rgb, off, -2) * w
         vert_w = vert_w + w
     inv_vw = 1.0 / vert_w
 
@@ -197,7 +187,7 @@ def dibr_pair_half_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
     return both.permute(1, 2, 0).contiguous()
 
 
-def check_inputs(rgb_h: torch.Tensor, dep_h: torch.Tensor, arrangement: str) -> None:
+def check_inputs(rgb_h: torch.Tensor, dep_h: torch.Tensor, arrangement: str = "sbs") -> None:
     """Raise ValueError for anything the kernel does not take."""
     if arrangement not in ARRANGEMENTS:
         raise ValueError(f"arrangement must be one of {ARRANGEMENTS}, got {arrangement!r}")
@@ -214,21 +204,47 @@ def check_inputs(rgb_h: torch.Tensor, dep_h: torch.Tensor, arrangement: str) -> 
         raise ValueError(f"dibr kernel: unsupported eye size {eh}x{ew}")
 
 
+def _on_cpu(rgb_h: torch.Tensor, dep_h: torch.Tensor) -> bool:
+    """True for CPU inputs (the plain version); False for one CUDA device."""
+    if rgb_h.device.type == "cpu" and dep_h.device.type == "cpu":
+        return True
+    if rgb_h.device != dep_h.device or rgb_h.device.type != "cuda":
+        raise ValueError(f"dibr: rgb and depth must share one CUDA device (or "
+                         f"both be on the CPU), got {rgb_h.device}, {dep_h.device}")
+    return False
+
+
+def dibr_pair_eyes(rgb: torch.Tensor, dep: torch.Tensor, *, ipd: float,
+                   depth_strength: float,
+                   convergence: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both eyes, unfeathered → (left, right) planar f32 [3, h, w].  CPU
+    tensors take `dibr_pair_eyes_ref`; CUDA tensors take the kernel or
+    raise."""
+    check_inputs(rgb, dep)
+    if _on_cpu(rgb, dep):
+        return dibr_pair_eyes_ref(rgb, dep, ipd=ipd, depth_strength=depth_strength,
+                                  convergence=convergence)
+    h, w = dep.shape
+    left = torch.empty_like(rgb)
+    right = torch.empty_like(rgb)
+    stream = torch.cuda.current_stream(rgb.device).cuda_stream
+    KERNEL.call("d2s_dibr_pair_eyes", rgb.data_ptr(), dep.data_ptr(),
+                left.data_ptr(), right.data_ptr(), h, w, float(ipd),
+                float(depth_strength), float(convergence), stream)
+    return left, right
+
+
 def dibr_pair_half(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
                    depth_strength: float, convergence: float,
                    feather: float = 0.0, arrangement: str = "sbs") -> torch.Tensor:
     """Both eyes → u8 [eh, 2·ew, 3] ("sbs") or [2·eh, ew, 3] ("tab").
     CPU tensors take `dibr_pair_half_ref`; CUDA tensors take the kernel or
     raise."""
-    kw = dict(ipd=ipd, depth_strength=depth_strength, convergence=convergence,
-              feather=feather, arrangement=arrangement)
-    if rgb_h.device.type == "cpu" and dep_h.device.type == "cpu":
-        check_inputs(rgb_h, dep_h, arrangement)
-        return dibr_pair_half_ref(rgb_h, dep_h, **kw)
-    if rgb_h.device != dep_h.device or rgb_h.device.type != "cuda":
-        raise ValueError(f"dibr: rgb and depth must share one CUDA device (or "
-                         f"both be on the CPU), got {rgb_h.device}, {dep_h.device}")
     check_inputs(rgb_h, dep_h, arrangement)
+    if _on_cpu(rgb_h, dep_h):
+        return dibr_pair_half_ref(rgb_h, dep_h, ipd=ipd, depth_strength=depth_strength,
+                                  convergence=convergence, feather=feather,
+                                  arrangement=arrangement)
     eh, ew = dep_h.shape
     tab = arrangement == "tab"
     shape = (2 * eh, ew, 3) if tab else (eh, 2 * ew, 3)

@@ -2,7 +2,8 @@
 
 Port of `desktop2stereo_tpu/ops/resize.py`.  `resize_weights` builds the same
 [out, in] numpy tables (float64 math, float32 result) as the JAX package;
-`resize` applies them along H then W with `torch.matmul`.  Layout follows the
+`resize` applies them along H then W with `torch.matmul` (an integer
+"area" downscale as a block mean).  Layout follows the
 JAX package: NHWC / HWC / HW, spatial axes at ndim-3 and ndim-2 (HW for 2-D).
 """
 
@@ -42,15 +43,24 @@ def resize_weights(
 ) -> np.ndarray:
     """[out_size, in_size] float32 row matrix replicating torch F.interpolate.
 
-    Modes: "bilinear", "bicubic" (the JAX package's "area" and "nearest" and
-    its `scale_override` come with the paths that use them).  Clamp-to-edge
+    Modes: "bilinear", "bicubic", "area" (the JAX package's "nearest" and its
+    `scale_override` come with the paths that use them).  Clamp-to-edge
     borders; antialias windows truncate at the edge and renormalize (aten's
     AA path).
     """
-    if in_size == out_size:
+    if in_size == out_size and mode != "area":
         return np.eye(out_size, dtype=np.float32)
 
     W = np.zeros((out_size, in_size), dtype=np.float64)
+
+    if mode == "area":
+        # F.interpolate(mode="area") == adaptive average pooling: output i
+        # averages the inputs in [floor(i·in/out), ceil((i+1)·in/out))
+        for i in range(out_size):
+            start = (i * in_size) // out_size
+            end = -(-((i + 1) * in_size) // out_size)
+            W[i, start:end] = 1.0 / (end - start)
+        return W.astype(np.float32)
 
     if mode == "bilinear":
         support, kernel = 1.0, _triangle_kernel
@@ -100,11 +110,13 @@ def _table(n_in: int, n_out: int, mode: str, align_corners: bool,
            device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A resize table as a tensor on `device`, uploaded once per key (the 4K
     tables are several MB; re-uploading them every frame would be an H2D
-    copy per resize)."""
+    copy per resize).  Made outside inference mode, so that a table first
+    built under `torch.inference_mode` also serves callers outside it."""
     w = resize_weights(n_in, n_out, mode, align_corners, antialias)
     if halved:
         w = 0.5 * (w[0::2] + w[1::2])  # fold the pair-mean into the table
-    return torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device, dtype)
 
 
 def _apply_1d(x: torch.Tensor, w: torch.Tensor, axis: int) -> torch.Tensor:
@@ -131,15 +143,27 @@ def resize(
     align_corners: bool = False,
     antialias: bool = False,
 ) -> torch.Tensor:
-    """Resize NHWC / HWC / HW to `size` (H, W) with F.interpolate semantics."""
+    """Resize NHWC / HWC / HW to `size` (H, W) with F.interpolate semantics.
+
+    An "area" downscale by an integer factor is a block mean, computed as a
+    reshape and a sum instead of the dense table: each table row holds 1/f
+    on f adjacent inputs, and for the factor 2 of the Half modes
+    (a + b) / 2 rounds exactly as 0.5·a + 0.5·b.  At 4K the dense table
+    would be [3840, 7680] f32 (118 MB) and ~0.4 TFLOP a frame."""
     h_axis = x.ndim - 3 if x.ndim >= 3 else 0
     if tuple(x.shape[h_axis:h_axis + 2]) == tuple(size):
         return x
     if not x.is_floating_point():
         x = x.float()
     for axis, n_out in ((h_axis, size[0]), (h_axis + 1, size[1])):
-        if x.shape[axis] != n_out:
-            w = _table(x.shape[axis], n_out, mode, align_corners, antialias, False,
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        if mode == "area" and n_in % n_out == 0:
+            f = n_in // n_out
+            x = x.unflatten(axis, (n_out, f)).sum(axis + 1) / f
+        else:
+            w = _table(n_in, n_out, mode, align_corners, antialias, False,
                        x.device, x.dtype)
             x = _apply_1d(x, w, axis)
     return x

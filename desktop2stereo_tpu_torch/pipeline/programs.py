@@ -1,25 +1,30 @@
-"""The frame path: preprocess → model → depth post + EMA + DIBR stereo tail.
+"""The frame path: preprocess → model → depth post + EMA → stereo tail.
 
-Port of the fused branch of `desktop2stereo_tpu/pipeline/programs.py`
-(`_build_step` with the Half-SBS / Half-TAB fused stereo tail).  Three
-stages, kept as separate methods so each can be timed on its own:
+Port of `desktop2stereo_tpu/pipeline/programs.py` (`_build_step` and
+`ProgramCache`).  Two tails, chosen per frame as the JAX package chooses:
 
-- `preprocess`: u8 BGRA capture → planar f32 [3,H,W] → (optional output
-  downscale) → bicubic+antialias model input (NHWC, compute dtype) and the
-  pair-mean squeeze to the eye buffer [3, eh, ew];
-- `model_stage`: the depth network at model resolution;
-- `post_stereo_stage`: depth post + temporal EMA at model resolution, the
-  depth resize to eye size (`resize_halved`, or upsample then pair-mean when
-  the full-resolution depth is an output), and the DIBR kernel, which writes
-  the finished u8 HWC frame.
+- the fused tail, for high quality Half-SBS / Half-TAB with no 16:9 fill
+  and an even halved axis:
+  `preprocess` builds the planar f32 frame and pair-mean squeezes it to the
+  eye buffer [3, eh, ew]; `post_stereo_stage` runs depth post + EMA at model
+  resolution, resizes depth to eye size, and the DIBR kernel K1 writes the
+  finished u8 HWC frame;
+- the generic tail, for everything else: `preprocess` keeps the HWC frame
+  [oh, ow, 3] in the compute dtype; `post_stage` runs depth post + EMA,
+  `stereo_stage` upsamples depth to output size and `ops/stereo.py`
+  composes the display mode (K1 eyes mode at high quality, the warp kernel
+  K3 at fast quality), then the u8 cast.
 
-PyTorch runs these eagerly; there is no jit analog.  Other display modes,
-fast quality, fill_16_9 and odd halved axes raise NotImplementedError naming
-the ROADMAP item; nothing falls back to another path.
+Each stage is its own method so that it can be timed on its own.  PyTorch
+runs them eagerly; there is no jit analog.  `ProgramCache` carries the EMA
+state per (stream, output size) and switches display mode, depth strength
+and edge feather live, at the start of the next frame.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -27,16 +32,18 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from desktop2stereo_tpu_torch.core.config import DISPLAY_MODES
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
 from desktop2stereo_tpu_torch.ops.depth_post import ema, post_process_depth
-from desktop2stereo_tpu_torch.ops.kernels.dibr import dibr_pair_half
+from desktop2stereo_tpu_torch.ops.kernels.dibr import dibr_pair_half, quantize_u8
 from desktop2stereo_tpu_torch.ops.normalize import (
     bgra_to_rgb, normalize_for_model, process_frame_size)
 from desktop2stereo_tpu_torch.ops.resize import (
     patch_aligned_size, resize, resize_halved)
+from desktop2stereo_tpu_torch.ops.stereo import FEATHER_WIDTH, stereo_compose
 
-FEATHER_WIDTH = 0.02  # per-eye edge feather band, fraction of the view
 HALF_MODES = ("Half-SBS", "Half-TAB")
+QUALITIES = ("high", "fast")
 
 
 class FrameState(NamedTuple):
@@ -65,24 +72,18 @@ class ProgramConfig:
     aa_strength: float
     ema_alpha: float
     temporal_smooth: bool
-    quality: str
+    quality: str  # "high": DIBR + inpaint; "fast": the grid-shift compositor
     edge_feather: bool = False
     fill_16_9: bool = False
     emit_depth: str = "full"  # "full": depth at output res; "model": model res
 
 
 def check_supported(cfg: ProgramConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
-    if cfg.display_mode not in HALF_MODES:
-        raise NotImplementedError(
-            f"display mode {cfg.display_mode!r}: the port renders Half-SBS and "
-            f"Half-TAB; other modes are ROADMAP A2")
-    if cfg.quality != "high":
-        raise NotImplementedError(
-            f"quality {cfg.quality!r}: the port has the high-quality DIBR tail "
-            f"only; fast quality (the warp kernel K3) is ROADMAP A2")
-    if cfg.fill_16_9:
-        raise NotImplementedError("fill_16_9 (per-eye 16:9 padding) is ROADMAP A2")
+    """Raise ValueError for a setting outside the known values."""
+    if cfg.display_mode not in DISPLAY_MODES:
+        raise ValueError(f"unknown display mode {cfg.display_mode!r}; one of {DISPLAY_MODES}")
+    if cfg.quality not in QUALITIES:
+        raise ValueError(f"quality must be one of {QUALITIES}, got {cfg.quality!r}")
     if cfg.emit_depth not in ("full", "model"):
         raise ValueError(f"emit_depth must be 'full' or 'model', got {cfg.emit_depth!r}")
 
@@ -94,7 +95,7 @@ def ema_shape(cfg: ProgramConfig, spec: ModelSpec, frame_h: int, frame_w: int) -
 
 
 class FrameProgram:
-    """The three stages for one ProgramConfig and model; holds no frame state."""
+    """The stages for one ProgramConfig and model; holds no frame state."""
 
     def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
                  spec: Optional[ModelSpec] = None,
@@ -105,18 +106,41 @@ class FrameProgram:
         self.spec = spec or get_spec(cfg.model_name)
         self.compute_dtype = compute_dtype
         self.tab = cfg.display_mode == "Half-TAB"
+        self._fused_cfg = (cfg.quality == "high" and cfg.display_mode in HALF_MODES
+                           and not cfg.fill_16_9)
 
     def output_size(self, h0: int, w0: int) -> Tuple[int, int]:
-        oh, ow = process_frame_size(h0, w0, self.cfg.output_height)
-        if (oh if self.tab else ow) % 2:
-            raise NotImplementedError(
-                f"output {oh}x{ow}: {self.cfg.display_mode} needs an even "
-                f"{'height' if self.tab else 'width'}; odd halved axes take the "
-                f"generic tail, ROADMAP A2")
-        return oh, ow
+        return process_frame_size(h0, w0, self.cfg.output_height)
+
+    def fused(self, h0: int, w0: int) -> bool:
+        """Whether a capture of this size takes the fused tail (the halved
+        axis must be even; an odd one takes the generic tail)."""
+        oh, ow = self.output_size(h0, w0)
+        return self._fused_cfg and (oh if self.tab else ow) % 2 == 0
 
     def preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[H,W,4|3] u8 BGRA → (eye buffer [3,eh,ew] f32, model input [1,mh,mw,3])."""
+        """[H,W,4|3] u8 BGRA → (rgb, model input [1,mh,mw,3]): rgb is the eye
+        buffer [3,eh,ew] f32 on the fused tail, the frame [oh,ow,3] in the
+        compute dtype on the generic tail."""
+        if self.fused(frame_u8.shape[0], frame_u8.shape[1]):
+            return self._fused_preprocess(frame_u8)
+        return self._shared_preprocess(frame_u8)
+
+    def _model_input(self, mi: torch.Tensor) -> torch.Tensor:
+        """[1,mh,mw,3] resized capture (0..255) → normalised model input."""
+        return normalize_for_model(mi / 255.0, self.spec.norm_family).to(self.compute_dtype)
+
+    def _shared_preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h0, w0 = frame_u8.shape[0], frame_u8.shape[1]
+        oh, ow = self.output_size(h0, w0)
+        rgb = bgra_to_rgb(frame_u8).to(self.compute_dtype)
+        if (oh, ow) != (h0, w0):
+            rgb = resize(rgb, (oh, ow), mode="bilinear", antialias=oh < h0)
+        mh, mw = patch_aligned_size(oh, ow, self.cfg.depth_resolution, self.spec.patch_size)
+        mi = resize(rgb[None], (mh, mw), mode="bicubic", antialias=True)
+        return rgb, self._model_input(mi)
+
+    def _fused_preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h0, w0 = frame_u8.shape[0], frame_u8.shape[1]
         oh, ow = self.output_size(h0, w0)
         planar = bgra_to_rgb(frame_u8).permute(2, 0, 1).float()
@@ -126,15 +150,14 @@ class FrameProgram:
         mh, mw = patch_aligned_size(oh, ow, self.cfg.depth_resolution, self.spec.patch_size)
         small = planar.to(self.compute_dtype)[..., None]
         mi = resize(small, (mh, mw), mode="bicubic", antialias=True)[..., 0]
-        model_in = normalize_for_model(mi.permute(1, 2, 0)[None] / 255.0,
-                                       self.spec.norm_family)
+        model_in = self._model_input(mi.permute(1, 2, 0)[None])
         # pair-mean squeeze to the eye size: the reference viewer samples its
         # half-size viewports at texel-pair midpoints, i.e. (a+b)/2
         if self.tab:
             rgb_h = (planar[:, 0::2] + planar[:, 1::2]) * 0.5
         else:
             rgb_h = (planar[:, :, 0::2] + planar[:, :, 1::2]) * 0.5
-        return rgb_h.contiguous(), model_in.to(self.compute_dtype)
+        return rgb_h.contiguous(), model_in
 
     def model_stage(self, model_in: torch.Tensor) -> torch.Tensor:
         return self.model(model_in)[0]
@@ -151,17 +174,33 @@ class FrameProgram:
                                 ema(ema_prev, depth, cfg.ema_alpha))
         return depth
 
+    @staticmethod
+    def upsample_depth(depth_small: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+        """Model resolution → output resolution."""
+        if depth_small.shape == (oh, ow):
+            return depth_small
+        return resize(depth_small[..., None], (oh, ow), mode="bilinear")[..., 0]
+
+    def stereo_stage(self, rgb: torch.Tensor, depth_small: torch.Tensor):
+        """Generic tail: → (frame u8 HWC, depth at output resolution)."""
+        cfg = self.cfg
+        depth = self.upsample_depth(depth_small, rgb.shape[0], rgb.shape[1])
+        sbs = stereo_compose(rgb.float(), depth, ipd=cfg.ipd,
+                             depth_strength=cfg.depth_strength,
+                             convergence=cfg.convergence, display_mode=cfg.display_mode,
+                             quality=cfg.quality, feather=cfg.edge_feather,
+                             fill_16_9=cfg.fill_16_9)
+        return quantize_u8(sbs).contiguous(), depth
+
     def post_stereo_stage(self, raw_depth: torch.Tensor, ema_prev: torch.Tensor,
                           rgb_h: torch.Tensor):
-        """→ (frame u8 HWC, depth out, next EMA carry)."""
+        """Fused tail: → (frame u8 HWC, depth out, next EMA carry)."""
         cfg = self.cfg
         depth_small = self.post_stage(raw_depth, ema_prev)
         eh, ew = rgb_h.shape[1], rgb_h.shape[2]
         oh, ow = (2 * eh, ew) if self.tab else (eh, 2 * ew)
         if cfg.emit_depth == "full":
-            depth = depth_small
-            if depth.shape != (oh, ow):
-                depth = resize(depth[..., None], (oh, ow), mode="bilinear")[..., 0]
+            depth = self.upsample_depth(depth_small, oh, ow)
             if self.tab:
                 dep_h = (depth[0::2] + depth[1::2]) * 0.5
             else:
@@ -178,26 +217,121 @@ class FrameProgram:
         return sbs, depth, depth_small
 
     def __call__(self, frame_u8: torch.Tensor, state: FrameState):
-        rgb_h, model_in = self.preprocess(frame_u8)
+        rgb, model_in = self.preprocess(frame_u8)
         raw = self.model_stage(model_in)
-        sbs, depth, small = self.post_stereo_stage(raw, state.ema_depth, rgb_h)
+        if self.fused(frame_u8.shape[0], frame_u8.shape[1]):
+            sbs, depth, small = self.post_stereo_stage(raw, state.ema_depth, rgb)
+        else:
+            small = self.post_stage(raw, state.ema_depth)
+            sbs, depth = self.stereo_stage(rgb, small)
+            if self.cfg.emit_depth == "model":
+                depth = small
         return sbs, depth, FrameState(ema_depth=small)
 
 
 class ProgramCache:
-    """Frame programs with carried state per (stream, output shape).
+    """A frame program with carried state per (stream, output size), and the
+    viewer's live switches.
 
     `program(frame_u8, stream=0) -> (sbs_u8 [H',W',3], depth)` on the model's
-    device; a frame given as a numpy array is uploaded first."""
+    device; a frame given as a numpy array is uploaded first.  The setters
+    (`set_display_mode`, `cycle_display_mode`, `set_depth_strength`,
+    `adjust_depth_strength`, `reset_depth_strength`, `toggle_feather`) may run
+    on any thread; a switch is applied at the start of the next frame, and
+    the model and the carried states survive it."""
+
+    MAX_DEPTH_STRENGTH = 10.0  # the reference viewer's clamp
 
     def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
                  spec: Optional[ModelSpec] = None,
                  compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        self._model = model
+        self._compute_dtype = compute_dtype
         self.program = FrameProgram(cfg, model, spec, compute_dtype)
         self.cfg = cfg
         self.spec = self.program.spec
         self.device = next(model.parameters()).device
         self._states: Dict[Tuple[int, int, int], FrameState] = {}
+        # (display mode, depth strength, edge feather) requested for the next
+        # frame; setters run on key-handler threads while the frame thread
+        # applies it (RLock: adjust_* call set_* inside the lock)
+        self._pending: Optional[Tuple[str, float, bool]] = None
+        self._variant_lock = threading.RLock()
+        self._strength_default = float(cfg.depth_strength)
+
+    # ---- live switches ---------------------------------------------------
+
+    @staticmethod
+    def _variant_key(cfg: ProgramConfig) -> Tuple[str, float, bool]:
+        return (cfg.display_mode, float(cfg.depth_strength), bool(cfg.edge_feather))
+
+    def _pending_key(self) -> Tuple[str, float, bool]:
+        return self._pending or self._variant_key(self.cfg)
+
+    def set_display_mode(self, mode: str) -> None:
+        """Request a display-mode switch for the next frame."""
+        if mode not in DISPLAY_MODES:
+            raise ValueError(f"unknown display mode {mode!r}")
+        with self._variant_lock:
+            self._pending = (mode,) + self._pending_key()[1:]
+
+    def cycle_display_mode(self, delta: int = 1) -> str:
+        """Step through DISPLAY_MODES (the viewer's hot key); returns the
+        newly requested mode."""
+        with self._variant_lock:
+            idx = (DISPLAY_MODES.index(self._pending_key()[0]) + delta) % len(DISPLAY_MODES)
+            self.set_display_mode(DISPLAY_MODES[idx])
+        return DISPLAY_MODES[idx]
+
+    def set_depth_strength(self, value: float) -> float:
+        """Request a depth strength, clamped to [0, MAX_DEPTH_STRENGTH]."""
+        value = min(self.MAX_DEPTH_STRENGTH, max(0.0, float(value)))
+        with self._variant_lock:
+            mode, _, feather = self._pending_key()
+            self._pending = (mode, value, feather)
+        return value
+
+    def adjust_depth_strength(self, delta: float = 0.5) -> float:
+        """Step the depth strength by ±delta (the viewer steps 0.5)."""
+        with self._variant_lock:
+            return self.set_depth_strength(self._pending_key()[1] + delta)
+
+    def reset_depth_strength(self) -> float:
+        """Back to the configured depth strength."""
+        return self.set_depth_strength(self._strength_default)
+
+    def toggle_feather(self) -> bool:
+        """Toggle per-eye edge feathering; returns the new state."""
+        with self._variant_lock:
+            mode, strength, feather = self._pending_key()
+            self._pending = (mode, strength, not feather)
+        return not feather
+
+    @property
+    def display_mode(self) -> str:
+        return self._pending_key()[0]
+
+    @property
+    def depth_strength(self) -> float:
+        return self._pending_key()[1]
+
+    @property
+    def edge_feather(self) -> bool:
+        return self._pending_key()[2]
+
+    def _apply_pending(self) -> None:
+        # clear-pending → rebuild → swap under one lock: a setter racing the
+        # swap sees either its pending key or the new cfg
+        with self._variant_lock:
+            key, self._pending = self._pending, None
+            if key is None or key == self._variant_key(self.cfg):
+                return
+            cfg = dataclasses.replace(self.cfg, display_mode=key[0],
+                                      depth_strength=key[1], edge_feather=key[2])
+            self.program = FrameProgram(cfg, self._model, self.spec, self._compute_dtype)
+            self.cfg = cfg
+
+    # ---- frames ----------------------------------------------------------
 
     def _as_tensor(self, frame_u8) -> torch.Tensor:
         if isinstance(frame_u8, np.ndarray):
@@ -206,6 +340,8 @@ class ProgramCache:
 
     @torch.inference_mode()
     def __call__(self, frame_u8, stream: int = 0):
+        if self._pending is not None:
+            self._apply_pending()
         frame = self._as_tensor(frame_u8)
         h, w = frame.shape[0], frame.shape[1]
         oh, ow = process_frame_size(h, w, self.cfg.output_height)
@@ -228,24 +364,31 @@ class ProgramCache:
     def warmup(self, frame_shape: Tuple[int, ...], steps: int = 2) -> Dict[str, float]:
         """Run each stage once on a zero frame (first-call seconds per stage:
         kernel builds and cuDNN/cuBLAS plan selection land here), then
-        `steps` whole frames; the carried state is discarded after."""
+        `steps` whole frames; the carried state is discarded after.  Keys:
+        pre_s, model_s, then tail_s (fused tail) or post_s and stereo_s
+        (generic tail)."""
+        if self._pending is not None:
+            self._apply_pending()
         p = self.program
         dummy = torch.zeros(frame_shape, dtype=torch.uint8, device=self.device)
         state = init_state(*ema_shape(self.cfg, self.spec, frame_shape[0], frame_shape[1]),
                            device=self.device)
         report: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        rgb_h, model_in = p.preprocess(dummy)
-        self._sync()
-        report["pre_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        raw = p.model_stage(model_in)
-        self._sync()
-        report["model_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        p.post_stereo_stage(raw, state.ema_depth, rgb_h)
-        self._sync()
-        report["tail_s"] = time.perf_counter() - t0
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._sync()
+            report[name] = time.perf_counter() - t0
+            return out
+
+        rgb, model_in = timed("pre_s", p.preprocess, dummy)
+        raw = timed("model_s", p.model_stage, model_in)
+        if p.fused(frame_shape[0], frame_shape[1]):
+            timed("tail_s", p.post_stereo_stage, raw, state.ema_depth, rgb)
+        else:
+            small = timed("post_s", p.post_stage, raw, state.ema_depth)
+            timed("stereo_s", p.stereo_stage, rgb, small)
         for _ in range(max(1, steps)):
             self(dummy)
         self._sync()

@@ -14,6 +14,7 @@ from desktop2stereo_tpu.ops.attention import xla_attention
 from desktop2stereo_tpu.ops.pallas.flash_attention import flash_attention
 from desktop2stereo_tpu_torch.ops.attention import attention_ref, multi_head_attention
 from desktop2stereo_tpu_torch.ops.kernels import attention as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32 softmax attention, summation-order rounding
 

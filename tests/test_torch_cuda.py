@@ -12,6 +12,8 @@ import torch
 
 from desktop2stereo_tpu_torch.ops.kernels import attention as K2
 from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
+from desktop2stereo_tpu_torch.ops.kernels import dibr_fill as K5
+from desktop2stereo_tpu_torch.ops.kernels import warp as K3
 
 pytestmark = pytest.mark.cuda
 
@@ -66,5 +68,63 @@ def test_dibr_kernel_matches_plain(dev, eh, ew, feather, arrangement):
     want = K1.dibr_pair_half_ref(rgb, dep, **kw)
     torch.cuda.synchronize()
     diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("eh,ew", [(2160, 3840), (50, 200), (96, 256)])
+def test_dibr_eyes_kernel_matches_plain(dev, eh, ew):
+    rng = np.random.default_rng(eh * ew)
+    rgb = torch.from_numpy(rng.random((3, eh, ew), dtype=np.float32) * 255).to(dev)
+    dep = torch.from_numpy(rng.random((eh, ew), dtype=np.float32)).to(dev)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01)
+    before = K1.KERNEL.launches
+    got = K1.dibr_pair_eyes(rgb, dep, **kw)
+    assert K1.KERNEL.launches == before + 1
+    want = K1.dibr_pair_eyes_ref(rgb, dep, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (3, eh, ew) and g.dtype == torch.float32
+        diff = (K1.quantize_u8(g).int() - K1.quantize_u8(w).int()).abs()
+        assert diff.max().item() <= 1
+        assert (diff > 0).float().mean().item() <= 1e-3
+
+
+def _warp_px(shape, dev, seed):
+    H, W = shape
+    rng = np.random.default_rng(seed)
+    base = np.tile(np.arange(W, dtype=np.float32), (H, 1))
+    px = np.clip(base + rng.uniform(-60, 60, (H, W)), 0, W - 1).astype(np.float32)
+    px[:, -1] = W - 1
+    return torch.from_numpy(px).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840, 3), (50, 200, 3), (96, 256, 1), (9, 1, 3)])
+def test_warp_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(sum(shape))
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32) * 255).to(dev)
+    px = _warp_px(shape[:2], dev, seed=1)
+    before = K3.KERNEL.launches
+    got = K3.horizontal_sample(img, px)
+    assert K3.KERNEL.launches == before + 1
+    want = K3.horizontal_sample_ref(img, px)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("H,W", [(2160, 3840), (50, 200), (96, 256)])
+def test_dibr_fill_kernel_matches_plain(dev, H, W, sign):
+    rng = np.random.default_rng(H + W)
+    rgb = torch.from_numpy(rng.random((H, W, 3), dtype=np.float32) * 255).to(dev)
+    dep = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    conf = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    px = _warp_px((H, W), dev, seed=2)
+    before = K5.KERNEL.launches
+    got = K5.dibr_warp_fill_blend(rgb, dep, conf, px, sweep_sign=sign)
+    assert K5.KERNEL.launches == before + 1
+    want = K5.dibr_warp_fill_blend_ref(rgb, dep, conf, px, sweep_sign=sign)
+    torch.cuda.synchronize()
+    diff = (K1.quantize_u8(got).int() - K1.quantize_u8(want).int()).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3

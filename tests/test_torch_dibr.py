@@ -15,6 +15,7 @@ import torch
 
 from desktop2stereo_tpu.ops.pallas.dibr import dibr_render_pair_planar, pair_tiling
 from desktop2stereo_tpu_torch.ops.kernels import dibr as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (H, W, depth_strength, convergence, feather)
 CASES = [

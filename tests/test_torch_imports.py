@@ -22,9 +22,10 @@ def _modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_modules())
-    for name in ("core.registry", "core.runtime", "ops.normalize", "ops.resize",
-                 "ops.activations", "ops.attention", "ops.depth_post",
-                 "ops.kernels.attention", "ops.kernels.dibr", "ops.kernels.build",
+    for name in ("core.config", "core.registry", "core.runtime", "ops.normalize",
+                 "ops.resize", "ops.activations", "ops.attention", "ops.depth_post",
+                 "ops.stereo", "ops.kernels.attention", "ops.kernels.dibr",
+                 "ops.kernels.dibr_fill", "ops.kernels.warp", "ops.kernels.build",
                  "models.dinov2", "models.dpt", "models.depth_anything",
                  "models.factory", "models.from_flax", "pipeline.programs",
                  "pipeline.engine", "pipeline.metrics"):

@@ -22,6 +22,7 @@ from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.dinov2 import Dinov2Encoder
 from desktop2stereo_tpu_torch.models.factory import build_bound
 from desktop2stereo_tpu_torch.models.from_flax import from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(hidden_size=64, num_layers=4, num_heads=2, mlp_dim=128,
             out_layers=(0, 1, 2, 3), neck_channels=(16, 32, 64, 64),
@@ -118,9 +119,10 @@ def test_from_flax_layouts(tiny_params):
 
 
 def test_build_bound_is_seeded_and_finite():
-    a, spec = build_bound("Depth-Anything-V2-Small", seed=0)
-    b, _ = build_bound("Depth-Anything-V2-Small", seed=0)
-    c, _ = build_bound("Depth-Anything-V2-Small", seed=1)
+    a, spec = build_bound("Depth-Anything-V2-Small", device="cpu", seed=0)
+    b, _ = build_bound("Depth-Anything-V2-Small", device="cpu", seed=0)
+    c, _ = build_bound("Depth-Anything-V2-Small", device="cpu", seed=1)
+    assert next(a.parameters()).dtype == torch.float32
     assert spec.variant == "vits" and not a.training
     w = "backbone.layer.3.mlp.fc1.weight"
     assert torch.equal(a.state_dict()[w], b.state_dict()[w])
@@ -129,3 +131,12 @@ def test_build_bound_is_seeded_and_finite():
     with torch.no_grad():
         y = a(x)
     assert y.shape == (1, 42, 70) and torch.isfinite(y).all()
+
+
+def test_build_bound_defaults_to_the_card():
+    """No device means the CUDA policy's device: without CUDA that raises
+    instead of quietly building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the host without one")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        build_bound("Depth-Anything-V2-Small")

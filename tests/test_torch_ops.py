@@ -17,6 +17,7 @@ from desktop2stereo_tpu_torch.ops import activations as T_act
 from desktop2stereo_tpu_torch.ops import depth_post as T_post
 from desktop2stereo_tpu_torch.ops import normalize as T_norm
 from desktop2stereo_tpu_torch.ops import resize as T_resize
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's ops/__init__ re-exports the function `resize`, which
 # shadows the submodule of the same name as an attribute
