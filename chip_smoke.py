@@ -5,16 +5,17 @@
 
 Model: Depth-Anything-V2-Large (DINOv2 ViT-L/14, seeded random weights) at
 depth resolution 518 on a 4K BGRA capture, through `build_bound` →
-`ProgramCache` → `FrameEngine` and the four hand-written CUDA kernels of
+`ProgramCache` → `FrameEngine` and the five hand-written CUDA kernels of
 `desktop2stereo_tpu_torch`: attention (K2) on all 24 encoder layers, the
 both-eyes DIBR pass (K1: the finished Half-SBS frame, or both f32 eyes for
-the generic tail), the fast compositor's warp (K3), and the single-eye DIBR
-(K5) behind `ops.stereo.dibr_render`.
+the generic tail), the fast compositor's warp (K3), the single-eye DIBR
+(K5) behind `ops.stereo.dibr_render`, and the fused int8 dense (K4) on the
+four products of every encoder layer of the int8 model (`quant="int8"`).
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: nvcc builds the four kernel sources, all at once;
+2. build: nvcc builds the five kernel sources, all at once;
 3. kernel parity on the card against the plain PyTorch versions;
 4. kernel times (CUDA events, median of interleaved runs) beside the plain
    versions, one PyTorch library call where one computes the same function,
@@ -28,7 +29,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 9. mode cycling: all nine display modes twice, switched live after every
    delivered frame; each output shape and K1 once a frame (none in Depth);
 10. `dibr_render` at 4K, both eyes: K5 twice;
-11. reference for the generic tail (Full-SBS high, Half-SBS fast).
+11. reference for the generic tail (Full-SBS high, Half-SBS fast);
+12. int8 against bf16: both models from one seed on one model input, raw
+    output correlation and max relative error;
+13. int8 flagship path: Half-SBS (fused tail), FRAMES 4K frames; launches
+    24 attention + 96 K4 (4 per layer) + one K1 per frame;
+14. int8 reference: one small frame through the int8 program on the card
+    (bf16) and on the CPU in f32 (plain versions), compared.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after.
@@ -67,6 +74,15 @@ DIBR_MAX_SHARE = 1e-3
 ATTN_MAX_ABS = 2e-2
 # K3 (f32 on 0..255 values, the same px on both sides): lerp rounding only
 WARP_MAX_ABS = 1e-3
+# K4: the kernel rounds at the plain version's points, so none; a mismatch
+# is a rounding point to find
+QUANT_MAX_ABS = 0.0
+# int8 encoder against the bf16 one (same seed, same model input): JAX on
+# the CPU gives correlation 0.991 for this model at 126x224
+INT8_MIN_CORR = 0.98
+# ViT-L's four encoder products at M = 778 tokens: (name, K, F)
+VIT_L_DENSE = (("qkv", 1024, 3072), ("proj", 1024, 1024), ("fc1", 1024, 4096),
+               ("fc2", 4096, 1024))
 # Whole path, card bf16 vs CPU f32 on one small frame.  bf16 drift through
 # 24 layers and the percentile normalisation moves depth by a few hundredths
 # and turns into warp shifts at depth edges, so the SBS bound is on the mean
@@ -75,11 +91,12 @@ REF_DEPTH_MEAN_ABS = 0.03
 REF_SBS_MEAN_LSB = 3.0
 REF_SBS_SHARE_OVER_32 = 0.03
 
-# The card's peaks for the bound: HBM bytes/s and dense FLOP/s (bf16 tensor
-# cores; f32 outside them), NVIDIA's data sheets.  The SXM part unless the
-# name says otherwise.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12, 60e12),
-         "H100": (3.35e12, 989e12, 67e12)}
+# The card's peaks for the bound: HBM bytes/s and dense operations/s (bf16
+# tensor cores; f32 outside them; int8 tensor cores), NVIDIA's data sheets.
+# The SXM part unless the name says otherwise.
+PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12, 1670e12),
+         "H100": (3.35e12, 989e12, 67e12, 1979e12)}
 # f32 operations per output pixel of the elementwise kernels, counted from
 # their sources with every sweep tap taken (the most the data can need):
 # K3 lerp per channel 4 + floor/frac/clamps 2; K5 24 taps x 12 + 2 vertical
@@ -103,11 +120,12 @@ def peaks(name: str):
     return next((v for k, v in PEAKS.items() if k in name), PEAKS["H100"])
 
 
-def bound_ms(name: str, nbytes: float, flops: float, tensor_core: bool):
-    """(least ms the card could take, "bytes" or "operations")."""
-    bw, bf16, f32 = peaks(name)
+def bound_ms(name: str, nbytes: float, ops: float, unit: str):
+    """(least ms the card could take, "bytes" or "operations"); `unit` is
+    the peak the operations run at: "bf16", "f32" or "int8"."""
+    bw, bf16, f32, int8 = peaks(name)
     t_bytes = nbytes / bw * 1e3
-    t_ops = flops / (bf16 if tensor_core else f32) * 1e3
+    t_ops = ops / {"bf16": bf16, "f32": f32, "int8": int8}[unit] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,6 +177,20 @@ def time_calls(torch, fns, runs: int = TIMED_RUNS, reps: int = 10, warm: int = 3
             end.synchronize()
             times[name].append(start.elapsed_time(end) / reps)
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+def dense_inputs(np, torch, dev, M, K, F, dtype, with_bias, seed):
+    """K4's inputs: activations whose rows span four decades, an int8 weight
+    [F, K] with f32 per-feature scales of a lecun-normal weight's size, and
+    a bias."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)) * 10.0 ** rng.uniform(-2, 2, (M, 1))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (F, K)).astype(np.int8)).to(dev)
+    scale = torch.from_numpy((rng.random(F) + 1.0).astype(np.float32) / (127 * K ** 0.5)).to(dev)
+    bias = (torch.from_numpy(rng.standard_normal(F).astype(np.float32) * 0.1).to(dev)
+            if with_bias else None)
+    return x, wq, scale, bias
 
 
 def u8_diff(torch, got, want):
@@ -358,6 +390,7 @@ def main() -> int:
     from desktop2stereo_tpu_torch.ops.kernels import attention as K2
     from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
     from desktop2stereo_tpu_torch.ops.kernels import dibr_fill as K5
+    from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K4
     from desktop2stereo_tpu_torch.ops.kernels import warp as K3
     from desktop2stereo_tpu_torch.pipeline import programs
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
@@ -365,7 +398,7 @@ def main() -> int:
     report = {}
     # launch counters by kernel (K1's two entry points share one)
     counters = {"attention": K2.KERNEL, "dibr_pair": K1.KERNEL, "warp": K3.KERNEL,
-                "dibr_fill": K5.KERNEL}
+                "dibr_fill": K5.KERNEL, "quant_matmul": K4.KERNEL}
 
     # -- 1. device ---------------------------------------------------------
     policy = cuda_policy(0, allow_tf32=False)
@@ -392,7 +425,7 @@ def main() -> int:
 
     # -- 3. kernel parity ----------------------------------------------------
     worst = {"dibr_pair_half": 0.0, "dibr_pair_eyes": 0.0, "attention": 0.0,
-             "warp": 0.0, "dibr_fill": 0.0}
+             "warp": 0.0, "dibr_fill": 0.0, "quant_matmul": 0.0}
     for (eh, ew) in (EYE, (50, 200), (96, 256)):
         rng = np.random.default_rng(eh + ew)
         rgb = torch.from_numpy(rng.random((3, eh, ew), dtype=np.float32) * 255).to(dev)
@@ -491,6 +524,46 @@ def main() -> int:
             check_u8(f"dibr_fill {h}x{w} sweep {sign:+.0f}", lsb, share,
                      f"; f32 max abs {f32:.3e}")
 
+    def check_quant(label, got, want):
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
+        worst["quant_matmul"] = max(worst["quant_matmul"], err)
+        ok = got.shape == want.shape and got.dtype == want.dtype and err <= QUANT_MAX_ABS
+        log(f"[parity] quant_matmul {label}: max abs err {err:.3e} (tol {QUANT_MAX_ABS}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"quant_matmul {label}: kernel disagrees with its plain version")
+
+    M_TOK = ATTN_SHAPE[1]
+    for name, kin, fout in VIT_L_DENSE:
+        args = dense_inputs(np, torch, dev, M_TOK, kin, fout, torch.bfloat16, True,
+                            seed=kin + fout)
+        check_quant(f"{name} [{M_TOK},{kin}]x[{kin},{fout}] bf16 + bias",
+                    K4.quant_dense(*args), K4.quant_dense_ref(*args))
+    for rows in (1, 7, 130):
+        for kin in (64, 256):
+            for fout in (96, 200):
+                args = dense_inputs(np, torch, dev, rows, kin, fout, torch.float32, False,
+                                    seed=rows * kin + fout)
+                check_quant(f"[{rows},{kin}]x[{kin},{fout}] f32 no bias",
+                            K4.quant_dense(*args), K4.quant_dense_ref(*args))
+    x, wq, scale, bias = dense_inputs(np, torch, dev, 130, 256, 200, torch.bfloat16, True, seed=9)
+    rs = x.float().abs().amax(dim=-1, keepdim=True) / 200.0  # clips the largest values
+    check_quant("row_scale [130,256]x[256,200] bf16", K4.quant_dense(x, wq, scale, bias, rs),
+                K4.quant_dense_ref(x, wq, scale, bias, rs))
+    # int32 mode: integer-valued activations and row_scale 1, so q = x
+    x, wq, scale, _ = dense_inputs(np, torch, dev, M_TOK, 1024, 4096, torch.float32, False, seed=10)
+    xi = x.clamp(-127, 127).round().to(torch.bfloat16)
+    ones = torch.ones(M_TOK, 1, device=dev)
+    acc = K4.quant_dense(xi, wq, scale, row_scale=ones, out_dtype=torch.int32)
+    check_quant(f"int32 [{M_TOK},1024]x[1024,4096]", acc,
+                K4.quant_dense_ref(xi, wq, scale, row_scale=ones, out_dtype=torch.int32))
+    exact = (xi.double() @ wq.double().T).to(torch.int64)
+    if not torch.equal(acc.to(torch.int64), exact):
+        raise AssertionError("quant_matmul int32 mode differs from the exact integer product")
+    log("[parity] quant_matmul int32 mode equals the exact int64 product")
+    del x, xi, wq, scale, acc, exact
+
     # -- 4. kernel times -----------------------------------------------------
     timing = {}
     rng = np.random.default_rng(1)
@@ -502,7 +575,7 @@ def main() -> int:
     px_e = EYE[0] * EYE[1]
     timing["dibr_pair_half"] = dict(t, library=None, shape=f"eye {EYE[0]}x{EYE[1]} Half-SBS",
                                     bound=bound_ms(policy.name, 4 * 4 * px_e + 2 * 3 * px_e,
-                                                   OPS_PER_PX["dibr_pair"] * px_e, False))
+                                                   OPS_PER_PX["dibr_pair"] * px_e, "f32"))
     del rgb_e, dep_e
 
     rgb_f = torch.from_numpy(rng.random((3, *FULL), dtype=np.float32) * 255).to(dev)
@@ -512,7 +585,7 @@ def main() -> int:
     px_f = FULL[0] * FULL[1]
     timing["dibr_pair_eyes"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} eyes f32",
                                     bound=bound_ms(policy.name, 4 * 4 * px_f + 2 * 3 * 4 * px_f,
-                                                   OPS_PER_PX["dibr_pair"] * px_f, False))
+                                                   OPS_PER_PX["dibr_pair"] * px_f, "f32"))
     del rgb_f, dep_f
 
     B, N, H, D = ATTN_SHAPE
@@ -524,7 +597,7 @@ def main() -> int:
                            "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
     timing["attention"] = dict(t, shape=f"{list(ATTN_SHAPE)} bf16 qkv views",
                                bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
-                                              4 * B * H * N * N * D, True))
+                                              4 * B * H * N * N * D, "bf16"))
     del qkv, q, k, v, qh, kh, vh
 
     rng = np.random.default_rng(2)
@@ -542,7 +615,7 @@ def main() -> int:
                                          padding_mode="border", align_corners=True)})
     timing["warp"] = dict(t, shape=f"[{FULL[0]},{FULL[1]},3] f32",
                           bound=bound_ms(policy.name, (3 * 4 * 2 + 4) * px_f,
-                                         OPS_PER_PX["warp3"] * px_f, False))
+                                         OPS_PER_PX["warp3"] * px_f, "f32"))
     del img, dep, px, img_nchw, grid, gy
 
     args = fill_inputs(*FULL, seed=3)
@@ -550,10 +623,34 @@ def main() -> int:
                            "kernel": lambda: K5.dibr_warp_fill_blend(*args, sweep_sign=-1.0)})
     timing["dibr_fill"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} one eye",
                                bound=bound_ms(policy.name, (3 * 4 * 2 + 3 * 4) * px_f,
-                                              OPS_PER_PX["dibr_fill"] * px_f, False))
+                                              OPS_PER_PX["dibr_fill"] * px_f, "f32"))
     del args
+    for name, kin, fout in VIT_L_DENSE:
+        x, wq, scale, bias = dense_inputs(np, torch, dev, M_TOK, kin, fout, torch.bfloat16,
+                                          True, seed=kin + fout)
+        xq = x.float().clamp(-127, 127).round()
+        xi, xq8 = xq.to(torch.bfloat16), xq.to(torch.int8)
+        ones = torch.ones(M_TOK, 1, device=dev)
+        wt = wq.t()  # [K, F] column-major, the layout cuBLASLt's int8 product takes
+        w_bf16 = torch.randn(fout, kin, generator=gen, device=dev).bfloat16()
+        b_bf16 = bias.bfloat16()
+        t = time_calls(torch, {
+            "plain": lambda: K4.quant_dense_ref(x, wq, scale, bias),
+            "kernel": lambda: K4.quant_dense(x, wq, scale, bias),
+            "kernel_int32": lambda: K4.quant_dense(xi, wq, scale, row_scale=ones,
+                                                   out_dtype=torch.int32),
+            "library": lambda: torch._int_mm(xq8, wt),
+            "linear_bf16": lambda: F.linear(x, w_bf16, b_bf16)})
+        timing[f"quant_matmul_{name}"] = dict(
+            t, shape=f"{name} [{M_TOK},{kin}] bf16 x [{fout},{kin}] int8 + bias",
+            bound=bound_ms(policy.name, 2 * M_TOK * kin + fout * kin + 8 * fout
+                           + 2 * M_TOK * fout, 2 * M_TOK * kin * fout, "int8"))
+        del x, wq, scale, bias, xq, xi, xq8, ones, wt, w_bf16, b_bf16
     for name, tm in timing.items():
         lib = f", library {tm['library']:.4f} ms" if tm.get("library") is not None else ""
+        if "kernel_int32" in tm:
+            lib += (f" (torch._int_mm on int8 x; K4's int32 mode with row_scale 1 "
+                    f"{tm['kernel_int32']:.4f} ms), bf16 F.linear {tm['linear_bf16']:.4f} ms")
         log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms, plain "
             f"{tm['plain']:.4f} ms{lib}, bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]}) "
             f"per call (median of {TIMED_RUNS} samples of 10 back-to-back calls; {card})")
@@ -567,11 +664,12 @@ def main() -> int:
     frames = synthetic_frames(np, 4, FRAME_SHAPE[0], FRAME_SHAPE[1], SEED)
     paths = {}
 
-    def drive(name, mode, quality, want_shape, want):
-        """Warm up, run FRAMES frames through FrameEngine, check the counts
-        `want` (kernel → launches per frame), time the stages."""
+    def drive(name, net, mode, quality, want_shape, want):
+        """Warm up, run FRAMES frames of model `net` through FrameEngine,
+        check the counts `want` (kernel → launches per frame), time the
+        stages."""
         cfg = config(programs, mode, quality)
-        program = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
+        program = programs.ProgramCache(cfg, net, spec, compute_dtype=policy.compute_dtype)
         warm = program.warmup(FRAME_SHAPE)
         source = SaturatingSource(frames, FRAMES)
         sink = CheckingNullSink(want_shape)
@@ -594,7 +692,7 @@ def main() -> int:
         return cfg
 
     log(f"[main] {FLAGSHIP_MODEL} built in {model_build_s:.1f} s")
-    flagship_cfg = drive("main", "Half-SBS", "high", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
+    flagship_cfg = drive("main", model, "Half-SBS", "high", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
                          {"attention": layers, "dibr_pair": 1})
 
     # -- 6. reference on a small frame: card bf16 vs CPU f32 ----------------
@@ -602,19 +700,19 @@ def main() -> int:
     cpu_model, _ = build_bound(FLAGSHIP_MODEL, device="cpu", dtype=torch.float32, seed=SEED)
     refs = {}
 
-    def reference(name, cfg):
-        card_prog = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
-        cpu_prog = programs.ProgramCache(cfg, cpu_model, spec, compute_dtype=torch.float32)
-        refs[name] = reference_check(torch, f"{cfg.display_mode} {cfg.quality}", card_prog,
-                                     cpu_prog, small_frame)
+    def reference(name, cfg, card_net, cpu_net):
+        card_prog = programs.ProgramCache(cfg, card_net, spec, compute_dtype=policy.compute_dtype)
+        cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
+        refs[name] = reference_check(torch, f"{name}: {cfg.display_mode} {cfg.quality}",
+                                     card_prog, cpu_prog, small_frame)
 
-    reference("main", flagship_cfg)
+    reference("main", flagship_cfg, model, cpu_model)
 
     # -- 7./8. generic tail, high and fast quality ----------------------------
-    full_cfg = drive("generic_high", "Full-SBS", "high", (FRAME_SHAPE[0], 2 * FRAME_SHAPE[1], 3),
-                     {"attention": layers, "dibr_pair": 1})
-    fast_cfg = drive("generic_fast", "Half-SBS", "fast", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
-                     {"attention": layers, "warp": 2})
+    full_cfg = drive("generic_high", model, "Full-SBS", "high",
+                     (FRAME_SHAPE[0], 2 * FRAME_SHAPE[1], 3), {"attention": layers, "dibr_pair": 1})
+    fast_cfg = drive("generic_fast", model, "Half-SBS", "fast",
+                     (FRAME_SHAPE[0], FRAME_SHAPE[1], 3), {"attention": layers, "warp": 2})
 
     # -- 9. mode cycling: every mode twice, switched after each frame -------
     h, w = FRAME_SHAPE[:2]
@@ -663,15 +761,52 @@ def main() -> int:
     del rgb, dep, eyes
 
     # -- 11. reference for the generic tail ------------------------------------
-    reference("generic_high", full_cfg)
-    reference("generic_fast", fast_cfg)
-    del model, cpu_model
+    reference("generic_high", full_cfg, model, cpu_model)
+    reference("generic_fast", fast_cfg, model, cpu_model)
+    del cpu_model
+
+    # -- 12. int8 against bf16: one seed, one model input ---------------------
+    t0 = time.perf_counter()
+    model_q, _ = build_bound(FLAGSHIP_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED,
+                             quant="int8")
+    int8_build_s = time.perf_counter() - t0
+    log(f"[int8] {FLAGSHIP_MODEL} int8 built in {int8_build_s:.1f} s (float draw, "
+        f"quantisation on the CPU and the move to the card)")
+    with torch.inference_mode():
+        fp = programs.FrameProgram(flagship_cfg, model, spec, policy.compute_dtype)
+        _, model_in = fp.preprocess(torch.from_numpy(frames[0]).to(dev))
+        raw_f = model(model_in)[0].float()
+        raw_q = model_q(model_in)[0].float()
+    corr = torch.corrcoef(torch.stack([raw_f.flatten(), raw_q.flatten()]))[0, 1].item()
+    rel = ((raw_q - raw_f).abs().max() / raw_f.abs().max().clamp_min(1e-6)).item()
+    finite = bool(torch.isfinite(raw_q).all())
+    ok = finite and corr >= INT8_MIN_CORR
+    log(f"[int8] raw depth [{', '.join(map(str, raw_q.shape))}], int8 vs bf16 on the card: "
+        f"correlation {corr:.5f} (min {INT8_MIN_CORR}), max rel err {rel:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 model does not track the bf16 model")
+    report["int8_vs_bf16"] = dict(corr=corr, max_rel_err=rel, shape=list(raw_q.shape),
+                                  model_input=list(model_in.shape))
+    del model, fp, model_in, raw_f, raw_q
+    torch.cuda.empty_cache()
+
+    # -- 13. int8 flagship path: Half-SBS, fused tail ------------------------
+    drive("int8", model_q, "Half-SBS", "high", (FRAME_SHAPE[0], FRAME_SHAPE[1], 3),
+          {"attention": layers, "quant_matmul": 4 * layers, "dibr_pair": 1})
+
+    # -- 14. int8 reference on a small frame: card bf16 vs CPU f32 -----------
+    cpu_model_q, _ = build_bound(FLAGSHIP_MODEL, device="cpu", dtype=torch.float32, seed=SEED,
+                                 quant="int8")
+    reference("int8", flagship_cfg, model_q, cpu_model_q)
+    report["int8_vs_bf16"]["reference"] = refs["int8"]
+    del model_q, cpu_model_q
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, key, launches):
         tm = timing[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": float(worst[key]), "ms": tm["kernel"],
+                "launches": launches, "max_abs_err": float(worst[name]), "ms": tm["kernel"],
                 "plain_ms": tm["plain"], "bound_ms": tm["bound"][0],
                 "bound_by": tm["bound"][1], "library_ms": tm.get("library")}
 
@@ -688,9 +823,11 @@ def main() -> int:
               paths["generic_fast"]["launches"]["warp"]),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
               render_counts["dibr_fill"]),
+        entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
+              "quant_matmul_fc1", paths["int8"]["launches"]["quant_matmul"]),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
-                  reference=refs, model_build_s=model_build_s,
+                  reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,
                   torch=torch.__version__, cuda=torch.version.cuda)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -16,23 +16,25 @@ from desktop2stereo_tpu_torch.models.dpt import DPTHead, DPTNeck
 
 
 class DepthAnything(nn.Module):
-    """pixels [B,H,W,3] (normalized) → raw depth [B,H,W]."""
+    """pixels [B,H,W,3] (normalized) → raw depth [B,H,W].  `quant=True`
+    builds the int8 encoder (its weights come through `quantize_state_dict`
+    or `from_flax` of a quantized JAX tree)."""
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...],
                  neck_channels: Tuple[int, ...], fusion_channels: int,
                  patch_size: int = 14, metric: bool = False,
-                 max_depth: float = 1.0) -> None:
+                 max_depth: float = 1.0, quant: bool = False) -> None:
         super().__init__()
         self.hidden_size = hidden_size
         self.patch_size = patch_size
         self.backbone = Dinov2Encoder(hidden_size, num_layers, num_heads, mlp_dim,
-                                      out_layers, patch_size=patch_size)
+                                      out_layers, patch_size=patch_size, quant=quant)
         self.neck = DPTNeck(hidden_size, neck_channels, fusion_channels)
         self.head = DPTHead(fusion_channels, patch_size, metric, max_depth)
 
     @classmethod
-    def from_spec(cls, spec: ModelSpec) -> "DepthAnything":
+    def from_spec(cls, spec: ModelSpec, quant: bool = False) -> "DepthAnything":
         if spec.family != "depth_anything" or spec.variant == "vitg":
             raise NotImplementedError(
                 f"{spec.name}: the port builds the depth_anything family up to "
@@ -43,7 +45,7 @@ class DepthAnything(nn.Module):
                    neck_channels=spec.neck_channels,
                    fusion_channels=spec.fusion_channels,
                    patch_size=spec.patch_size, metric=spec.metric,
-                   max_depth=spec.max_depth)
+                   max_depth=spec.max_depth, quant=quant)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = pixels.shape

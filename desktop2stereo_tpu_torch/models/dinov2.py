@@ -5,7 +5,8 @@ one matmul, cls token + bicubically interpolated position embeddings,
 pre-norm blocks with LayerScale, exact-GELU MLP (tanh form in bf16), fused
 qkv, and the final LayerNorm on each selected hidden state.  NHWC pixels in,
 [B, N, D] tokens throughout.  Attention goes through `multi_head_attention`,
-which runs the CUDA kernel on every layer when the tensors are on the GPU.
+which runs the CUDA kernel on every layer when the tensors are on the GPU;
+with `quant=True` the qkv, proj, fc1 and fc2 products are int8 (K4).
 
 Module and parameter names follow the JAX parameter tree so `from_flax`
 maps it mechanically (see models/from_flax.py).
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from desktop2stereo_tpu_torch.ops.activations import gelu
 from desktop2stereo_tpu_torch.ops.attention import multi_head_attention
+from desktop2stereo_tpu_torch.ops.quant import QuantLinear
 from desktop2stereo_tpu_torch.ops.resize import resize
 
 LN_EPS = 1e-6
@@ -73,22 +75,29 @@ class Dinov2Embeddings(nn.Module):
         return torch.cat([cls, tokens], dim=1) + pos_full.to(tokens.dtype)
 
 
+def _dense(in_features: int, out_features: int, quant: bool) -> nn.Module:
+    """nn.Linear, or the int8 QuantLinear when the encoder runs quantized."""
+    if quant:
+        return QuantLinear(in_features, out_features)
+    return nn.Linear(in_features, out_features)
+
+
 class Mlp(nn.Module):
-    def __init__(self, hidden_size: int, mlp_dim: int) -> None:
+    def __init__(self, hidden_size: int, mlp_dim: int, quant: bool = False) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(hidden_size, mlp_dim)
-        self.fc2 = nn.Linear(mlp_dim, hidden_size)
+        self.fc1 = _dense(hidden_size, mlp_dim, quant)
+        self.fc2 = _dense(mlp_dim, hidden_size, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int) -> None:
+    def __init__(self, hidden_size: int, num_heads: int, quant: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
-        self.proj = nn.Linear(hidden_size, hidden_size)
+        self.qkv = _dense(hidden_size, 3 * hidden_size, quant)
+        self.proj = _dense(hidden_size, hidden_size, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, D = x.shape
@@ -101,13 +110,14 @@ class Attention(nn.Module):
 
 
 class Dinov2Layer(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int) -> None:
+    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
+                 quant: bool = False) -> None:
         super().__init__()
         self.norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.attention = Attention(hidden_size, num_heads)
+        self.attention = Attention(hidden_size, num_heads, quant)
         self.layer_scale1 = nn.Parameter(torch.ones(hidden_size))
         self.norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.mlp = Mlp(hidden_size, mlp_dim)
+        self.mlp = Mlp(hidden_size, mlp_dim, quant)
         self.layer_scale2 = nn.Parameter(torch.ones(hidden_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,16 +128,18 @@ class Dinov2Layer(nn.Module):
 class Dinov2Encoder(nn.Module):
     """ViT trunk returning the LayerNorm'd hidden states of `out_layers`
     (0-indexed).  Layers after the last selected one feed nothing and are
-    not built, as in the JAX module."""
+    not built, as in the JAX module.  `quant` makes the four dense products
+    of every layer int8 (`QuantLinear`, kernel K4)."""
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
-                 mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14) -> None:
+                 mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14,
+                 quant: bool = False) -> None:
         super().__init__()
         self.out_layers = tuple(sorted(out_layers))
         self.embeddings = Dinov2Embeddings(hidden_size, patch_size)
         n_run = min(num_layers, max(self.out_layers) + 1)
         self.layer = nn.ModuleList(
-            Dinov2Layer(hidden_size, num_heads, mlp_dim) for _ in range(n_run))
+            Dinov2Layer(hidden_size, num_heads, mlp_dim, quant) for _ in range(n_run))
         self.layernorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
     def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -9,10 +9,13 @@ mechanical:
 - Conv kernels HWIO become Conv2d weights OIHW;
 - the neck's conv-transpose kernels are stored (C, O, f, f) on both sides and
   are kept as they are;
-- LayerNorm `scale` becomes `weight`; every other leaf keeps its name.
+- LayerNorm `scale` becomes `weight`; every other leaf keeps its name;
+- a quantized Dense (`kernel_q` [in, out] int8, `scale`, `bias`; see the JAX
+  `ops/quant.py:quantize_tree`) becomes a QuantLinear: `weight_q` [out, in]
+  int8, `scale` and `bias` f32.
 
-Arrays are numpy (or anything `np.asarray` takes), so this module needs
-no JAX.
+Every leaf but `kernel_q` arrives as float32.  Arrays are numpy (or anything
+`np.asarray` takes), so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -47,10 +50,16 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax params (with or without the top-level "params" key) → state_dict."""
     if set(params) == {"params"}:
         params = params["params"]
+    flat = _flatten(params)
+    quantized = {path.rpartition(".")[0] for path in flat if path.endswith(".kernel_q")}
     state: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params).items():
-        a = np.array(leaf, dtype=np.float32)  # a writable copy
+    for path, leaf in flat.items():
         head, _, name = path.rpartition(".")
+        if name == "kernel_q":                     # int8 [in, out] → [out, in]
+            state[f"{head}.weight_q"] = torch.from_numpy(
+                np.ascontiguousarray(np.array(leaf, dtype=np.int8).T))
+            continue
+        a = np.array(leaf, dtype=np.float32)  # a writable copy
         if name == "kernel":
             if path in _CONV_TRANSPOSE:
                 pass                               # (C, O, f, f) on both sides
@@ -61,7 +70,7 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
             name = "weight"
-        elif name == "scale":
+        elif name == "scale" and head not in quantized:
             name = "weight"
         key = f"{head}.{name}" if head else name
         state[key] = torch.from_numpy(np.ascontiguousarray(a))

@@ -126,7 +126,10 @@ class FrameEngine:
         self.wants_depth = bool(getattr(sink, "wants_depth", True))
         self.target_fps = target_fps
         self.shutdown = shutdown or threading.Event()
-        self.device = torch.device(getattr(program, "device", "cpu"))
+        if getattr(program, "device", None) is None:
+            raise ValueError(f"FrameEngine needs a program with a `device` (the device its "
+                             f"frames are staged on); {type(program).__name__} has none")
+        self.device = torch.device(program.device)
         self._staging = _HostStaging(self.device) if self.device.type == "cuda" else None
         self.raw_box = Mailbox()
         self.out_box = Mailbox()

@@ -34,6 +34,7 @@ import torch
 
 from desktop2stereo_tpu_torch.core.config import DISPLAY_MODES
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
+from desktop2stereo_tpu_torch.core.runtime import cuda_policy
 from desktop2stereo_tpu_torch.ops.depth_post import ema, post_process_depth
 from desktop2stereo_tpu_torch.ops.kernels.dibr import dibr_pair_half, quantize_u8
 from desktop2stereo_tpu_torch.ops.normalize import (
@@ -52,7 +53,12 @@ class FrameState(NamedTuple):
     ema_depth: torch.Tensor  # [mh, mw] float32
 
 
-def init_state(height: int, width: int, device: torch.device | str = "cpu") -> FrameState:
+def init_state(height: int, width: int,
+               device: Optional[torch.device | str] = None) -> FrameState:
+    """The state before frame 1 on `device`; None is the CUDA device policy's
+    (`cuda_policy()`, which raises without CUDA)."""
+    if device is None:
+        device = cuda_policy().device
     return FrameState(ema_depth=torch.full((height, width), float("nan"),
                                            dtype=torch.float32, device=device))
 

@@ -13,6 +13,7 @@ import torch
 from desktop2stereo_tpu_torch.ops.kernels import attention as K2
 from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
 from desktop2stereo_tpu_torch.ops.kernels import dibr_fill as K5
+from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K4
 from desktop2stereo_tpu_torch.ops.kernels import warp as K3
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +129,56 @@ def test_dibr_fill_kernel_matches_plain(dev, H, W, sign):
     diff = (K1.quantize_u8(got).int() - K1.quantize_u8(want).int()).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+
+
+def _dense(dev, M, K, F, dtype, with_bias, seed):
+    """Activations whose rows span four decades, an int8 weight [F, K] with
+    its f32 scales, and a bias."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)) * 10.0 ** rng.uniform(-2, 2, (M, 1))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (F, K)).astype(np.int8)).to(dev)
+    scale = torch.from_numpy((rng.random(F) * 1e-3 + 1e-4).astype(np.float32)).to(dev)
+    bias = (torch.from_numpy(rng.standard_normal(F).astype(np.float32)).to(dev)
+            if with_bias else None)
+    return x, wq, scale, bias
+
+
+@pytest.mark.parametrize("M,K,F,dtype,with_bias", [
+    (778, 1024, 3072, torch.bfloat16, True),   # ViT-L qkv at depth resolution 518
+    (778, 4096, 1024, torch.bfloat16, True),   # ViT-L fc2
+    (7, 64, 200, torch.float32, False),        # ragged rows and features
+    (130, 96, 96, torch.float32, True),        # K an odd multiple of 32
+])
+def test_quant_dense_kernel_matches_plain_exactly(dev, M, K, F, dtype, with_bias):
+    x, wq, scale, bias = _dense(dev, M, K, F, dtype, with_bias, seed=M + K + F)
+    before = K4.KERNEL.launches
+    got = K4.quant_dense(x, wq, scale, bias)
+    assert K4.KERNEL.launches == before + 1
+    want = K4.quant_dense_ref(x, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, F)
+    assert torch.equal(got, want)
+
+
+def test_quant_dense_kernel_row_scale_and_int32_modes(dev):
+    x, wq, scale, bias = _dense(dev, 130, 256, 200, torch.float32, True, seed=5)
+    rs = x.abs().amax(dim=-1, keepdim=True) / 200.0  # clips the largest values
+    got = K4.quant_dense(x, wq, scale, bias, row_scale=rs)
+    assert torch.equal(got, K4.quant_dense_ref(x, wq, scale, bias, row_scale=rs))
+    xi = x.clamp(-100, 100).round()  # integer-valued: with row_scale 1, q = x
+    ones = torch.ones(130, 1, device=dev)
+    acc = K4.quant_dense(xi, wq, scale, row_scale=ones, out_dtype=torch.int32)
+    want = (xi.double() @ wq.double().T).to(torch.int64)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32 and torch.equal(acc.to(torch.int64), want)
+
+
+def test_quant_dense_kernel_refuses_what_it_does_not_take(dev):
+    x, wq, scale, bias = _dense(dev, 16, 64, 32, torch.bfloat16, True, seed=6)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K4.quant_dense(x[:, :48], wq[:, :48].contiguous(), scale, bias)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        K4.quant_dense(x.half(), wq, scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.quant_dense(x, torch.cat([wq, wq], dim=1)[:, ::2], scale, bias)

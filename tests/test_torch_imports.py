@@ -26,6 +26,7 @@ def test_port_has_the_slice_modules():
                  "ops.resize", "ops.activations", "ops.attention", "ops.depth_post",
                  "ops.stereo", "ops.kernels.attention", "ops.kernels.dibr",
                  "ops.kernels.dibr_fill", "ops.kernels.warp", "ops.kernels.build",
+                 "ops.quant", "ops.kernels.quant_matmul",
                  "models.dinov2", "models.dpt", "models.depth_anything",
                  "models.factory", "models.from_flax", "pipeline.programs",
                  "pipeline.engine", "pipeline.metrics"):

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import desktop2stereo_tpu.ops.pallas.dibr as J_dibr
+import desktop2stereo_tpu.ops.quant as J_quant
 import desktop2stereo_tpu.ops.pallas.warp as J_warp
 import desktop2stereo_tpu.ops.stereo as J_stereo
 import desktop2stereo_tpu.pipeline.programs as J_programs
@@ -170,6 +171,34 @@ def test_slice_matches_jax_fused_branch(tiny, jax_kernels, jax_caches, mode, emi
     assert jax_kernels["dibr_render_pair_planar"].calls > calls
 
 
+@pytest.fixture(scope="module")
+def tiny_int8(tiny):
+    """The tiny model's weights quantized by the JAX package, in both
+    packages' int8 models."""
+    qparams = jax.tree.map(np.asarray, J_quant.quantize_tree(tiny[0]))
+    model = DepthAnything(**TINY, quant=True).eval()
+    model.load_state_dict(from_flax(qparams), strict=True)
+    return qparams, model
+
+
+def test_slice_matches_jax_fused_branch_int8(tiny_int8, jax_kernels):
+    """The int8 encoder (`quant="int8"`) through the fused Half-SBS branch;
+    the JAX model on its CPU dispatch (`xla_quant_dense`)."""
+    qparams, model = tiny_int8
+    calls = jax_kernels["dibr_render_pair_planar"].calls
+    jcfg = J_programs.ProgramConfig(**dict(CFG, display_mode="Half-SBS", emit_depth="model"))
+    bound = J_programs.BoundModel.stateless(JDepthAnything(**TINY, quant=True).apply, qparams)
+    jprog = J_programs.ProgramCache(jcfg, bound, JSpec(**SPEC), compute_dtype=jnp.float32)
+    tprog = _port_cache(model, "Half-SBS", "model")
+    assert tprog.device == torch.device("cpu")  # from the float parameters
+    for frame in _frames():
+        j_sbs, j_depth = (np.asarray(a) for a in jprog(jnp.asarray(frame)))
+        t_sbs, t_depth = (a.numpy() for a in tprog(frame))
+        assert t_sbs.shape == (180, 320, 3) and t_depth.shape == (70, 126)
+        _assert_frames_match(j_sbs, j_depth, t_sbs, t_depth)
+    assert jax_kernels["dibr_render_pair_planar"].calls > calls
+
+
 MODE_SHAPES = {"Full-SBS": (180, 640, 3), "Full-TAB": (360, 320, 3)}
 
 
@@ -268,6 +297,21 @@ def test_engine_delivers_every_frame_including_the_last(tiny):
         np.testing.assert_array_equal(depth, want_depth.numpy())
 
 
+def test_engine_needs_the_program_device():
+    """No device on the program: FrameEngine raises instead of staging the
+    frames on the CPU."""
+    with pytest.raises(ValueError, match="device"):
+        FrameEngine(_LockstepSource([]), lambda frame: frame, _RecordingSink(None))
+
+
+def test_init_state_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the host without one")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        T_programs.init_state(70, 126)
+    assert T_programs.init_state(70, 126, device="cpu").ema_depth.isnan().all()
+
+
 class _HookedModel(torch.nn.Module):
     """The model, with a hook that runs inside every forward pass (in the
     middle of a frame)."""
@@ -320,7 +364,8 @@ def test_live_switches_apply_at_the_next_frame(tiny):
     frames = _frames(len(actions) + 1)
     thread = threading.Thread(target=switcher, daemon=True)
     thread.start()
-    state = T_programs.init_state(*T_programs.ema_shape(prog.cfg, prog.spec, 180, 320))
+    state = T_programs.init_state(*T_programs.ema_shape(prog.cfg, prog.spec, 180, 320),
+                                  device="cpu")
     used = []
     for frame in frames:
         before = prog.cfg
