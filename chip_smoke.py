@@ -17,9 +17,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the five kernel sources, all at once;
 3. kernel parity on the card against the plain PyTorch versions;
-4. kernel times (CUDA events, median of interleaved runs) beside the plain
-   versions, one PyTorch library call where one computes the same function,
-   and the bound (bytes over the memory rate, operations over the peak);
+4. kernel times beside the plain versions, one PyTorch library call where
+   one computes the same function, and the bound (bytes over the memory
+   rate, operations over the peak): each callable device-only (10 calls
+   captured into a CUDA graph, its replays timed with CUDA events) and eager
+   (CUDA events around 10 calls, the host's cost included), median of
+   interleaved runs;
 5. flagship path: Half-SBS (fused tail), FRAMES 4K frames through
    FrameEngine; launch counts (24 attention + one K1 per frame);
 6. reference: one small frame through the flagship program on the card
@@ -35,14 +38,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 13. int8 flagship path: Half-SBS (fused tail), FRAMES 4K frames; launches
     24 attention + 96 K4 (4 per layer) + one K1 per frame;
 14. int8 reference: one small frame through the int8 program on the card
-    (bf16) and on the CPU in f32 (plain versions), compared.
+    (bf16) and on the CPU in f32 (plain versions), compared;
+15. traced frames: one flagship and one int8 4K frame (upload, program,
+    download) under torch.profiler with CUDA activity: device ms by kernel
+    and by group (K1-K5, GEMM, convolution, elementwise, copies, other), the
+    device's busy ms and its idle share of the frame.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
-before it and reads them just after.
+before it and reads them just after; launches recorded into a CUDA graph
+(phase 4) are not counted.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.  A JSON report with every number also
-goes to chiprun_out/chip_smoke.json.
+goes to chiprun_out/chip_smoke.json, and the two traces to
+chiprun_out/trace_flagship.json and trace_int8.json.
 """
 
 from __future__ import annotations
@@ -155,28 +164,105 @@ def synthetic_frames(np, count: int, h: int, w: int, seed: int):
     return frames
 
 
-def time_calls(torch, fns, runs: int = TIMED_RUNS, reps: int = 10, warm: int = 3):
-    """Median ms per call of each callable in `fns` (name → fn): CUDA events
-    around `reps` back-to-back calls (so the host's launch latency hides
-    behind the device work), `runs` samples each, the callables in turns
-    whose order flips every sample."""
-    for _ in range(warm):
-        for fn in fns.values():
-            fn()
+def time_calls(torch, fns, runs: int = TIMED_RUNS, reps: int = 10, warm: int = 3,
+               graph: bool = False):
+    """Median ms per call of each callable in `fns` (name → fn), `runs`
+    samples each, the callables in turns whose order flips every sample.
+    Eager: CUDA events around `reps` back-to-back calls, so where a call's
+    host work (Python, allocation, launch) outlasts its device work the
+    figure holds the host's cost.  graph=True: the `reps` calls are captured
+    once into a CUDA graph (after warm-up on a side stream) and the events
+    bracket a replay, so the figure is device time only."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            for fn in fns.values():
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    runners = {}
+    for name, fn in fns.items():
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(reps):
+                    fn()
+            g.replay()
+            runners[name] = g.replay
+        else:
+            runners[name] = lambda fn=fn: [fn() for _ in range(reps)]
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
-    items = list(fns.items())
+    items = list(runners.items())
     for i in range(runs):
-        for name, fn in (items if i % 2 == 0 else items[::-1]):
+        for name, run in (items if i % 2 == 0 else items[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(reps):
-                fn()
+            run()
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end) / reps)
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+def time_both(torch, fns):
+    """Graph-timed (device-only) ms per call of each callable, with the
+    eager (host-inclusive) figures under "eager"."""
+    graphed = time_calls(torch, fns, graph=True)
+    torch.cuda.empty_cache()
+    return dict(graphed, eager=time_calls(torch, fns))
+
+
+# Kernel groups of a traced frame: the port's kernels by their function
+# names, then library kernels by name; memcpy and memset activity is "copies"
+TRACE_GROUPS = (
+    ("K1 dibr_pair", r"\bdibr_pair_kernel\b"),
+    ("K2 attention", r"\battention_fwd_kernel\b"),
+    ("K3 warp", r"\bwarp_kernel\b"),
+    ("K4 quant_matmul", r"\b(quantize_rows_kernel|quant_gemm_kernel)\b"),
+    ("K5 dibr_fill", r"\bdibr_fill_kernel\b"),
+    ("convolution", r"conv|fprop|dgrad|wgrad|cudnn|implicit"),
+    ("gemm", r"gemm|nvjet|xmma|cutlass|cublas|gemv"),
+    ("elementwise", r"elementwise|vectorized|unrolled|catarray|copy_kernel|fill"),
+)
+
+
+def summarize_trace(events):
+    """Device ms by kernel name and by group, busy ms and idle share of the
+    span from the host's "frame" range to the end of the last device
+    activity, from a chrome trace's events."""
+    import re
+
+    frame = next(e for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") == "frame")
+    start = float(frame["ts"])
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and "dur" in e and float(e["ts"]) >= start]
+    if not dev:
+        raise AssertionError("the trace holds no device activity: no kernel ran on the card")
+    end = max([start + float(frame["dur"])] + [float(e["ts"]) + float(e["dur"]) for e in dev])
+    busy, reach = 0.0, start
+    for e in sorted(dev, key=lambda e: float(e["ts"])):
+        a, b = max(float(e["ts"]), reach), float(e["ts"]) + float(e["dur"])
+        if b > a:
+            busy += b - a
+            reach = b
+    groups, names = {}, {}
+    for e in dev:
+        name = e["name"]
+        if e["cat"] != "kernel":
+            group = "copies"
+        else:
+            group = next((g for g, pat in TRACE_GROUPS if re.search(pat, name, re.I)), "other")
+        for table, key in ((groups, group), (names, name)):
+            slot = table.setdefault(key, {"ms": 0.0, "calls": 0})
+            slot["ms"] += float(e["dur"]) / 1e3
+            slot["calls"] += 1
+    top = dict(sorted(names.items(), key=lambda kv: -kv[1]["ms"])[:20])
+    return {"span_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (end - start), "groups": groups, "top_kernels": top}
 
 
 def dense_inputs(np, torch, dev, M, K, F, dtype, with_bias, seed):
@@ -570,8 +656,8 @@ def main() -> int:
     rgb_e = torch.from_numpy(rng.random((3, *EYE), dtype=np.float32) * 255).to(dev)
     dep_e = torch.from_numpy(rng.random(EYE, dtype=np.float32)).to(dev)
     dkw = dict(ipd=IPD, depth_strength=STRENGTH, convergence=0.0)
-    t = time_calls(torch, {"plain": lambda: K1.dibr_pair_half_ref(rgb_e, dep_e, **dkw),
-                           "kernel": lambda: K1.dibr_pair_half(rgb_e, dep_e, **dkw)})
+    t = time_both(torch, {"plain": lambda: K1.dibr_pair_half_ref(rgb_e, dep_e, **dkw),
+                          "kernel": lambda: K1.dibr_pair_half(rgb_e, dep_e, **dkw)})
     px_e = EYE[0] * EYE[1]
     timing["dibr_pair_half"] = dict(t, library=None, shape=f"eye {EYE[0]}x{EYE[1]} Half-SBS",
                                     bound=bound_ms(policy.name, 4 * 4 * px_e + 2 * 3 * px_e,
@@ -580,8 +666,8 @@ def main() -> int:
 
     rgb_f = torch.from_numpy(rng.random((3, *FULL), dtype=np.float32) * 255).to(dev)
     dep_f = torch.from_numpy(rng.random(FULL, dtype=np.float32)).to(dev)
-    t = time_calls(torch, {"plain": lambda: K1.dibr_pair_eyes_ref(rgb_f, dep_f, **dkw),
-                           "kernel": lambda: K1.dibr_pair_eyes(rgb_f, dep_f, **dkw)})
+    t = time_both(torch, {"plain": lambda: K1.dibr_pair_eyes_ref(rgb_f, dep_f, **dkw),
+                          "kernel": lambda: K1.dibr_pair_eyes(rgb_f, dep_f, **dkw)})
     px_f = FULL[0] * FULL[1]
     timing["dibr_pair_eyes"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} eyes f32",
                                     bound=bound_ms(policy.name, 4 * 4 * px_f + 2 * 3 * 4 * px_f,
@@ -592,9 +678,9 @@ def main() -> int:
     qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
     q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
     qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))  # [B,H,N,D]
-    t = time_calls(torch, {"plain": lambda: K2.attention_ref(q, k, v),
-                           "kernel": lambda: K2.attention(q, k, v),
-                           "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+    t = time_both(torch, {"plain": lambda: K2.attention_ref(q, k, v),
+                          "kernel": lambda: K2.attention(q, k, v),
+                          "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
     timing["attention"] = dict(t, shape=f"{list(ATTN_SHAPE)} bf16 qkv views",
                                bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
                                               4 * B * H * N * N * D, "bf16"))
@@ -608,7 +694,7 @@ def main() -> int:
     img_nchw = img.permute(2, 0, 1)[None].contiguous()
     gy = torch.linspace(-1.0, 1.0, FULL[0], device=dev)[:, None].expand(FULL)
     grid = torch.stack([px / (FULL[1] - 1) * 2.0 - 1.0, gy], dim=-1)[None].contiguous()
-    t = time_calls(torch, {
+    t = time_both(torch, {
         "plain": lambda: K3.horizontal_sample_ref(img, px),
         "kernel": lambda: K3.horizontal_sample(img, px),
         "library": lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
@@ -619,8 +705,8 @@ def main() -> int:
     del img, dep, px, img_nchw, grid, gy
 
     args = fill_inputs(*FULL, seed=3)
-    t = time_calls(torch, {"plain": lambda: K5.dibr_warp_fill_blend_ref(*args, sweep_sign=-1.0),
-                           "kernel": lambda: K5.dibr_warp_fill_blend(*args, sweep_sign=-1.0)})
+    t = time_both(torch, {"plain": lambda: K5.dibr_warp_fill_blend_ref(*args, sweep_sign=-1.0),
+                          "kernel": lambda: K5.dibr_warp_fill_blend(*args, sweep_sign=-1.0)})
     timing["dibr_fill"] = dict(t, library=None, shape=f"frame {FULL[0]}x{FULL[1]} one eye",
                                bound=bound_ms(policy.name, (3 * 4 * 2 + 3 * 4) * px_f,
                                               OPS_PER_PX["dibr_fill"] * px_f, "f32"))
@@ -634,7 +720,7 @@ def main() -> int:
         wt = wq.t()  # [K, F] column-major, the layout cuBLASLt's int8 product takes
         w_bf16 = torch.randn(fout, kin, generator=gen, device=dev).bfloat16()
         b_bf16 = bias.bfloat16()
-        t = time_calls(torch, {
+        t = time_both(torch, {
             "plain": lambda: K4.quant_dense_ref(x, wq, scale, bias),
             "kernel": lambda: K4.quant_dense(x, wq, scale, bias),
             "kernel_int32": lambda: K4.quant_dense(xi, wq, scale, row_scale=ones,
@@ -647,13 +733,18 @@ def main() -> int:
                            + 2 * M_TOK * fout, 2 * M_TOK * kin * fout, "int8"))
         del x, wq, scale, bias, xq, xi, xq8, ones, wt, w_bf16, b_bf16
     for name, tm in timing.items():
-        lib = f", library {tm['library']:.4f} ms" if tm.get("library") is not None else ""
+        ea = tm["eager"]
+        lib = (f", library {tm['library']:.4f} (eager {ea['library']:.4f})"
+               if tm.get("library") is not None else "")
         if "kernel_int32" in tm:
             lib += (f" (torch._int_mm on int8 x; K4's int32 mode with row_scale 1 "
-                    f"{tm['kernel_int32']:.4f} ms), bf16 F.linear {tm['linear_bf16']:.4f} ms")
-        log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms, plain "
-            f"{tm['plain']:.4f} ms{lib}, bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]}) "
-            f"per call (median of {TIMED_RUNS} samples of 10 back-to-back calls; {card})")
+                    f"{tm['kernel_int32']:.4f}), bf16 F.linear {tm['linear_bf16']:.4f} "
+                    f"(eager {ea['linear_bf16']:.4f})")
+        log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms (eager "
+            f"{ea['kernel']:.4f}), plain {tm['plain']:.4f} (eager {ea['plain']:.4f}){lib}, "
+            f"bound {tm['bound'][0]:.4f} ({tm['bound'][1]}) ms per call (device-only: CUDA "
+            f"graphs of 10 calls; eager: events around 10 calls, host included; median of "
+            f"{TIMED_RUNS}; {card})")
     torch.cuda.empty_cache()
 
     # -- 5. flagship path: Half-SBS, fused tail -------------------------------
@@ -788,7 +879,7 @@ def main() -> int:
         raise AssertionError("the int8 model does not track the bf16 model")
     report["int8_vs_bf16"] = dict(corr=corr, max_rel_err=rel, shape=list(raw_q.shape),
                                   model_input=list(model_in.shape))
-    del model, fp, model_in, raw_f, raw_q
+    del fp, model_in, raw_f, raw_q  # the bf16 model stays for phase 15
     torch.cuda.empty_cache()
 
     # -- 13. int8 flagship path: Half-SBS, fused tail ------------------------
@@ -800,7 +891,51 @@ def main() -> int:
                                  quant="int8")
     reference("int8", flagship_cfg, model_q, cpu_model_q)
     report["int8_vs_bf16"]["reference"] = refs["int8"]
-    del model_q, cpu_model_q
+    del cpu_model_q
+
+    # -- 15. one traced flagship frame and one traced int8 frame --------------
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    traces = {}
+    for name, net in (("flagship", model), ("int8", model_q)):
+        program = programs.ProgramCache(flagship_cfg, net, spec,
+                                        compute_dtype=policy.compute_dtype)
+        program.warmup(FRAME_SHAPE)
+
+        def frame():  # as the engine runs one: upload, program, download
+            sbs, depth = program(frames[1])
+            return sbs.cpu(), depth.cpu()
+
+        for _ in range(3):
+            frame()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("frame"):
+                frame()
+            torch.cuda.synchronize()
+        path = out_dir / f"trace_{name}.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+        tr = summarize_trace(trace["traceEvents"] if isinstance(trace, dict) else trace)
+        traces[name] = tr
+        g = tr["groups"]
+        log(f"[trace] {name} 4K frame (upload, program, download; {card}): span "
+            f"{tr['span_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms, idle share "
+            f"{tr['idle_share']:.3f}; device ms (kernels) by group: "
+            + ", ".join(f"{k} {v['ms']:.3f} ({v['calls']})"
+                        for k, v in sorted(g.items(), key=lambda kv: -kv[1]["ms"]))
+            + "; top kernels: " + "; ".join(f"{k[:60]} {v['ms']:.3f} ({v['calls']})"
+                                             for k, v in list(tr["top_kernels"].items())[:8]))
+        want = {"K2 attention": layers, "K1 dibr_pair": 1}
+        if name == "int8":
+            want["K4 quant_matmul"] = 2 * 4 * layers  # the row pass and the product a call
+        if any(g.get(k, {}).get("calls") != n for k, n in want.items()):
+            raise AssertionError(f"trace {name}: kernel instances off, want {want}")
+        del program
+    report["trace"] = traces
+    del model, model_q
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, key, launches):
@@ -829,8 +964,6 @@ def main() -> int:
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,
                   torch=torch.__version__, cuda=torch.version.cuda)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     log(card)

@@ -8,189 +8,323 @@
 //
 // Layout: q/k/v are [B, N, H, 64] bf16 read through element strides (batch,
 // token, head; the head dim is contiguous), so the q/k/v views of a fused
-// qkv projection need no copy.  The output is a fresh contiguous
-// [B, N, H, 64] bf16 tensor.  Logits, softmax and accumulation are f32;
-// probabilities are rounded to bf16 before the P·V product, as the TPU
-// kernel casts p to v's dtype.
+// qkv projection need no copy: each is a rank-4 TMA tensor map over its own
+// strides.  The output is a fresh contiguous [B, N, H, 64] bf16 tensor.
+// Logits, softmax and accumulation are f32; probabilities are rounded to
+// bf16 before the P.V product, as the TPU kernel casts p to v's dtype.
 //
-// Grid: (ceil(N / 64) query tiles, B*H).  Block: 4 warps; warp w owns query
-// rows [16w, 16w+16) of the tile.  Per 64-key tile: the block stages K and V
-// in shared memory; each warp computes S = Q K^T (16x64) and P V (16x64)
-// with WMMA m16n16k16 bf16 tensor-core products; lanes then own half a row
-// each (row = lane/2, 32 columns) for the softmax update and the output
-// accumulator, which lives in registers.  Keys past N (the ragged last tile,
-// 778 = 12*64 + 10 at the flagship shape) are masked to -inf and their K/V
-// rows zero-filled.
+// Grid: (ceil(N / 64) query tiles, B*H); a block owns one 64-row query tile
+// of one (batch, head).  Block: one consumer warpgroup (warps 0-3) and one
+// producer warp (warp 4).  The producer's lane 0 loads the Q tile once, then
+// K and V tiles of 128 keys into a ring of two stages, by TMA with the
+// 128-byte swizzle (64 bf16 = 128 bytes a row); rows past N arrive as zeros.
+// For each K/V tile the consumer warpgroup:
+//   - runs wgmma m64n128k16 (Q and K from shared memory, both K-major) into
+//     64 f32 registers a thread: S never touches shared memory;
+//   - masks keys >= N to -inf and updates the online softmax in registers,
+//     with exp2f on the logits scaled by log2(e) / sqrt(hd) in one FMA;
+//   - converts P to bf16 in registers, where the wgmma accumulator layout of
+//     S is the register A-operand layout of the next product, and runs
+//     wgmma m64n64k16 with V from shared memory as an MN-major B operand
+//     (the transpose 16-bit types allow): P never touches shared memory;
+//   - hands the stage back to the producer.
+// At the end it normalises by 1/l and writes bf16 rows.
 //
-// What bounds it on the H100: at the flagship [1, 778, 16, 64] one layer is
+// Waves at the flagship [1, 778, 16, 64]: 13 x 16 = 208 blocks of one
+// consumer warpgroup, 73 KB of shared memory each.  Two or three fit an SM,
+// so all 208 run in one wave, and one block's softmax overlaps another's
+// products on the same SM.  Two consumer warpgroups a block (7 x 16 = 112
+// blocks) would share each K/V load between 128 query rows but leave 20 of
+// 132 SMs idle and give each SM one block, with nothing to overlap.
+//
+// What bounds it on the H100: at the flagship shape one layer is
 // 4*16*778^2*64 = 2.5 GFLOP against ~6 MB of q/k/v/o traffic, so the tensor
-// cores, not HBM, set the floor (a few microseconds at the bf16 peak).  This
-// first version launches 208 blocks of 128 threads and uses mma.sync-class
-// WMMA rather than wgmma/TMA, so it sits well below that floor; the rewrite
-// with wgmma, a TMA ring and larger query tiles is later work.
+// cores, not HBM, set the floor (2.5 us at the bf16 peak).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int HD = 64;       // head dim (the wrapper refuses anything else)
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per streamed tile
-constexpr int NWARPS = 4;
-constexpr int LDB = HD + 8;  // bf16 row pitch in shared memory (16 B pad)
-constexpr int LDF = BK + 4;  // f32 row pitch of the per-warp scratch
+using namespace hopper;
 
-struct Strides {
-  long long b, n, h;  // element strides of batch, token, head
-};
+constexpr int HD = 64;        // head dim (the wrapper refuses anything else)
+constexpr int BQ = 64;        // query rows per block: one wgmma M
+constexpr int BKV = 128;      // keys per K/V tile
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 128 + 32;
+constexpr int Q_BYTES = BQ * HD * 2;
+constexpr int KV_BYTES = BKV * HD * 2;
+constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * sizeof(uint64_t);
 
-constexpr size_t kSmemBytes =
-    (size_t)(BQ + 2 * BK + NWARPS * 16) * LDB * sizeof(__nv_bfloat16) +
-    (size_t)NWARPS * 16 * LDF * sizeof(float);
-
-// Copy rows [row0, row0+rows) of one head into shared memory as a
-// [rows][LDB] bf16 tile, 16 bytes per thread per step; rows >= n are zeros.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* base,
-                                          Strides s, int b, int h, int row0,
-                                          int rows, int n) {
-  const int chunks = rows * (HD / 8);
-  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    const int tok = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (tok < n) {
-      const __nv_bfloat16* src = base + b * s.b + (long long)tok * s.n + h * s.h + c;
-      val = *reinterpret_cast<const uint4*>(src);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) = val;
-  }
+// TMA coordinates for a map whose dims 1..3 are (head, token, batch) in the
+// order `perm` gives: two bits a dim, 0 head, 1 token, 2 batch.
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int perm, int h, int row, int b) {
+  auto coord = [&](int which) { return which == 0 ? h : which == 1 ? row : b; };
+  tma_load_4d(dst, map, bar, 0, coord(perm & 3), coord((perm >> 2) & 3), coord((perm >> 4) & 3));
 }
 
-__global__ void __launch_bounds__(NWARPS * 32)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o,
-                     int n, int heads, Strides qs, Strides ks, Strides vs,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k_s = q_s + BQ * LDB;
-  __nv_bfloat16* v_s = k_s + BK * LDB;
-  __nv_bfloat16* p_all = v_s + BK * LDB;
-  float* f_all = reinterpret_cast<float*>(p_all + NWARPS * 16 * LDB);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// d (+)= Q[64 x 16] . K[128 x 16]^T, bf16 in, f32 out; both K-major.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += P[64 x 16] . V[16 x 64]: P bf16 from registers (a0..a3), V bf16 from
+// shared memory, MN-major (transposed B).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(THREADS)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                     int n, int heads, int perms, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);        // [BQ][64] bf16, swizzled
+  uint8_t* k_s = q_s + Q_BYTES;               // [STAGES][BKV][64]
+  uint8_t* v_s = k_s + STAGES * KV_BYTES;     // [STAGES][BKV][64]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(v_s + STAGES * KV_BYTES);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + STAGES;
+
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = blockIdx.x * BQ;
+  const int ntiles = (n + BKV - 1) / BKV;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  __nv_bfloat16* p_s = p_all + warp * 16 * LDB;  // this warp's P (16 x BK)
-  float* f_s = f_all + warp * 16 * LDF;          // this warp's S / PV scratch
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 1);  // one arrival from the consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  load_tile(q_s, q, qs, b, h, q0, BQ, n);
-
-  // Lane (row r, column half c0) state: running max, running sum, and the
-  // 32 output columns it owns.
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 32;
-  float m_i = -INFINITY;
-  float l_i = 0.0f;
-  float acc[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // previous tile's K/V fully consumed (and Q staged)
-    load_tile(k_s, k, ks, b, h, k0, BK, n);
-    load_tile(v_s, v, vs, b, h, k0, BK, n);
-    __syncthreads();
-
-    // S = Q_w K^T: 16 x 64, four 16x16 output tiles, four k-steps each.
-#pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_frag;
-      wmma::fill_fragment(s_frag, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, q_s + (warp * 16) * LDB + kk * 16, LDB);
-        wmma::load_matrix_sync(bt, k_s + (nt * 16) * LDB + kk * 16, LDB);
-        wmma::mma_sync(s_frag, a, bt, s_frag);
+  if (warp == 4) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, Q_BYTES);
+      load_rows(q_s, &qmap, q_bar, perms & 63, h, q0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[st], ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * KV_BYTES);
+        load_rows(k_s + st * KV_BYTES, &kmap, &full[st], (perms >> 6) & 63, h, j * BKV, b);
+        load_rows(v_s + st * KV_BYTES, &vmap, &full[st], (perms >> 12) & 63, h, j * BKV, b);
       }
-      wmma::store_matrix_sync(f_s + nt * 16, s_frag, LDF, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // Online softmax on this lane's half row.
-    float s_val[32];
-    float t_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int key = k0 + c0 + j;
-      const float x = key < n ? f_s[r * LDF + c0 + j] * scale : -INFINITY;
-      s_val[j] = x;
-      t_max = fmaxf(t_max, x);
-    }
-    t_max = fmaxf(t_max, __shfl_xor_sync(0xffffffffu, t_max, 1));
-    const float m_new = fmaxf(m_i, t_max);  // finite: key k0 is always valid
-    const float alpha = expf(m_i - m_new);
-    float t_sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(s_val[j] - m_new);
-      t_sum += p;
-      p_s[r * LDB + c0 + j] = __float2bfloat16(p);
-    }
-    t_sum += __shfl_xor_sync(0xffffffffu, t_sum, 1);
-    l_i = l_i * alpha + t_sum;
-    m_i = m_new;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] *= alpha;
-    __syncwarp();
-
-    // PV = P_w V: 16 x 64 over the 64 keys of the tile.
-#pragma unroll
-    for (int nt = 0; nt < HD / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag;
-      wmma::fill_fragment(o_frag, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, p_s + kk * 16, LDB);
-        wmma::load_matrix_sync(bv, v_s + (kk * 16) * LDB + nt * 16, LDB);
-        wmma::mma_sync(o_frag, a, bv, o_frag);
-      }
-      wmma::store_matrix_sync(f_s + nt * 16, o_frag, LDF, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] += f_s[r * LDF + c0 + j];
-    __syncwarp();  // f_s is rewritten by the next tile's S product
+    return;
   }
 
-  const int tok = q0 + warp * 16 + r;
-  if (tok < n) {
-    const float inv_l = 1.0f / l_i;
-    __nv_bfloat16* dst = o + ((long long)(b * n + tok) * heads + h) * HD + c0;
+  // Accumulator layout of wgmma m64nN (f32): warp w owns rows 16 w + lane/4
+  // (r = 0) and + 8 (r = 1); register 4 i + 2 r + e is column
+  // 8 i + 2 (lane % 4) + e of its row.
+  const int quad = lane % 4;
+  float s_acc[64];
+  float o_acc[32];
 #pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + j) =
-          __floats2bfloat162_rn(acc[j] * inv_l, acc[j + 1] * inv_l);
+  for (int i = 0; i < 64; ++i) s_acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max of the raw logits
+  float l_run[2] = {0.0f, 0.0f};            // this thread's share of the running sum
+
+  const uint32_t q_addr = smem_u32(q_s);
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % STAGES;
+    mbar_wait(&full[st], (j / STAGES) & 1);
+    const uint32_t k_addr = smem_u32(k_s + st * KV_BYTES);
+    const uint32_t v_addr = smem_u32(v_s + st * KV_BYTES);
+
+    // S = Q K^T over the 64 head dims: four k16 steps of 32 bytes.
+    fence_regs(s_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_qk(s_acc, desc_sw128(q_addr + kk * 32, 1, 64), desc_sw128(k_addr + kk * 32, 1, 64),
+               kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+
+    if ((j + 1) * BKV > n) {  // the ragged last tile: keys >= n take no weight
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * BKV + 8 * i + 2 * quad + e >= n) {
+            s_acc[4 * i + e] = -INFINITY;
+            s_acc[4 * i + 2 + e] = -INFINITY;
+          }
     }
+
+    // Online softmax: the row max over the quad's 128 columns.
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(mx[r], fmaxf(s_acc[4 * i + 2 * r], s_acc[4 * i + 2 * r + 1]));
+    float neg[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // finite: every tile holds at least one key < n
+      alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
+      m_run[r] = mx[r];
+      neg[r] = -mx[r] * scale_log2;
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(fmaf(s_acc[4 * i + 2 * r + e], scale_log2, neg[r]));
+          s_acc[4 * i + 2 * r + e] = p;
+          sum[r] += p;
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o_acc[4 * i + 2 * r] *= alpha[r];
+        o_acc[4 * i + 2 * r + 1] *= alpha[r];
+      }
+
+    // P (bf16, registers) . V: k16 step kk covers keys 16 kk .. 16 kk + 15,
+    // i.e. S registers 8 kk .. 8 kk + 7, which are exactly the A fragment
+    // (row, k 0-1), (row + 8, k 0-1), (row, k 8-9), (row + 8, k 8-9).
+    uint32_t p_frag[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) p_frag[i] = pack_bf16(s_acc[2 * i], s_acc[2 * i + 1]);
+    fence_regs(p_frag);
+    fence_regs(o_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_pv(o_acc, p_frag[4 * kk], p_frag[4 * kk + 1], p_frag[4 * kk + 2], p_frag[4 * kk + 3],
+               desc_sw128(v_addr + kk * 16 * HD * 2, 64, 64));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    if (threadIdx.x == 0) mbar_arrive(&empty[st]);  // the group's products are done
   }
+
+  const int row0 = q0 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    const float inv_l = 1.0f / l;
+    __nv_bfloat16* dst =
+        o + (static_cast<long long>(b) * n + row) * heads * HD + static_cast<long long>(h) * HD +
+        2 * quad;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) = __floats2bfloat162_rn(
+          o_acc[4 * i + 2 * r] * inv_l, o_acc[4 * i + 2 * r + 1] * inv_l);
+  }
+}
+
+// One rank-4 map over [B, N, H, 64] with element strides (sb, sn, sh): dims
+// 1..3 are head, token and batch sorted by stride, size-1 dims last (their
+// stride is never used and is set to the packed one).  Returns the order as
+// `attention_fwd_kernel` reads it, or -1 if the encoder refuses the map.
+int encode_qkv(CUtensorMap* map, const void* base, int batch, int n, int heads, long long sb,
+               long long sn, long long sh, int rows) {
+  struct Dim {
+    uint64_t size, stride;
+    int which;
+  } d[3] = {{static_cast<uint64_t>(heads), static_cast<uint64_t>(sh) * 2, 0},
+            {static_cast<uint64_t>(n), static_cast<uint64_t>(sn) * 2, 1},
+            {static_cast<uint64_t>(batch), static_cast<uint64_t>(sb) * 2, 2}};
+  auto before = [](const Dim& a, const Dim& c) {
+    if ((a.size == 1) != (c.size == 1)) return c.size == 1;
+    return a.stride < c.stride;
+  };
+  for (int i = 1; i < 3; ++i)  // insertion sort of three
+    for (int j = i; j > 0 && before(d[j], d[j - 1]); --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  uint64_t packed = HD * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].size == 1) d[i].stride = packed;
+    packed = d[i].stride * d[i].size;
+  }
+  const uint64_t dims[4] = {HD, d[0].size, d[1].size, d[2].size};
+  const uint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
+  uint32_t box[4] = {HD, 1, 1, 1};
+  int perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].which == 1) box[i + 1] = rows;
+    perm |= d[i].which << (2 * i);
+  }
+  const int code = encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
+  return code == 0 ? perm : -1;
 }
 
 }  // namespace
@@ -203,24 +337,23 @@ const char* d2s_error_string(int code) {
 
 // q/k/v: [batch, n, heads, 64] bf16 with element strides (*_sb, *_sn, *_sh)
 // and a contiguous head dim; o: contiguous [batch, n, heads, 64] bf16.
-int d2s_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                      int batch, int n, int heads,
-                      long long q_sb, long long q_sn, long long q_sh,
-                      long long k_sb, long long k_sn, long long k_sh,
-                      long long v_sb, long long v_sn, long long v_sh,
-                      float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+int d2s_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                      int heads, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+                      long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+                      long long v_sh, float scale, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap qmap, kmap, vmap;
+  const int pq = encode_qkv(&qmap, q, batch, n, heads, q_sb, q_sn, q_sh, BQ);
+  const int pk = encode_qkv(&kmap, k, batch, n, heads, k_sb, k_sn, k_sh, BKV);
+  const int pv = encode_qkv(&vmap, v, batch, n, heads, v_sb, v_sn, v_sh, BKV);
+  if (pq < 0 || pk < 0 || pv < 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + BQ - 1) / BQ, batch * heads);
-  attention_fwd_kernel<<<grid, NWARPS * 32, kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n,
-      heads, Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
-      Strides{v_sb, v_sn, v_sh}, scale);
-  return (int)cudaGetLastError();
+  attention_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), n, heads, pq | (pk << 6) | (pv << 12),
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -3,8 +3,8 @@
 Replaces `desktop2stereo_tpu/ops/pallas/flash_attention.py:flash_attention`.
 Layout [B, N, H, hd] as in the JAX package.  The kernel takes bf16 q/k/v with
 hd = 64, a contiguous head dim and 16-byte aligned rows, reading q/k/v
-through their strides (the views of a fused qkv projection need no copy),
-and returns a fresh contiguous bf16 [B, N, H, 64].
+through their strides by TMA (the views of a fused qkv projection need no
+copy), and returns a fresh contiguous bf16 [B, N, H, 64].
 """
 
 from __future__ import annotations
@@ -44,15 +44,20 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"attention kernel needs head dim {HEAD_DIM}, "
                          f"got {q.shape[-1]}")
+    B, N, H, _ = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
+        sb, sn, sh, sd = t.stride()
         if t.dtype != torch.bfloat16:
             raise ValueError(f"attention kernel needs bf16 {name}, got {t.dtype}")
-        if t.stride(-1) != 1:
+        if sd != 1:
             raise ValueError(f"attention kernel needs a contiguous head dim "
                              f"for {name}, strides {t.stride()}")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if (sb | sn | sh) % 8 or t.data_ptr() % 16:
             raise ValueError(f"attention kernel needs 16-byte aligned rows for "
                              f"{name}: strides {t.stride()}, ptr {t.data_ptr()}")
+        if (sb == 0 < B - 1) or (sn == 0 < N - 1) or (sh == 0 < H - 1):
+            raise ValueError(f"attention kernel needs distinct rows for {name} (a TMA "
+                             f"tensor map takes no zero stride): strides {t.stride()}")
     if q.shape[1] == 0 or q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"attention kernel: unsupported shape {tuple(q.shape)}")
 

@@ -3,7 +3,8 @@
 Each kernel source in `desktop2stereo_tpu_torch/csrc/` has a plain C
 interface.  At first use it is compiled with nvcc for `sm_90a` into its own
 shared library under `desktop2stereo_tpu_torch/_build/` (git-ignored), named
-by a hash of the source and the flags, so an edited source rebuilds and an
+by a hash of the source, the headers it includes with quotes (such as
+`hopper.cuh`) and the flags, so an edited source or header rebuilds and an
 unchanged one loads at once.  The library is loaded with ctypes; pointers
 and the CUDA stream cross as `c_void_p`, and every entry point returns
 `cudaGetLastError()`, which `CudaLibrary.call` turns into an exception.
@@ -17,12 +18,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -30,6 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -53,8 +58,9 @@ class CudaLibrary:
 
     `signatures` maps each exported C function to its argument types; every
     function returns an int (a cudaError_t).  `launches` counts kernel
-    launches made through `call`; a wrapper adds to it where it launches,
-    and callers reset it to 0 before a run they want to count.
+    launches made through `call`, except those recorded into a CUDA graph
+    capture; a wrapper adds to it where it launches, and callers reset it to
+    0 before a run they want to count.
     """
 
     def __init__(self, source: str, signatures: Dict[str, Sequence],
@@ -70,8 +76,24 @@ class CudaLibrary:
     def _flags(self) -> tuple:
         return ARCH_FLAGS + BASE_FLAGS + self.extra_flags
 
+    def source_files(self) -> List[Path]:
+        """The source and every header it includes with quotes, recursively
+        (paths relative to the including file), each once."""
+        files: List[Path] = []
+        todo = [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path not in files:
+                files.append(path)
+                todo += [path.parent / name
+                         for name in _QUOTED_INCLUDE.findall(path.read_text())]
+        return files
+
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in self.source_files():
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
         h.update(" ".join(self._flags()).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -115,4 +137,5 @@ class CudaLibrary:
             msg = lib.d2s_error_string(code).decode()
             raise RuntimeError(f"{self.source.name}:{name} failed: "
                                f"cudaError {code} ({msg})")
-        self.launches += 1
+        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            self.launches += 1

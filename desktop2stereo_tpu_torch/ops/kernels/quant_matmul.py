@@ -2,10 +2,13 @@
 
 Replaces `desktop2stereo_tpu/ops/pallas/quant_matmul.py:quant_dense_matmul`:
 per-row dynamic int8 quantisation of the activations, an int8×int8→int32
-product with the int8 weight, and the f32 rescale + bias, in one pass with
-no int8 or int32 intermediate in device memory.  The weight is stored as
-`nn.Linear` stores its own, [F, K] with K contiguous (the JAX tree's
-`kernel_q` is [K, F]).
+product with the int8 weight, and the f32 rescale + bias.  One call runs two
+device kernels: a row pass that quantises each row of x once into an int8
+scratch [M, K] (and its scales into [M]), which stays in L2, then the TMA +
+wgmma product with the rescale fused into its epilogue; no int32
+intermediate reaches device memory.  The wrapper allocates the scratch.
+The weight is stored as `nn.Linear` stores its own, [F, K] with K contiguous
+(the JAX tree's `kernel_q` is [K, F]).
 
 Rounding, as XLA compiles the JAX formulation on the CPU (and so as the
 interpret-mode kernel and `ops/quant.py:xla_quant_dense` under jit give it):
@@ -33,12 +36,13 @@ from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
 from desktop2stereo_tpu_torch.ops.kernels.dibr import _fma
 
 INV_127 = float(np.float32(1.0) / np.float32(127.0))  # the f32 reciprocal XLA folds
-K_ALIGN = 32  # the kernel loads K in 32-wide steps
+K_ALIGN = 32  # the kernel's product takes K in 32-wide steps
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaLibrary("quant_matmul.cu", {
-    # x, x_is_bf16, lda, weight_q, scale, bias, row_scale, out, out_kind, M, K, F, stream
-    "d2s_quant_dense": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_is_bf16, lda, weight_q, scale, bias, row_scale, xq, xs, out, out_kind, M, K, F,
+    # stream
+    "d2s_quant_dense": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 })
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -141,10 +145,14 @@ def quant_dense(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
     check_inputs(x2, weight_q, scale, bias, rs, out_dtype)
     M, F = x2.shape[0], weight_q.shape[0]
     out = torch.empty((M, F), dtype=out_dtype, device=x.device)
+    # the row pass's scratch, one allocation: q [M, K] int8, then the f32
+    # scales [M] (M·K is a multiple of 32, so they are aligned)
+    scratch = torch.empty(M * K + 4 * M, dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.call("d2s_quant_dense", x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                 x2.stride(0), weight_q.data_ptr(), scale.data_ptr(),
                 None if bias is None else bias.data_ptr(),
-                None if rs is None else rs.data_ptr(), out.data_ptr(),
-                _OUT_KIND[out_dtype], M, K, F, stream)
+                None if rs is None else rs.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + M * K, out.data_ptr(), _OUT_KIND[out_dtype], M, K, F,
+                stream)
     return out.reshape(*lead, F)

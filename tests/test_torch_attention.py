@@ -61,6 +61,7 @@ def _bf16(shape):
     (lambda: (torch.zeros(1, 8, 2, 64),) * 3, "bf16"),
     (lambda: (_bf16((1, 8, 64, 2)).transpose(-1, -2),) * 3, "contiguous head dim"),
     (lambda: (_bf16((1, 8, 2, 66))[..., :64],) * 3, "aligned"),
+    (lambda: (_bf16((1, 1, 2, 64)).expand(1, 8, 2, 64),) * 3, "zero stride"),
 ])
 def test_kernel_input_checks_raise(case, match):
     with pytest.raises(ValueError, match=match):
@@ -70,3 +71,14 @@ def test_kernel_input_checks_raise(case, match):
 def test_kernel_input_checks_accept_qkv_views():
     qkv = _bf16((1, 778, 3 * 1024))
     K.check_inputs(*(t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1)))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _bf16((3, 1, 2, 64)),                        # one token
+    lambda: _bf16((2, 4, 3, 64)).transpose(1, 2)[:, :, :4].transpose(1, 2),  # a slice
+    lambda: _bf16((2, 3, 9, 64)).transpose(1, 2),        # tokens nearer than heads
+    lambda: _bf16((512,)).as_strided((4, 1, 2, 64), (128, 0, 64, 1)),  # zero stride, size 1
+], ids=["one-token", "sliced", "heads-major", "size-1-zero-stride"])
+def test_kernel_input_checks_accept_other_layouts(make):
+    t = make()
+    K.check_inputs(t, t, t)

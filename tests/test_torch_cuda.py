@@ -48,6 +48,34 @@ def test_attention_kernel_reads_qkv_views(dev):
     assert torch.equal(got, want)
 
 
+def _qkv_layout(layout, B, N, H, gen, dev):
+    """bf16 q/k/v [B, N, H, 64] as the encoder's qkv views, contiguous, or
+    as transposed views of [B, H, N, 64] (tokens nearer than heads)."""
+    if layout == "qkv views":
+        qkv = torch.randn(B, N, 3 * H * 64, generator=gen, device=dev).bfloat16()
+        return [t.unflatten(-1, (H, 64)) for t in qkv.split(H * 64, dim=-1)]
+    if layout == "heads-major":
+        return [torch.randn(B, H, N, 64, generator=gen, device=dev).bfloat16().transpose(1, 2)
+                for _ in range(3)]
+    return [torch.randn(B, N, H, 64, generator=gen, device=dev).bfloat16() for _ in range(3)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv views", "heads-major"])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 778, 1370])
+def test_attention_kernel_matches_plain_at_tile_edges(dev, N, layout):
+    """Query tiles are 64 rows and K/V tiles 128 keys: N on either side of
+    both, the flagship's 778 and a 1370-token family, batch 2."""
+    gen = torch.Generator(device=dev).manual_seed(N)
+    q, k, v = _qkv_layout(layout, 2, N, 3, gen, dev)
+    before = K2.KERNEL.launches
+    got = K2.attention(q, k, v)
+    assert K2.KERNEL.launches == before + 1
+    want = K2.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.shape == (2, N, 3, 64) and got.is_contiguous()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
 def test_attention_kernel_refuses_other_head_dims(dev):
     q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 64"):
@@ -159,6 +187,55 @@ def test_quant_dense_kernel_matches_plain_exactly(dev, M, K, F, dtype, with_bias
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (M, F)
     assert torch.equal(got, want)
+
+
+# Both tile heights (64 and 128 rows) and their edges, feature counts below,
+# across and at the 128-feature tile, and K from one 32-wide step to 32
+# stages of 128; each case takes one of the four (dtype, bias) variants, in
+# turn, so every variant meets every M, F and K.
+_VARIANTS = ((torch.bfloat16, True), (torch.float32, False), (torch.bfloat16, False),
+             (torch.float32, True))
+_EDGE_M = (1, 63, 64, 65, 129, 778)
+_EDGE_F = (96, 200, 1024, 3072)
+_EDGE_K = (32, 96, 1024, 4096)
+
+
+@pytest.mark.parametrize("K", _EDGE_K)
+@pytest.mark.parametrize("F", _EDGE_F)
+@pytest.mark.parametrize("M", _EDGE_M)
+def test_quant_dense_kernel_exact_at_tile_edges(dev, M, F, K):
+    dtype, with_bias = _VARIANTS[(_EDGE_M.index(M) + _EDGE_F.index(F) + _EDGE_K.index(K)) % 4]
+    x, wq, scale, bias = _dense(dev, M, K, F, dtype, with_bias, seed=M * 7 + F * 3 + K)
+    got = K4.quant_dense(x, wq, scale, bias)
+    want = K4.quant_dense_ref(x, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, F)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,F", [(1, 96, 200), (65, 4096, 1024), (778, 1024, 3072)])
+def test_quant_dense_kernel_row_scale_and_int32_modes_at_edges(dev, M, K, F):
+    x, wq, scale, bias = _dense(dev, M, K, F, torch.bfloat16, True, seed=M + K + F)
+    rs = x.float().abs().amax(dim=-1, keepdim=True) / 100.0  # clips the largest values
+    assert torch.equal(K4.quant_dense(x, wq, scale, bias, row_scale=rs),
+                       K4.quant_dense_ref(x, wq, scale, bias, row_scale=rs))
+    xi = x.float().clamp(-127, 127).round()  # integer-valued: with row_scale 1, q = x
+    ones = torch.ones(M, 1, device=dev)
+    acc = K4.quant_dense(xi, wq, scale, row_scale=ones, out_dtype=torch.int32)
+    exact = (xi.double() @ wq.double().T).to(torch.int64)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32 and torch.equal(acc.to(torch.int64), exact)
+
+
+def test_quant_dense_kernel_reads_strided_rows(dev):
+    """x may be a view with a row stride (lda) wider than K."""
+    x, wq, scale, bias = _dense(dev, 130, 1024, 200, torch.bfloat16, True, seed=8)
+    wide = torch.zeros(130, 1024 + 64, device=dev, dtype=torch.bfloat16)
+    wide[:, 32:32 + 1024] = x
+    view = wide[:, 32:32 + 1024]
+    assert view.stride(0) == 1088
+    want = K4.quant_dense_ref(x, wq, scale, bias)
+    assert torch.equal(K4.quant_dense(view, wq, scale, bias), want)
 
 
 def test_quant_dense_kernel_row_scale_and_int32_modes(dev):

@@ -24,6 +24,7 @@ from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.factory import build_bound
 from desktop2stereo_tpu_torch.models.from_flax import from_flax
 from desktop2stereo_tpu_torch.ops import quant as T_quant
+from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K_qm
 from desktop2stereo_tpu_torch.ops.kernels.quant_matmul import quant_dense, quant_dense_ref
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -332,3 +333,43 @@ def test_build_bound_int8_keeps_f32_scales_in_bf16():
 def test_build_bound_refuses_unknown_quant():
     with pytest.raises(ValueError, match="int4"):
         build_bound("Depth-Anything-V2-Small", device="cpu", quant="int4")
+
+
+def _k4_args(M=8, K=64, F=16, dtype=torch.bfloat16):
+    x = torch.zeros(M, K, dtype=dtype)
+    return x, torch.zeros(F, K, dtype=torch.int8), torch.ones(F), torch.zeros(F), None
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _k4_args(M=1, K=32, F=1),                             # one row, one feature
+    lambda: _k4_args(M=778, K=4096, F=1024, dtype=torch.float32),
+    lambda: (torch.zeros(130, 1088, dtype=torch.bfloat16)[:, 32:32 + 1024],) + _k4_args(
+        K=1024, F=200)[1:],                                       # a row stride wider than K
+    lambda: _k4_args(M=65, K=96, F=200)[:4] + (torch.ones(65),),  # row_scale
+], ids=["one-row", "fc2-f32", "strided-rows", "row-scale"])
+def test_kernel_input_checks_accept(make):
+    x2, wq, scale, bias, rs = make()
+    K_qm.check_inputs(x2, wq, scale, bias, rs, x2.dtype)
+    K_qm.check_inputs(x2, wq, scale, None, rs, torch.int32)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _k4_args(K=48), "multiple of 32"),
+    (lambda: _k4_args(dtype=torch.float16), "bf16 or f32"),
+    (lambda: (torch.zeros(8, 66, dtype=torch.bfloat16)[:, 2:],) + _k4_args()[1:], "aligned"),
+    (lambda: _k4_args()[:1] + (torch.zeros(64, 16, dtype=torch.int8).t(),) + _k4_args()[2:],
+     "contiguous"),
+    (lambda: _k4_args()[:1] + (torch.zeros(16, 32, dtype=torch.int8),) + _k4_args()[2:],
+     r"weight_q \[F, 64\]"),
+    (lambda: _k4_args()[:3] + (torch.zeros(15),) + (None,), "bias of 16"),
+    (lambda: _k4_args()[:4] + (torch.ones(8, dtype=torch.float64),), "row_scale of 8"),
+], ids=["ragged-K", "fp16", "misaligned", "weight-transposed", "weight-width", "bias-size",
+        "row-scale-dtype"])
+def test_kernel_input_checks_raise(make, match):
+    with pytest.raises(ValueError, match=match):
+        K_qm.check_inputs(*make(), torch.bfloat16)
+
+
+def test_kernel_input_checks_refuse_other_output_types():
+    with pytest.raises(ValueError, match="f32, bf16 or int32"):
+        K_qm.check_inputs(*_k4_args(), torch.float16)
