@@ -12,10 +12,11 @@
 // kernel owns a full-width row tile in VMEM, reads +-1 tile row halos, and
 // decomposes the data-dependent warp into lane-group gathers over an
 // edge-padded frame.  On the GPU the warp is a plain indexed load, so none
-// of that is carried over: one thread per eye pixel, clamp-to-edge indexing
-// on the true eh x ew frame (edge padding replicated the last row/column, so
-// the values are the same), and the thread writes its pixel of both eyes
-// straight into the output frame.
+// of that is carried over: a block stages a segment of one row, each thread
+// computes 4 consecutive eye pixels, clamp-to-edge indexing on the true
+// eh x ew frame (edge padding replicated the last row/column, so the values
+// are the same), and the thread writes its pixels of both eyes straight into
+// the output frame.
 //
 // Semantics kept from the TPU kernel: only the centre depth is 3-tap
 // smoothed; the inpaint sweep taps and the vertical taps read RAW depth.
@@ -25,22 +26,54 @@
 // with -fmad=false so no multiply-add is contracted, which keeps the result
 // within rounding of the plain PyTorch version (dibr_pair_half_ref).
 //
-// What bounds it on the H100: at the 4K eye (2160 x 1920) the kernel reads
-// 4 f32 planes (~66 MB) and writes 25 MB of u8 (~27 us at 3.35 TB/s); the
-// eyes mode at the full 4K frame (2160 x 3840) reads 133 MB and writes two
-// f32 eyes, 199 MB (~99 us).  Each pixel's 24 sweep taps,
-// 4 vertical taps and 2 warp gathers hit neighbouring addresses that L1/L2
-// serve, so it should be bound by L1/L2 bandwidth and HBM, not arithmetic.
-// Row-tiling through shared memory is the obvious next step.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): not HBM.  At the
+// 4K eye (2160 x 1920) the kernel must read 4 f32 planes (~66 MB) and write
+// 25 MB of u8 (27 us at 3.35 TB/s); the eyes mode at the full 4K frame (2160
+// x 3840) reads 133 MB and writes two f32 eyes, 199 MB (99 us). A thread a
+// pixel reading its taps from global memory (the previous design) issued
+// ~120 scalar loads a pixel (24 sweep taps x 4 values, the centre, the
+// vertical taps and the warp gathers), each shifted row straddling two
+// 128-byte lines: ~2 L1 wavefronts a load, ~0.13 ms of L1 issue at the eye
+// against the 0.157 ms it took.  This design cuts the wavefronts and the
+// instructions: a block stages its row segment once in shared memory
+// (dibr_tile.cuh), each thread walks the staged columns once per sweep for 4
+// consecutive pixels (one conflict-free LDS.128 feeds up to 4 pixels), a
+// warp leaves a sweep as soon as none of its pixels can take another tap (on
+// depth maps after 4-5 of the forward sweep's 15 columns, and the backward
+// sweep is almost never needed), the vertical taps and the stores are float4
+// (u32 for the u8 frame) where the rows are aligned, and where the block
+// holds the whole row (a 4K eye) the warp gathers read it too. Measured in
+// one call with the thread-per-pixel kernel (kernel_ab.py, graph-timed): the
+// Half eye 0.090 ms against 0.157, the eyes 0.201 against 0.304; what is
+// left is issue and latency at 80 registers (24 warps an SM), 16 bytes of
+// spill, and the 12 global gathers a pixel of the eyes mode (PERF.md).
+//
+// The launch geometry comes from the wrapper (ops/kernels/dibr.py:
+// tile_geometry) and is checked here; a mismatch returns
+// cudaErrorInvalidValue.  Every pixel's float operations are those of the
+// earlier thread-per-pixel kernel in the same order, so the output is
+// bit-identical to it; only where the operands come from changed.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "dibr_tile.cuh"
+
 namespace {
+
+using namespace d2s_tile;
 
 constexpr int kRadius = 12;  // inpaint search radius (taps per sweep)
 constexpr int kVShift = 2;   // vertical blur tap distance (rows)
+
+// Blocks of kMaxThreads an SM the compiler has to fit: 3 caps the kernel at
+// 85 registers (24 warps an SM).  The kernel is latency-bound, and left
+// alone the compiler takes 126-170 registers and runs 1.2-2x slower
+// (PERF.md; kernel_ab.py --variant measures other values).
+#ifndef D2S_DIBR_MIN_BLOCKS
+#define D2S_DIBR_MIN_BLOCKS 3
+#endif
 
 // Edge coordinates u = (i + 0.5)/n scaled by s, as (u*s, (1-u)*s): 1/n and s
 // fold into one constant and 1-u is one fused multiply-add (the rounding
@@ -58,6 +91,7 @@ struct DibrParams {
   float convergence;
   int feather;            // 0: off
   int tab;                // 0: Half-SBS [H, 2W, 3], 1: Half-TAB [2H, W, 3]
+  int vec;                // rows and pointers 16-byte aligned: float4 / u32 access
   float tol;              // depth_tolerance
   float tol_half;         // depth_tolerance * 0.5
   float jump_lo, jump_span;
@@ -90,146 +124,244 @@ __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-__device__ __forceinline__ uint8_t quantize(float x) {
-  return (uint8_t)(int)fminf(fmaxf(x + 0.5f, 0.0f), 255.0f);
+__device__ __forceinline__ uint32_t quantize(float x) {
+  return (uint32_t)(int)fminf(fmaxf(x + 0.5f, 0.0f), 255.0f);
 }
 
-// kEyes = false: out0 is the u8 Half-SBS/TAB frame (out1 unused);
-// kEyes = true: out0 / out1 are the left / right planar f32 [3, H, W] eyes.
+// The kPix pixels x0 .. x0+3 of row y (thread-group i of the block whose
+// segment starts at s0).  kEyes = false: out0 is the u8 Half-SBS/TAB frame
+// (out1 unused); kEyes = true: out0 / out1 are the left / right planar f32
+// [3, H, W] eyes.
 template <bool kEyes>
-__global__ void dibr_pair_kernel(const float* __restrict__ rgb,
-                                 const float* __restrict__ dep,
-                                 void* __restrict__ out0,
-                                 void* __restrict__ out1, DibrParams p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
+__device__ __forceinline__ void pair_pixels(const Tile& t, const Geometry& g,
+                                            const DibrParams& p,
+                                            const float* __restrict__ rgb,
+                                            const float* __restrict__ dep,
+                                            void* __restrict__ out0,
+                                            void* __restrict__ out1, int y, int s0,
+                                            int i, bool row_in_smem) {
   const int W = p.width;
   const int H = p.height;
-  if (x >= W) return;
-
   const size_t plane = (size_t)H * W;
-  const float* row_d = dep + (size_t)y * W;
-  const float* row_r = rgb + (size_t)y * W;
-  auto cx = [W](int xx) { return min(max(xx, 0), W - 1); };
-  auto cy = [H](int yy) { return min(max(yy, 0), H - 1); };
+  const int x0 = s0 + kPix * i;
+  const int q = i + g.halo / 4;
+  const int q5 = 5 * q;
+  const bool vec = p.vec;
 
-  // --- eye-independent depth work --------------------------------------
-  const float d0 = row_d[x];
-  const float dm2 = row_d[cx(x - 2)], dm1 = row_d[cx(x - 1)];
-  const float dp1 = row_d[cx(x + 1)], dp2 = row_d[cx(x + 2)];
-  const float h_lo = dm2 * 0.5f + dm1 * 0.5f;  // tap at -1.5 px
-  const float h_hi = dp1 * 0.5f + dp2 * 0.5f;  // tap at +1.5 px
-  const float smooth = fmaf(h_hi, 0.15f, fmaf(d0, 0.7f, h_lo * 0.15f));
-  const float cdi = -smooth;
-  const float jump = fabsf(dm2 - dp2);
-  const float conf_base = smoothstep01(clip01((jump - p.jump_lo) / p.jump_span));
-  // shaped depth (-s)*(1 + 0.35*(1 - s)), plus the convergence offset
-  const float shaped_conv =
-      fmaf(-smooth, fmaf(0.35f, 1.0f - smooth, 1.0f), p.convergence);
-
-  const float col = (float)x;
-  const float cx5 = col + 0.5f;
-  const float e1 = smoothstep01(clip01(edge_lo(cx5, p.margin_w)));
-  const float e2 = smoothstep01(clip01(edge_hi(cx5, p.margin_w)));
-  const float shift_base = shaped_conv * (p.depth_strength * (e1 * e2));
-
-  // --- inpaint sweeps (shared by both eyes) ------------------------------
-  const float thr = cdi + p.tol;
-  const float pre_w = 1.0f - 10.0f * cdi;
-  float fwd[3] = {0.0f, 0.0f, 0.0f}, fwd_w = 0.0f;
-  float bwd[3] = {0.0f, 0.0f, 0.0f}, bwd_w = 0.0f;
+  // --- eye-independent depth work (raw depth at x-2 .. x+2) ------------
+  float win[12];
+  depth_window(t, q, win);
+  float cdi[kPix], thr[kPix], pre_w[kPix];
 #pragma unroll
-  for (int t = 1; t <= kRadius; ++t) {
-    const int xs = cx(x - t);  // forward sweep: direction -1, depth-weighted
-    const float s_inv = 1.0f - row_d[xs];
-    if (s_inv > thr && fwd_w <= 5.0f) {
-      const float w = p.fwd_a[t - 1] * pre_w + p.fwd_b[t - 1] * s_inv;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) fwd[c] = fwd[c] + row_r[c * plane + xs] * w;
-      fwd_w = fwd_w + w;
-    }
+  for (int j = 0; j < kPix; ++j) {
+    const float d0 = win[4 + j];
+    const float dm2 = win[2 + j], dm1 = win[3 + j];
+    const float dp1 = win[5 + j], dp2 = win[6 + j];
+    const float h_lo = dm2 * 0.5f + dm1 * 0.5f;  // tap at -1.5 px
+    const float h_hi = dp1 * 0.5f + dp2 * 0.5f;  // tap at +1.5 px
+    const float smooth = fmaf(h_hi, 0.15f, fmaf(d0, 0.7f, h_lo * 0.15f));
+    cdi[j] = -smooth;
+    thr[j] = cdi[j] + p.tol;
+    pre_w[j] = 1.0f - 10.0f * cdi[j];
   }
-#pragma unroll
-  for (int t = 1; t <= kRadius; ++t) {
-    const int xs = cx(x + t);  // backward sweep: direction +1, plain weights
-    const float s_inv = 1.0f - row_d[xs];
-    if (s_inv > thr && bwd_w <= 5.0f) {
-      const float w = p.bwd_w[t - 1];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) bwd[c] = bwd[c] + row_r[c * plane + xs] * w;
-      bwd_w = bwd_w + w;
+
+  // --- inpaint sweeps over the staged columns (shared by both eyes) ------
+  float fwd[kPix][3] = {}, fwd_w[kPix] = {};
+  float bwd[kPix][3] = {}, bwd_w[kPix] = {};
+  // forward sweep: direction -1, depth-weighted
+  sweep<-1, kRadius>(t, q5, kRadius, [&](int j, int tap, float4 v) {
+    if (v.w > thr[j] && fwd_w[j] <= 5.0f) {
+      const float w = p.fwd_a[tap - 1] * pre_w[j] + p.fwd_b[tap - 1] * v.w;
+      fwd[j][0] = fwd[j][0] + v.x * w;
+      fwd[j][1] = fwd[j][1] + v.y * w;
+      fwd[j][2] = fwd[j][2] + v.z * w;
+      fwd_w[j] = fwd_w[j] + w;
     }
-  }
+  }, [&] {
+    bool d = true;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) d = d && !(fwd_w[j] <= 5.0f);
+    return d;
+  });
+  // backward sweep: direction +1, plain weights; read only where the
+  // forward sweep found a weight below 2
+  sweep<+1, kRadius>(t, q5, kRadius, [&](int j, int tap, float4 v) {
+    if (v.w > thr[j] && bwd_w[j] <= 5.0f) {
+      const float w = p.bwd_w[tap - 1];
+      bwd[j][0] = bwd[j][0] + v.x * w;
+      bwd[j][1] = bwd[j][1] + v.y * w;
+      bwd[j][2] = bwd[j][2] + v.z * w;
+      bwd_w[j] = bwd_w[j] + w;
+    }
+  }, [&] {
+    bool d = true;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) d = d && (!(fwd_w[j] < 2.0f) || !(bwd_w[j] <= 5.0f));
+    return d;
+  });
 
   // --- vertical blur taps (RAW depth rows at -+2) -------------------------
-  float vadd[3] = {0.0f, 0.0f, 0.0f};
-  float vert_w = 0.5f;
+  float vadd[kPix][3] = {}, vert_w[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) vert_w[j] = 0.5f;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const int yy = cy(k == 0 ? y - kVShift : y + kVShift);
-    const float v_raw = dep[(size_t)yy * W + x];
-    const float w = (1.0f - v_raw) > cdi + p.tol_half ? 0.25f : 0.0f;
+    const int yy = min(max(k == 0 ? y - kVShift : y + kVShift, 0), H - 1);
+    float v_raw[kPix], v_rgb[3][kPix];
+    load_pix(dep + (size_t)yy * W, x0, W, vec, v_raw);
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      vadd[c] = vadd[c] + rgb[c * plane + (size_t)yy * W + x] * w;
-    vert_w = vert_w + w;
-  }
-  const float inv_vw = 1.0f / vert_w;
-
-  const bool need_bwd = fwd_w < 2.0f;
-  const float best_w = fwd_w + (need_bwd ? bwd_w : 0.0f);
-  const bool found = best_w > 0.01f;
-  const float scale = 0.5f / fmaxf(best_w, 1e-12f);
-  float filled[3];
+    for (int c = 0; c < 3; ++c) load_pix(rgb + c * plane + (size_t)yy * W, x0, W, vec, v_rgb[c]);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float best_c = fwd[c] + (need_bwd ? bwd[c] : 0.0f);
-    filled[c] = found ? (best_c * scale + vadd[c]) * inv_vw : row_r[c * plane + x];
-  }
-
-  float fmask = 1.0f;
-  if (p.feather) {
-    const float cy5 = (float)y + 0.5f;
-    const float fu = smoothstep01(clip01(edge_lo(cx5, p.feather_w)));
-    const float fu1 = smoothstep01(clip01(edge_hi(cx5, p.feather_w)));
-    const float fv = smoothstep01(clip01(edge_lo(cy5, p.feather_h)));
-    const float fv1 = smoothstep01(clip01(edge_hi(cy5, p.feather_h)));
-    fmask = powf(fu * fu1 * fv * fv1, 0.7f);
-  }
-
-  // --- per eye: warp + blend, written into the arranged HWC frame -------
+    for (int j = 0; j < kPix; ++j) {
+      const float w = (1.0f - v_raw[j]) > cdi[j] + p.tol_half ? 0.25f : 0.0f;
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float px = fmaf(shift_base, -(e == 0 ? p.disp_l : p.disp_r), col);
-    const bool oob = px < 0.0f || px > (float)(W - 1);
-    const float pxc = fminf(fmaxf(px, 0.0f), (float)(W - 1));
-    const float i0f = floorf(pxc);
-    const float frac = pxc - i0f;
-    const int i0 = (int)i0f;
-    const int i1 = min(i0 + 1, W - 1);
-    const float conf = oob ? 1.0f : conf_base;
-    size_t o;
-    if (kEyes) {
-      o = (size_t)y * W + x;
-    } else if (p.tab) {
-      o = ((size_t)(e * H + y) * W + x) * 3;
-    } else {
-      o = ((size_t)y * (2 * W) + (size_t)e * W + x) * 3;
+      for (int c = 0; c < 3; ++c) vadd[j][c] = vadd[j][c] + v_rgb[c][j] * w;
+      vert_w[j] = vert_w[j] + w;
     }
+  }
+
+  float filled[kPix][3], fmask[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const float inv_vw = 1.0f / vert_w[j];
+    const bool need_bwd = fwd_w[j] < 2.0f;
+    const float best_w = fwd_w[j] + (need_bwd ? bwd_w[j] : 0.0f);
+    const bool found = best_w > 0.01f;
+    const float scale = 0.5f / fmaxf(best_w, 1e-12f);
+    const float4 centre = column(t, q5, j);
+    const float own[3] = {centre.x, centre.y, centre.z};
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float g0 = row_r[c * plane + i0];
-      const float g1 = row_r[c * plane + i1];
-      const float color = g0 * (1.0f - frac) + g1 * frac;
-      float val = color + conf * (filled[c] - color);
-      if (p.feather) val = val * fmask;
-      if (kEyes) {
-        static_cast<float*>(e == 0 ? out0 : out1)[c * plane + o] = val;
+      const float best_c = fwd[j][c] + (need_bwd ? bwd[j][c] : 0.0f);
+      filled[j][c] = found ? (best_c * scale + vadd[j][c]) * inv_vw : own[c];
+    }
+    fmask[j] = 1.0f;
+    if (p.feather) {
+      const float cx5 = (float)(x0 + j) + 0.5f;
+      const float cy5 = (float)y + 0.5f;
+      const float fu = smoothstep01(clip01(edge_lo(cx5, p.feather_w)));
+      const float fu1 = smoothstep01(clip01(edge_hi(cx5, p.feather_w)));
+      const float fv = smoothstep01(clip01(edge_lo(cy5, p.feather_h)));
+      const float fv1 = smoothstep01(clip01(edge_hi(cy5, p.feather_h)));
+      fmask[j] = powf(fu * fu1 * fv * fv1, 0.7f);
+    }
+  }
+
+  // the disocclusion confidence and the warp shift, from the depth window
+  // reloaded here rather than held in registers over the sweeps
+  depth_window(t, q, win);
+  float conf_base[kPix], shift_base[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const float jump = fabsf(win[2 + j] - win[6 + j]);
+    conf_base[j] = smoothstep01(clip01((jump - p.jump_lo) / p.jump_span));
+    // shaped depth (-s)*(1 + 0.35*(1 - s)), plus the convergence offset;
+    // smooth = -cdi exactly
+    const float shaped_conv =
+        fmaf(cdi[j], fmaf(0.35f, 1.0f + cdi[j], 1.0f), p.convergence);
+    const float cx5 = (float)(x0 + j) + 0.5f;
+    const float e1 = smoothstep01(clip01(edge_lo(cx5, p.margin_w)));
+    const float e2 = smoothstep01(clip01(edge_hi(cx5, p.margin_w)));
+    shift_base[j] = shaped_conv * (p.depth_strength * (e1 * e2));
+  }
+
+  // --- per eye: warp + blend, then the stores ----------------------------
+  const float* row_r = rgb + (size_t)y * W;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float val[kPix][3];
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) {
+      const float col = (float)(x0 + j);
+      const float px = fmaf(shift_base[j], -(e == 0 ? p.disp_l : p.disp_r), col);
+      const bool oob = px < 0.0f || px > (float)(W - 1);
+      const float pxc = fminf(fmaxf(px, 0.0f), (float)(W - 1));
+      const float i0f = floorf(pxc);
+      const float frac = pxc - i0f;
+      const int i0 = (int)i0f;
+      const int i1 = min(i0 + 1, W - 1);
+      const float conf = oob ? 1.0f : conf_base[j];
+      float g0[3], g1[3];
+      if (row_in_smem) {  // the block staged the whole row: s0 = 0
+        const float4 a = t.cols[slot(i0 + g.halo)];
+        const float4 b = t.cols[slot(i1 + g.halo)];
+        g0[0] = a.x; g0[1] = a.y; g0[2] = a.z;
+        g1[0] = b.x; g1[1] = b.y; g1[2] = b.z;
       } else {
-        static_cast<uint8_t*>(out0)[o + c] = quantize(val);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          g0[c] = __ldg(row_r + c * plane + i0);
+          g1[c] = __ldg(row_r + c * plane + i1);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float color = g0[c] * (1.0f - frac) + g1[c] * frac;
+        float v = color + conf * (filled[j][c] - color);
+        if (p.feather) v = v * fmask[j];
+        val[j][c] = v;
+      }
+    }
+    if (kEyes) {
+      float* o = static_cast<float*>(e == 0 ? out0 : out1) + (size_t)y * W + x0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (vec) {
+          *reinterpret_cast<float4*>(o + c * plane) =
+              make_float4(val[0][c], val[1][c], val[2][c], val[3][c]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPix; ++j)
+            if (x0 + j < W) o[c * plane + j] = val[j][c];
+        }
+      }
+    } else {
+      const size_t o = p.tab ? ((size_t)(e * H + y) * W + x0) * 3
+                             : ((size_t)y * (2 * W) + (size_t)e * W + x0) * 3;
+      uint8_t* out = static_cast<uint8_t*>(out0) + o;
+      if (vec) {  // 12 bytes, 4-byte aligned: three 32-bit stores
+        uint32_t b[12];
+#pragma unroll
+        for (int j = 0; j < kPix; ++j)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) b[3 * j + c] = quantize(val[j][c]);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          reinterpret_cast<uint32_t*>(out)[k] =
+              b[4 * k] | (b[4 * k + 1] << 8) | (b[4 * k + 2] << 16) | (b[4 * k + 3] << 24);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPix; ++j)
+          if (x0 + j < W)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) out[3 * j + c] = (uint8_t)quantize(val[j][c]);
       }
     }
   }
+}
+
+template <bool kEyes>
+__global__ void __launch_bounds__(kMaxThreads, D2S_DIBR_MIN_BLOCKS)
+    dibr_pair_kernel(const float* __restrict__ rgb, const float* __restrict__ dep,
+                     void* __restrict__ out0, void* __restrict__ out1,
+                     const __grid_constant__ DibrParams p,
+                     const __grid_constant__ Geometry g) {
+  extern __shared__ float4 smem[];
+  const Tile t = tile_of(smem, g);
+  const int W = p.width;
+  const int y = blockIdx.y;
+  const size_t plane = (size_t)p.height * W;
+  const float* row_d = dep + (size_t)y * W;
+  const float* row_r = rgb + (size_t)y * W;
+  const int s0 = blockIdx.x * g.seg;
+  stage(t, g, s0 - g.halo, W, [&](int x) {
+    return make_float4(row_r[x], row_r[plane + x], row_r[2 * plane + x], row_d[x]);
+  });
+  __syncthreads();
+  const bool row_in_smem = g.seg >= W;
+  const int end = min(s0 + g.seg, W);
+  for (int i = threadIdx.x; s0 + kPix * i < end; i += blockDim.x)
+    pair_pixels<kEyes>(t, g, p, rgb, dep, out0, out1, y, s0, i, row_in_smem);
 }
 
 DibrParams make_params(int height, int width, float ipd, float depth_strength,
@@ -243,6 +375,7 @@ DibrParams make_params(int height, int width, float ipd, float depth_strength,
   p.depth_strength = depth_strength;
   p.convergence = convergence;
   p.tab = tab;
+  p.vec = 0;
   // Constants rounded from double exactly as the TPU kernel's Python floats
   // are when they meet f32 arrays.
   p.tol = (float)0.012;
@@ -264,13 +397,18 @@ DibrParams make_params(int height, int width, float ipd, float depth_strength,
 }
 
 template <bool kEyes>
-int launch(const void* rgb, const void* dep, void* out0, void* out1,
-           const DibrParams& p, void* stream) {
-  const dim3 block(128);
-  const dim3 grid((p.width + block.x - 1) / block.x, p.height);
-  dibr_pair_kernel<kEyes><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rgb), static_cast<const float*>(dep), out0,
-      out1, p);
+int launch(const void* rgb, const void* dep, void* out0, void* out1, DibrParams p,
+           const Geometry& g, int pix, void* stream) {
+  if (p.height < 1 || p.height > 65535 || !geometry_ok(g, p.width, pix, kRadius))
+    return (int)cudaErrorInvalidValue;
+  p.vec = p.width % 4 == 0 && aligned16(rgb) && aligned16(dep) && aligned16(out0) &&
+          (out1 == nullptr || aligned16(out1));
+  static int allowed = 0;
+  const cudaError_t err = allow_smem(dibr_pair_kernel<kEyes>, g.smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  dibr_pair_kernel<kEyes><<<dim3(g.grid_x, p.height), g.threads, g.smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rgb), static_cast<const float*>(dep), out0, out1, p, g);
   return (int)cudaGetLastError();
 }
 
@@ -284,26 +422,30 @@ const char* d2s_error_string(int code) {
 
 // rgb: contiguous planar [3, height, width] f32 (0..255); dep: contiguous
 // [height, width] f32 in [0, 1]; out: contiguous u8, [height, 2*width, 3]
-// (tab = 0) or [2*height, width, 3] (tab = 1).
+// (tab = 0) or [2*height, width, 3] (tab = 1).  seg .. grid_x: the launch
+// geometry of ops/kernels/dibr.py:tile_geometry (pix = 4, halo >= 12).
 int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int height,
                        int width, float ipd, float depth_strength,
-                       float convergence, double feather, int tab,
+                       float convergence, double feather, int tab, int seg,
+                       int halo, int pix, int threads, int smem, int grid_x,
                        void* stream) {
   return launch<false>(rgb, dep, out, nullptr,
                        make_params(height, width, ipd, depth_strength,
                                    convergence, feather, tab),
-                       stream);
+                       Geometry{seg, halo, threads, smem, grid_x}, pix, stream);
 }
 
 // rgb, dep as above; out_l, out_r: contiguous planar [3, height, width] f32,
 // unfeathered (the generic tail feathers the eyes itself).
 int d2s_dibr_pair_eyes(const void* rgb, const void* dep, void* out_l,
                        void* out_r, int height, int width, float ipd,
-                       float depth_strength, float convergence, void* stream) {
+                       float depth_strength, float convergence, int seg,
+                       int halo, int pix, int threads, int smem, int grid_x,
+                       void* stream) {
   return launch<true>(rgb, dep, out_l, out_r,
                       make_params(height, width, ipd, depth_strength,
                                   convergence, 0.0, 0),
-                      stream);
+                      Geometry{seg, halo, threads, smem, grid_x}, pix, stream);
 }
 
 }  // extern "C"

@@ -9,13 +9,19 @@ f32 [3, h, w] at the full frame width.  Inputs are planar rgb [3, h, w] f32
 (0..255) and depth [h, w] f32 in [0, 1].  No edge padding: clamp-to-edge
 reads on the true frame equal the JAX kernel's reads of its edge-padded
 frame.  Both entry points launch the same kernel and count on one `KERNEL`.
+
+The launch geometry of both DIBR kernels (this one and K5,
+`dibr_fill.py`) is computed here, in `tile_geometry`, and checked by the C
+side: a block owns a segment of one row and stages it once in shared memory
+with a halo of the sweep radius each side, and each thread computes `PIX`
+consecutive pixels (csrc/dibr_tile.cuh).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +35,69 @@ EDGE_MARGIN = 0.05
 VSHIFT = 2
 ARRANGEMENTS = ("sbs", "tab")
 
+# csrc/dibr_tile.cuh: pixels a thread, threads a block, shared bytes a block
+PIX = 4
+MAX_THREADS = 256
+MAX_SMEM = 232448
+# pixels a block aims at (tile_geometry).  K1 stages a whole row instead
+# where its tile takes at most WHOLE_ROW_SMEM bytes (a 4K eye's 1920 columns,
+# 46.6 KB), so that its warp gathers read shared memory too: at 1920 columns
+# whole rows ran 7% faster than 512-pixel segments, at 3840 (93 KB, two
+# blocks an SM) 18% slower (PERF.md)
+SEG_TARGET = 512
+WHOLE_ROW_SMEM = 48 * 1024
+
+
+class TileGeometry(NamedTuple):
+    """The launch geometry the C entry points take after their own
+    arguments, in this order."""
+    seg: int      # pixels a block owns, a multiple of PIX
+    halo: int     # staged columns each side, a multiple of 4 (at least 4)
+    pix: int      # consecutive pixels a thread
+    threads: int  # threads a block
+    smem: int     # dynamic shared-memory bytes a block
+    grid_x: int   # blocks a row
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_smem_bytes(seg: int, halo: int) -> int:
+    """float4 {r, g, b, 1-d} slots (one pad slot every four columns) plus the
+    raw depth row, for seg + 2·halo staged columns."""
+    cols = seg + 2 * halo
+    return 16 * (cols + cols // 4) + 4 * cols
+
+
+def tile_geometry(width: int, radius: int, seg_target: int,
+                  whole_row_smem: int = 0) -> TileGeometry:
+    """Blocks of about `seg_target` pixels (0: the whole row), or the whole
+    row where its tile takes at most `whole_row_smem` bytes; balanced over
+    the row and split further until a block's tile fits in shared memory; a
+    thread a PIX-pixel group, at most MAX_THREADS a block (a thread takes
+    several groups in turn).  A block that holds the whole row gathers its
+    warp taps from shared memory."""
+    halo = max(4, _cdiv(radius, 4) * 4)
+    whole = not seg_target or tile_smem_bytes(_cdiv(width, PIX) * PIX, halo) <= whole_row_smem
+    blocks = 1 if whole else _cdiv(width, seg_target)
+    while True:
+        seg = _cdiv(_cdiv(width, blocks), PIX) * PIX
+        smem = tile_smem_bytes(seg, halo)
+        if smem <= MAX_SMEM:
+            break
+        blocks += 1
+    return TileGeometry(seg=seg, halo=halo, pix=PIX, threads=min(seg // PIX, MAX_THREADS),
+                        smem=smem, grid_x=_cdiv(width, seg))
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_GEOMETRY = [_I] * len(TileGeometry._fields)
 KERNEL = CudaLibrary(
     "dibr_pair.cu",
     {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _F, _F, _F, ctypes.c_double,
-                            _I, _P],
-     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]},
+                            _I, *_GEOMETRY, _P],
+     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _F, _F, _F, *_GEOMETRY, _P]},
     # no contracted multiply-adds: keeps the kernel within rounding of the
     # plain version, whose every op rounds on its own
     extra_flags=("-fmad=false",),
@@ -230,7 +293,8 @@ def dibr_pair_eyes(rgb: torch.Tensor, dep: torch.Tensor, *, ipd: float,
     stream = torch.cuda.current_stream(rgb.device).cuda_stream
     KERNEL.call("d2s_dibr_pair_eyes", rgb.data_ptr(), dep.data_ptr(),
                 left.data_ptr(), right.data_ptr(), h, w, float(ipd),
-                float(depth_strength), float(convergence), stream)
+                float(depth_strength), float(convergence),
+                *tile_geometry(w, SEARCH_RADIUS, SEG_TARGET, WHOLE_ROW_SMEM), stream)
     return left, right
 
 
@@ -252,5 +316,6 @@ def dibr_pair_half(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
     stream = torch.cuda.current_stream(rgb_h.device).cuda_stream
     KERNEL.call("d2s_dibr_pair_half", rgb_h.data_ptr(), dep_h.data_ptr(),
                 out.data_ptr(), eh, ew, float(ipd), float(depth_strength),
-                float(convergence), float(feather), int(tab), stream)
+                float(convergence), float(feather), int(tab),
+                *tile_geometry(ew, SEARCH_RADIUS, SEG_TARGET, WHOLE_ROW_SMEM), stream)
     return out

@@ -8,7 +8,8 @@ little), the ±2-row vertical blur, and the confidence blend.  Inputs
 are rgb [H, W, 3] f32 (0..255), RAW depth, the disocclusion confidence and
 the warp position px (clamped to [0, W-1]), each [H, W] f32.  No edge or
 tile padding: clamp-to-edge reads on the true frame equal the JAX kernel's
-reads of its edge-padded frame.
+reads of its edge-padded frame.  The kernel shares K1's row-segment design
+and its launch geometry (`dibr.py:tile_geometry`, halo ≥ the radius).
 """
 
 from __future__ import annotations
@@ -19,16 +20,21 @@ import math
 import torch
 
 from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
+from desktop2stereo_tpu_torch.ops.kernels.dibr import TileGeometry, tile_geometry
 from desktop2stereo_tpu_torch.ops.kernels.warp import clamp_shift, horizontal_sample_ref
 
 MAX_SEARCH_RADIUS = 32  # the kernel's weight tables
 VSHIFT = 2              # vertical blur tap distance (rows)
+# pixels a block aims at (dibr.tile_geometry): whole 4K rows (93 KB, two
+# blocks an SM) ran 41% slower than 512-pixel segments (PERF.md)
+SEG_TARGET = 512
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaLibrary(
     "dibr_fill.cu",
     {"d2s_dibr_warp_fill_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  ctypes.c_double, _P]},
+                                  ctypes.c_double, *[_I] * len(TileGeometry._fields),
+                                  _P]},
     # no contracted multiply-adds: the tap and threshold decisions round as
     # in the plain version, whose every op rounds on its own
     extra_flags=("-fmad=false",),
@@ -126,5 +132,5 @@ def dibr_warp_fill_blend(rgb: torch.Tensor, depth: torch.Tensor, conf: torch.Ten
     KERNEL.call("d2s_dibr_warp_fill_blend", rgb.data_ptr(), depth.data_ptr(),
                 conf.data_ptr(), px.data_ptr(), out.data_ptr(), H, W,
                 1 if sweep_sign > 0 else -1, search_radius, float(depth_tolerance),
-                stream)
+                *tile_geometry(W, search_radius, SEG_TARGET), stream)
     return out

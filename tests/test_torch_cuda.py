@@ -119,6 +119,85 @@ def test_dibr_eyes_kernel_matches_plain(dev, eh, ew):
         assert (diff > 0).float().mean().item() <= 1e-3
 
 
+# Widths 1-3 (below one 4-pixel group), 513 (one more than a 512-pixel
+# segment: two blocks) and 7680 (8K full width, 15 blocks); heights 1-4, so
+# the ±2-row taps clamp at both ends
+_EDGE_W = (1, 2, 3, 513, 7680)
+_EDGE_H = (1, 2, 3, 4)
+
+
+def _dibr_frame(dev, h, w, seed):
+    """Planar rgb and a depth of runs of levels plus noise (many edges)."""
+    rng = np.random.default_rng(seed)
+    rgb = torch.from_numpy(rng.random((3, h, w), dtype=np.float32) * 255).to(dev)
+    runs = np.repeat(rng.random((h, w // 3 + 1)), 3, axis=1)[:, :w]
+    dep = np.clip(runs + rng.normal(0, 0.01, (h, w)), 0, 1).astype(np.float32)
+    return rgb, torch.from_numpy(dep).to(dev)
+
+
+def _assert_u8_close(got, want):
+    """≤1 LSB on ≤0.1% of the values (one value where a frame holds fewer
+    than 1000)."""
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3 or diff.numel() < 1000 and (
+        (diff > 0).sum().item() <= 1)
+
+
+@pytest.mark.parametrize("feather", [0.0, 0.02])
+@pytest.mark.parametrize("arrangement", ["sbs", "tab"])
+@pytest.mark.parametrize("eh", _EDGE_H)
+@pytest.mark.parametrize("ew", _EDGE_W)
+def test_dibr_kernel_matches_plain_at_edges(dev, ew, eh, arrangement, feather):
+    rgb, dep = _dibr_frame(dev, eh, ew, seed=ew * 7 + eh)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01, feather=feather,
+              arrangement=arrangement)
+    got = K1.dibr_pair_half(rgb, dep, **kw)
+    want = K1.dibr_pair_half_ref(rgb, dep, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.uint8
+    _assert_u8_close(got, want)
+
+
+@pytest.mark.parametrize("h", _EDGE_H)
+@pytest.mark.parametrize("w", _EDGE_W)
+def test_dibr_eyes_kernel_matches_plain_at_edges(dev, w, h):
+    rgb, dep = _dibr_frame(dev, h, w, seed=w * 5 + h)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01)
+    got = K1.dibr_pair_eyes(rgb, dep, **kw)
+    want = K1.dibr_pair_eyes_ref(rgb, dep, **kw)
+    torch.cuda.synchronize()
+    for g, wt in zip(got, want):
+        assert g.shape == (3, h, w) and g.dtype == torch.float32
+        _assert_u8_close(K1.quantize_u8(g), K1.quantize_u8(wt))
+
+
+@pytest.mark.parametrize("w", [200, 1920, 3840, 7680, 16000])
+def test_dibr_kernels_give_the_same_bits_with_segments_or_whole_rows(dev, w, monkeypatch):
+    """Segment target 0 stages the whole row, and the warp gathers read it
+    from shared memory, up to 9,660 columns (24 bytes a column); a wider row
+    (16000) is split into blocks that gather from global memory.  Both K1
+    entry points and K5 give the same bits with 512-pixel segments (K1's
+    whole rows below WHOLE_ROW_SMEM turned off)."""
+    rgb, dep = _dibr_frame(dev, 3, w, seed=w)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01)
+    rgb_hwc = rgb.permute(1, 2, 0).contiguous()
+    conf = torch.rand(3, w, device=dev)
+    px = _warp_px((3, w), dev, seed=3)
+    runs = {}
+    monkeypatch.setattr(K1, "WHOLE_ROW_SMEM", 0)
+    for target in (512, 0):
+        monkeypatch.setattr(K1, "SEG_TARGET", target)
+        monkeypatch.setattr(K5, "SEG_TARGET", target)
+        runs[target] = (K1.dibr_pair_half(rgb, dep, feather=0.02, **kw),
+                        *K1.dibr_pair_eyes(rgb, dep, **kw),
+                        K5.dibr_warp_fill_blend(rgb_hwc, dep, conf, px, sweep_sign=-1.0))
+    assert K1.tile_geometry(w, 12, 0).grid_x == (2 if w == 16000 else 1)
+    for a, b in zip(runs[512], runs[0]):
+        assert torch.equal(a, b)
+    _assert_u8_close(runs[0][0], K1.dibr_pair_half_ref(rgb, dep, feather=0.02, **kw))
+
+
 def _warp_px(shape, dev, seed):
     H, W = shape
     rng = np.random.default_rng(seed)
@@ -157,6 +236,23 @@ def test_dibr_fill_kernel_matches_plain(dev, H, W, sign):
     diff = (K1.quantize_u8(got).int() - K1.quantize_u8(want).int()).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("radius", [0, 1, 12, 32])
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("W", _EDGE_W)
+def test_dibr_fill_kernel_matches_plain_at_edges(dev, W, H, radius, sign):
+    rgb, dep = _dibr_frame(dev, H, W, seed=W + H + radius)
+    rgb = rgb.permute(1, 2, 0).contiguous()
+    conf = torch.rand(H, W, device=dev)
+    px = _warp_px((H, W), dev, seed=W)
+    kw = dict(sweep_sign=sign, search_radius=radius)
+    got = K5.dibr_warp_fill_blend(rgb, dep, conf, px, **kw)
+    want = K5.dibr_warp_fill_blend_ref(rgb, dep, conf, px, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (H, W, 3)
+    _assert_u8_close(K1.quantize_u8(got), K1.quantize_u8(want))
 
 
 def _dense(dev, M, K, F, dtype, with_bias, seed):
