@@ -15,6 +15,7 @@ four products of every encoder layer of the int8 model (`quant="int8"`).
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
+   which of cv2, PIL and PyYAML the host has;
 2. build: nvcc builds the five kernel sources, all at once;
 3. kernel parity on the card against the plain PyTorch versions;
 4. kernel times beside the plain versions, one PyTorch library call where
@@ -39,10 +40,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     24 attention + 96 K4 (4 per layer) + one K1 per frame;
 14. int8 reference: one small frame through the int8 program on the card
     (bf16) and on the CPU in f32 (plain versions), compared;
-15. traced frames: one flagship and one int8 4K frame (upload, program,
-    download) under torch.profiler with CUDA activity: device ms by kernel
-    and by group (K1-K5, GEMM, convolution, elementwise, copies, other), the
-    device's busy ms and its idle share of the frame.
+15. traced frames: one flagship and one int8 4K frame as FrameEngine runs
+    them (`_dispatch`: the upload through the pinned staging ring, the
+    program, the copies back into pinned memory; `_finish`: the wait on the
+    `done` event), and beside them one flagship frame through the harness's
+    pageable path (a numpy frame into ProgramCache, `.cpu()` downloads),
+    under torch.profiler with CUDA activity: device ms by kernel and by group
+    (K1-K5, GEMM, convolution, elementwise, copies, other), the device's busy
+    ms and its idle share of the frame;
+16. the port's CLI on the card, `desktop2stereo_tpu_torch.cli.run` in this
+    process: (a) a settings file written by the port's `save_settings`
+    (DA-V2-Large, depth resolution 518, processing resolution 2160,
+    Half-SBS, Set FPS 1000), a 4K synthetic source, the null sink, once
+    with `--frames FRAMES` and once for CLI_SECONDS (`--duration`): exit 0,
+    the sink's frames and shape, exactly 24 K2 and one K1 launches per frame
+    in the warm-up and in the run; frames/s from the timed run; (b)
+    letterboxed 4K BGRA frames (a 2.39:1 picture between 16:9 bars) written
+    into the port's ShmFrameRing, `--source shm --crop auto`: the crop rect
+    found on the card equals the plain CPU path's on the same frame, and the
+    output has the cropped size.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -50,8 +66,9 @@ before it and reads them just after; launches recorded into a CUDA graph
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.  A JSON report with every number also
-goes to chiprun_out/chip_smoke.json, and the two traces to
-chiprun_out/trace_flagship.json and trace_int8.json.
+goes to chiprun_out/chip_smoke.json, and the three traces to
+chiprun_out/trace_flagship.json, trace_int8.json and
+trace_flagship_pageable.json.
 """
 
 from __future__ import annotations
@@ -128,6 +145,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def host_packages():
+    """Version (or "absent") of what some sources and sinks import when they
+    are made: cv2 (mjpeg, viewer, video, window), PIL (png, image), and
+    PyYAML, which the port does not use."""
+    import importlib
+
+    out = {}
+    for name in ("cv2", "PIL", "yaml"):
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "present")
+        except ImportError:
+            out[name] = "absent"
+    return out
 
 
 def peaks(name: str):
@@ -467,6 +499,199 @@ def reference_check(torch, name, card_prog, cpu_prog, frame):
     return ref
 
 
+class CliRun:
+    """One in-process `cli.run(argv)`, keeping what it made: the source,
+    program and sink from `make_components`, and the FrameEngine with the
+    launch counts when it started (after the warm-up and the preload of the
+    shape probe).  The counts are set to 0 just before the run."""
+
+    def __init__(self, counters) -> None:
+        self.counters = counters
+        self.parts = None
+        self.engine = None
+        self.warm_counts = None
+
+    def __call__(self, argv):
+        from desktop2stereo_tpu_torch import cli
+        from desktop2stereo_tpu_torch.pipeline import engine as engine_mod
+
+        run = self
+        make_components, engine_cls = cli.make_components, engine_mod.FrameEngine
+
+        def recording_make_components(args, settings):
+            run.parts = make_components(args, settings)
+            return run.parts
+
+        class RecordingEngine(engine_cls):
+            def start(self) -> None:
+                run.engine = self
+                run.warm_counts = {n: k.launches for n, k in run.counters.items()}
+                self.started_at = time.perf_counter()
+                super().start()
+
+        cli.make_components, engine_mod.FrameEngine = recording_make_components, RecordingEngine
+        for k in self.counters.values():
+            k.launches = 0
+        try:
+            rc = cli.run(argv)
+        finally:
+            cli.make_components, engine_mod.FrameEngine = make_components, engine_cls
+        self.wall_s = time.perf_counter() - self.engine.started_at
+        self.counts = {n: k.launches for n, k in self.counters.items()}
+        return rc
+
+    def check_launches(self, name, layers, warm_frames):
+        """24 K2 and one K1 per frame run, none of the others, in the warm-up
+        (`warm_frames` frames) and in the run."""
+        eng = self.engine
+        run_counts = {n: self.counts[n] - self.warm_counts[n] for n in self.counts}
+        want = {n: 0 for n in self.counts}
+        want.update(attention=layers, dibr_pair=1)
+        log(f"[cli] {name}: launches in the warm-up " + ", ".join(
+            f"{n} {c} (want {want[n] * warm_frames})" for n, c in self.warm_counts.items())
+            + f"; in the run of {eng.frames} frames " + ", ".join(
+            f"{n} {c} (want {want[n] * eng.frames})" for n, c in run_counts.items()))
+        if any(self.warm_counts[n] != want[n] * warm_frames
+               or run_counts[n] != want[n] * eng.frames for n in want):
+            raise AssertionError(f"cli {name}: a kernel was not launched as the path needs")
+        return {"warmup": self.warm_counts, "run": run_counts}
+
+
+# ProgramCache.warmup runs each stage once, then 2 whole frames
+CLI_WARM_FRAMES = 3
+CLI_SECONDS = 10.0
+
+
+def cli_settings(out_dir):
+    """The flagship settings file, written by the port's save_settings."""
+    from desktop2stereo_tpu_torch.core.config import Settings, load_settings, save_settings
+
+    path = out_dir / "cli_settings.yaml"
+    if path.exists():
+        path.unlink()
+    # Set FPS high enough that the capture never waits
+    settings = Settings(model=FLAGSHIP_MODEL, depth_resolution=518, output_resolution=2160,
+                        display_mode="Half-SBS", fps=1000.0)
+    save_settings(settings, path)
+    if load_settings(path) != settings:
+        raise AssertionError("the settings file does not read back to what was written")
+    return path
+
+
+def cli_flagship(np, counters, layers, card, out_dir):
+    """16a. `cli.run` at full width: DA-V2-Large @518, a 4K synthetic
+    source, Half-SBS, the null sink.  `--frames FRAMES` as a user would ask
+    for a short run: the source outpaces the engine and latest-wins
+    supersedes most of its frames, so the frames/s comes from a second run
+    of CLI_SECONDS (`--duration`, an endless source)."""
+    base = ["--settings", str(cli_settings(out_dir)), "--source", "synthetic",
+            "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null",
+            "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"]
+    want_shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    out = {}
+    for name, extra in (("frames", ["--frames", str(FRAMES)]),
+                        ("timed", ["--duration", str(CLI_SECONDS)])):
+        run = CliRun(counters)
+        rc = run(base + extra)
+        _, program, sink, _ = run.parts
+        eng = run.engine
+        # a run the CLI ends (frame count, duration) may stop the sink before
+        # it takes the last frame; every other frame is delivered or superseded
+        if (rc != 0 or sink.frames < 1 or sink.last_shape != want_shape
+                or not eng.frames - 1 <= sink.frames + eng.out_box.dropped <= eng.frames):
+            raise AssertionError(f"cli flagship {name}: rc {rc}, {eng.frames} frames run, "
+                                 f"{sink.frames} delivered of shape {sink.last_shape}, "
+                                 f"want {want_shape}")
+        launches = run.check_launches(f"flagship {name}", layers, CLI_WARM_FRAMES)
+        final = eng.stats_final()
+        fps = eng.frames / run.wall_s
+        log(f"[cli] flagship {name}: python -m desktop2stereo_tpu_torch.cli --settings "
+            f"(DA-V2-Large @518, Half-SBS, Set FPS 1000) --source synthetic --size "
+            f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} --sink null {' '.join(extra)}: exit {rc}; "
+            f"{eng.frames} frames run ({eng.dropped} superseded), {sink.frames} delivered "
+            f"{sink.last_shape}; {fps:.2f} frames/s (frames run over {run.wall_s:.2f} s from "
+            f"the engine's start to the CLI's return), the CLI's fps counter {final.fps:.2f} "
+            f"(1% low {final.fps_1pct_low:.2f}); {card}")
+        out[name] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames,
+                         dropped=eng.dropped, fps=fps, fps_counter=final.fps,
+                         fps_1pct_low=final.fps_1pct_low, wall_s=run.wall_s,
+                         launches=launches)
+    return out
+
+
+def letterboxed_frame(np, seed):
+    """A 4K BGRA frame holding a 2.39:1 picture between black 16:9 bars."""
+    h, w = FRAME_SHAPE[:2]
+    pic_h = int(round(w / 2.39))
+    top = (h - pic_h) // 2
+    frame = np.zeros((h, w, 4), np.uint8)
+    frame[..., 3] = 255
+    frame[top:top + pic_h] = synthetic_frames(np, 1, pic_h, w, seed)[0]
+    return frame
+
+
+def cli_crop(np, torch, counters, layers, card, out_dir):
+    """16b. Letterboxed 4K frames through the port's shm ring into `cli.run`
+    with `--crop auto`: the crop found on the card equals the plain CPU
+    path's on the same frame, and the output has the cropped size."""
+    import os
+    import threading
+
+    from desktop2stereo_tpu_torch.native import ShmFrameRing
+    from desktop2stereo_tpu_torch.ops.normalize import process_frame_size
+    from desktop2stereo_tpu_torch.pipeline.crop import BGR, apply_crop, crop_from_stats, crop_stats
+
+    frame = letterboxed_frame(np, SEED + 2)
+    ring_bytes = 3 * frame.nbytes
+    vfs = os.statvfs("/dev/shm")
+    if vfs.f_bavail * vfs.f_frsize < ring_bytes + (1 << 20):
+        raise AssertionError(f"/dev/shm holds {vfs.f_bavail * vfs.f_frsize} free bytes; the "
+                             f"ring of three 4K BGRA slots needs {ring_bytes}")
+    name = f"/d2s_smoke_{os.getpid()}"
+    ring = ShmFrameRing(name, max_bytes=frame.nbytes, slots=3)
+    stop = threading.Event()
+
+    def produce():  # a capture agent writing the same picture, ~200 frames/s
+        while not stop.is_set():
+            ring.write(frame)
+            time.sleep(0.005)
+
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    run = CliRun(counters)
+    try:
+        rc = run(["--settings", str(cli_settings(out_dir)), "--source", "shm", "--input", name,
+                  "--crop", "auto", "--sink", "null", "--frames", str(FRAMES),
+                  "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
+    finally:
+        stop.set()
+        producer.join()
+        ring.close()
+    _, program, sink, _ = run.parts
+    eng = run.engine
+    h, w = FRAME_SHAPE[:2]
+    card_stats = crop_stats(torch.from_numpy(frame).cuda(), BGR).cpu().numpy()
+    cpu_stats = crop_stats(torch.from_numpy(frame), BGR).numpy()
+    card_rect = program.controllers[0].crop
+    cpu_rect = crop_from_stats(cpu_stats, w, h)
+    ch, cw = apply_crop(torch.empty(h, w), cpu_rect).shape
+    want_shape = (*process_frame_size(ch, cw, 2160), 3)
+    ok = (rc == 0 and card_rect == cpu_rect and cpu_rect[3] < 1.0 and sink.frames >= 1
+          and sink.last_shape == want_shape)
+    log(f"[cli] crop: {FRAMES} letterboxed {h}x{w} BGRA frames (2.39:1 picture) through the "
+        f"port's ShmFrameRing, --crop auto: exit {rc}; crop stats card {card_stats.tolist()}, "
+        f"CPU {cpu_stats.tolist()}; rect on the card {card_rect}, plain CPU path {cpu_rect}; "
+        f"{eng.frames} frames run, {sink.frames} delivered {sink.last_shape} (want "
+        f"{want_shape}) {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli crop: the card's crop or the output size is off")
+    launches = run.check_launches("crop", layers, CLI_WARM_FRAMES)
+    return dict(rc=rc, card_rect=list(card_rect), cpu_rect=list(cpu_rect),
+                card_stats=card_stats.tolist(), cpu_stats=cpu_stats.tolist(),
+                frames_run=eng.frames, delivered=sink.frames, shape=list(sink.last_shape),
+                launches=launches)
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -508,6 +733,9 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}/{torch.backends.cudnn.allow_tf32}; "
         f"peaks for the bound {peaks(policy.name)}")
     report["card"] = card
+    report["host_packages"] = host_packages()
+    log("[device] host packages the sinks and sources import when made: " + ", ".join(
+        f"{k} {v}" for k, v in report["host_packages"].items()))
 
     # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
@@ -916,14 +1144,24 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     traces = {}
-    for name, net in (("flagship", model), ("int8", model_q)):
+    for name, net, staging in (("flagship", model, "engine"), ("int8", model_q, "engine"),
+                               ("flagship_pageable", model, "pageable")):
         program = programs.ProgramCache(flagship_cfg, net, spec,
                                         compute_dtype=policy.compute_dtype)
         program.warmup(FRAME_SHAPE)
+        if staging == "engine":
+            # as FrameEngine runs a frame: _dispatch uploads it through the
+            # pinned staging ring, runs the program and enqueues the copies
+            # back into pinned memory; _finish waits on the `done` event
+            engine = FrameEngine(None, program, CheckingNullSink(None), target_fps=0.0)
 
-        def frame():  # as the engine runs one: upload, program, download
-            sbs, depth = program(frames[1])
-            return sbs.cpu(), depth.cpu()
+            def frame():
+                t0 = time.perf_counter()
+                engine._finish((*engine._dispatch(frames[1]), t0, t0))
+        else:
+            def frame():  # pageable upload from numpy, .cpu() downloads
+                sbs, depth = program(frames[1])
+                return sbs.cpu(), depth.cpu()
 
         for _ in range(3):
             frame()
@@ -936,24 +1174,57 @@ def main() -> int:
         prof.export_chrome_trace(str(path))
         trace = json.loads(path.read_text())
         tr = summarize_trace(trace["traceEvents"] if isinstance(trace, dict) else trace)
+        tr["staging"] = staging
+        # the host's cost of getting the 4K frame onto the card, untraced
+        # (median of 10): the engine's staging (copy into the pinned slot,
+        # then a non-blocking H2D enqueue), or a pageable upload, which
+        # returns when the copy is done
+        up = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if staging == "engine":
+                engine._staging.upload(frames[1])
+            else:
+                torch.from_numpy(frames[1]).to(dev)
+            up.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        tr["upload_host_ms"] = statistics.median(up)
+        # the host's side of the frame: CPU ops by self time (all threads)
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                       for e in prof.key_averages()), key=lambda kv: -kv[1])[:8]
+        tr["host_top"] = [{"op": k, "self_ms": ms, "calls": n} for k, ms, n in host]
         traces[name] = tr
         g = tr["groups"]
-        log(f"[trace] {name} 4K frame (upload, program, download; {card}): span "
+        how = ("FrameEngine._dispatch/_finish: pinned upload, program, pinned download"
+               if staging == "engine" else
+               "harness path, not the engine's: pageable upload, program, .cpu()")
+        log(f"[trace] {name} 4K frame ({how}; {card}): span "
             f"{tr['span_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms, idle share "
-            f"{tr['idle_share']:.3f}; device ms (kernels) by group: "
+            f"{tr['idle_share']:.3f}; the upload's host ms, untraced, median of 10: "
+            f"{tr['upload_host_ms']:.3f}; device ms (kernels) by group: "
             + ", ".join(f"{k} {v['ms']:.3f} ({v['calls']})"
                         for k, v in sorted(g.items(), key=lambda kv: -kv[1]["ms"]))
             + "; top kernels: " + "; ".join(f"{k[:60]} {v['ms']:.3f} ({v['calls']})"
-                                             for k, v in list(tr["top_kernels"].items())[:8]))
+                                             for k, v in list(tr["top_kernels"].items())[:8])
+            + "; host ops by self CPU ms: " + "; ".join(
+                f"{h['op'][:40]} {h['self_ms']:.3f} ({h['calls']})" for h in tr["host_top"]))
         want = {"K2 attention": layers, "K1 dibr_pair": 1}
         if name == "int8":
             want["K4 quant_matmul"] = 2 * 4 * layers  # the row pass and the product a call
         if any(g.get(k, {}).get("calls") != n for k, n in want.items()):
             raise AssertionError(f"trace {name}: kernel instances off, want {want}")
         del program
+        engine = None
     report["trace"] = traces
     del model, model_q
     torch.cuda.empty_cache()
+
+    # -- 16. the port's CLI on the card ----------------------------------------
+    report["cli"] = {
+        "flagship": cli_flagship(np, counters, layers, card, out_dir),
+        "crop": cli_crop(np, torch, counters, layers, card, out_dir),
+    }
 
     def entry(name, source, replaces, key, launches):
         tm = timing[key]
@@ -983,6 +1254,8 @@ def main() -> int:
                   torch=torch.__version__, cuda=torch.version.cuda)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
+    log("[device] host packages the sinks and sources import when made: " + ", ".join(
+        f"{k} {v}" for k, v in report["host_packages"].items()))
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

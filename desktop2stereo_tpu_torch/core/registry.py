@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import torch
+
 # ViT variant dims: (hidden, layers, heads, mlp_dim)
 VIT_VARIANTS = {
     "vits": (384, 12, 6, 1536),
@@ -119,3 +121,16 @@ def get_spec(name: str) -> ModelSpec:
             f"depth_anything family is ported; ROADMAP A4 (VDA) and A5 "
             f"(other families) cover the rest); registered: "
             f"{sorted(MODEL_REGISTRY)}") from None
+
+
+def effective_compute_dtype(spec: ModelSpec, policy_dtype: torch.dtype,
+                            quiet: bool = False) -> torch.dtype:
+    """The model-quirk table applied to the device policy's dtype (JAX
+    `core/registry.py:effective_compute_dtype`, reference utils.py:234-238
+    FORCE_FP32_KEYWORDS): a `force_fp32` model computes in float32 whatever
+    the policy's default."""
+    if spec.force_fp32 and policy_dtype != torch.float32:
+        if not quiet:
+            print(f"[d2s] {spec.name}: forcing fp32 compute (model quirk)")
+        return torch.float32
+    return policy_dtype

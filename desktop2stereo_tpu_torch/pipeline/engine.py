@@ -248,6 +248,12 @@ class FrameEngine:
     def dropped(self) -> int:
         return self.raw_box.dropped + self.out_box.dropped
 
+    def preload(self, frame, t0: Optional[float] = None) -> None:
+        """Enqueue a frame captured before start() (the CLI's shape probe),
+        so it is processed as frame 0, through the same staging as every
+        other frame, rather than lost."""
+        self.raw_box.put((frame, t0 if t0 is not None else time.perf_counter()))
+
     def start(self) -> None:
         for name, fn in (("capture", self._capture_loop),
                          ("compute", self._compute_loop),

@@ -32,7 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from desktop2stereo_tpu_torch.core.config import DISPLAY_MODES
+from desktop2stereo_tpu_torch.core.config import DISPLAY_MODES, Settings
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
 from desktop2stereo_tpu_torch.core.runtime import cuda_policy
 from desktop2stereo_tpu_torch.ops.depth_post import ema, post_process_depth
@@ -82,6 +82,24 @@ class ProgramConfig:
     edge_feather: bool = False
     fill_16_9: bool = False
     emit_depth: str = "full"  # "full": depth at output res; "model": model res
+
+    @classmethod
+    def from_settings(cls, s: Settings, quality: str = "high") -> "ProgramConfig":
+        return cls(
+            model_name=s.model,
+            depth_resolution=s.depth_resolution,
+            output_height=s.output_resolution,
+            display_mode=s.display_mode,
+            ipd=s.ipd,
+            depth_strength=s.depth_strength,
+            convergence=s.convergence,
+            foreground_scale=s.foreground_scale,
+            aa_strength=s.aa_strength,
+            ema_alpha=s.ema_alpha,
+            temporal_smooth=s.temporal_smooth,
+            quality=quality,
+            fill_16_9=s.fill_16_9,
+        )
 
 
 def check_supported(cfg: ProgramConfig) -> None:

@@ -1,7 +1,8 @@
 """The torch port imports neither JAX nor the JAX package.
 
-A CUDA host need not have JAX, flax or PyYAML, so every module of
-`desktop2stereo_tpu_torch` (and chip_smoke.py) must import without them.
+A CUDA host need not have JAX, flax, PyYAML, OpenCV or PIL, so every module
+of `desktop2stereo_tpu_torch` (and chip_smoke.py) must import without them:
+the sources and sinks that need cv2 or PIL import it when they are made.
 Checked in a fresh interpreter, since this test process has JAX loaded.
 """
 
@@ -29,7 +30,12 @@ def test_port_has_the_slice_modules():
                  "ops.quant", "ops.kernels.quant_matmul",
                  "models.dinov2", "models.dpt", "models.depth_anything",
                  "models.factory", "models.from_flax", "pipeline.programs",
-                 "pipeline.engine", "pipeline.metrics"):
+                 "pipeline.engine", "pipeline.metrics", "core.yaml_subset",
+                 "core.display", "pipeline.crop", "ops.overlay", "native",
+                 "sources", "sources.synthetic", "sources.image", "sources.video",
+                 "sources.shm", "sources.screen", "sinks", "sinks.null", "sinks.png",
+                 "sinks.video", "sinks.tee", "sinks.mjpeg", "sinks.viewer",
+                 "sinks.window", "cli"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 
@@ -40,7 +46,7 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'desktop2stereo_tpu', 'yaml'))\n"
+        "('jax', 'jaxlib', 'flax', 'desktop2stereo_tpu', 'yaml', 'cv2', 'PIL'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
