@@ -11,6 +11,10 @@ both-eyes DIBR pass (K1: the finished Half-SBS frame, or both f32 eyes for
 the generic tail), the fast compositor's warp (K3), the single-eye DIBR
 (K5) behind `ops.stereo.dibr_render`, and the fused int8 dense (K4) on the
 four products of every encoder layer of the int8 model (`quant="int8"`).
+The streaming family runs beside it: Video-Depth-Anything-Large (the same
+ViT-L encoder, a temporal DPT head carrying a 31-frame window) at 518 on
+the same 4K capture, and a real-shape Video-Depth-Anything-Small checkpoint
+that the script writes itself goes through the loader and the CLI.
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -58,7 +62,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     letterboxed 4K BGRA frames (a 2.39:1 picture between 16:9 bars) written
     into the port's ShmFrameRing, `--source shm --crop auto`: the crop rect
     found on the card equals the plain CPU path's on the same frame, and the
-    output has the cropped size.
+    output has the cropped size;
+17. VDA flagship: Video-Depth-Anything-Large at 518, Half-SBS (fused tail),
+    FRAMES 4K frames through FrameEngine: launches 24 attention + one K1
+    per frame and no other kernel, the eight caches' shapes after the run,
+    stage ms (pre / model / tail) and frames/s, the four temporal modules'
+    ms (CUDA events around each), peak device memory, and one traced frame
+    as in phase 15, the temporal modules' kernels totalled inside their
+    `record_function` ranges where the trace holds GPU-side ranges;
+18. VDA reference: three small frames streamed (first, step, step) through
+    the VDA program on the card (bf16) and on the CPU (f32, plain
+    versions), each held to phase 6's thresholds;
+19. int8 VDA: INT8_VDA_FRAMES 4K frames, launches 24 attention + 96 K4 +
+    one K1 per frame;
+20. checkpoint: a real-shape Video-Depth-Anything-Small checkpoint in the
+    original naming (seeded, F16) written by the port's own writer as one
+    file and as three shards with an index: `build_bound(...,
+    checkpoint=path)` on the card holds exactly the CPU load's tensors,
+    and `cli.run` with `--model Video-Depth-Anything-Small --checkpoint
+    <index>` runs FRAMES 4K frames into the null sink, exit 0, 12 K2 and
+    one K1 launches per frame.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -66,9 +89,9 @@ before it and reads them just after; launches recorded into a CUDA graph
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.  A JSON report with every number also
-goes to chiprun_out/chip_smoke.json, and the three traces to
-chiprun_out/trace_flagship.json, trace_int8.json and
-trace_flagship_pageable.json.
+goes to chiprun_out/chip_smoke.json, and the four traces to
+chiprun_out/trace_flagship.json, trace_int8.json,
+trace_flagship_pageable.json and trace_vda.json.
 """
 
 from __future__ import annotations
@@ -175,11 +198,11 @@ def bound_ms(name: str, nbytes: float, ops: float, unit: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def config(programs, mode="Half-SBS", quality="high"):
+def config(programs, mode="Half-SBS", quality="high", model=FLAGSHIP_MODEL):
     """bench.py's flagship settings (Settings defaults otherwise), with the
     model-resolution depth a null sink takes."""
     return programs.ProgramConfig(
-        model_name=FLAGSHIP_MODEL, depth_resolution=518, output_height=2160,
+        model_name=model, depth_resolution=518, output_height=2160,
         display_mode=mode, ipd=IPD, depth_strength=STRENGTH, convergence=0.0,
         foreground_scale=0.0, aa_strength=2.0, ema_alpha=0.9,
         temporal_smooth=True, quality=quality, emit_depth="model")
@@ -266,10 +289,13 @@ TRACE_GROUPS = (
 )
 
 
-def summarize_trace(events):
+def summarize_trace(events, spans=()):
     """Device ms by kernel name and by group, busy ms and idle share of the
     span from the host's "frame" range to the end of the last device
-    activity, from a chrome trace's events."""
+    activity, from a chrome trace's events.  For each host range named in
+    `spans` (a `record_function` label), the device ms of the kernels inside
+    its GPU-side ranges (the trace's gpu_user_annotation events), or None
+    where the trace holds none."""
     import re
 
     frame = next(e for e in events if e.get("cat") == "user_annotation"
@@ -298,8 +324,17 @@ def summarize_trace(events):
             slot["ms"] += float(e["dur"]) / 1e3
             slot["calls"] += 1
     top = dict(sorted(names.items(), key=lambda kv: -kv[1]["ms"])[:20])
+    inside = {}
+    for label in spans:
+        ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                  if e.get("cat") == "gpu_user_annotation" and e.get("name") == label]
+        kernels = [e for e in dev if e["cat"] == "kernel"
+                   and any(a <= float(e["ts"]) < b for a, b in ranges)]
+        inside[label] = ({"ms": sum(float(e["dur"]) for e in kernels) / 1e3,
+                          "calls": len(kernels), "ranges": len(ranges)} if ranges else None)
     return {"span_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / (end - start), "groups": groups, "top_kernels": top}
+            "idle_share": 1.0 - busy / (end - start), "groups": groups, "top_kernels": top,
+            "spans": inside}
 
 
 def dense_inputs(np, torch, dev, M, K, F, dtype, with_bias, seed):
@@ -444,7 +479,8 @@ def run_engine(FrameEngine, program, source, sink, counters, frames):
 
 def stage_times(torch, programs, program, frame_np, cfg, spec, dev, generic: bool):
     """Per-stage device ms at the stage seams (CUDA events, host launch gaps
-    included), median of TIMED_RUNS frames after 3 warm ones."""
+    included), median of TIMED_RUNS frames after 3 warm ones.  A stateful
+    model carries its state: frame 0 runs `first`, the timed frames `step`."""
     p = program.program
     state = programs.init_state(*programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]), device=dev)
     names = ("pre", "model", "post", "stereo") if generic else ("pre", "model", "tail")
@@ -456,7 +492,7 @@ def stage_times(torch, programs, program, frame_np, cfg, spec, dev, generic: boo
             ev[0].record()
             rgb, model_in = p.preprocess(frame)
             ev[1].record()
-            raw = p.model_stage(model_in)
+            raw, carry = p.model_stage(model_in, state.model)
             ev[2].record()
             if generic:
                 small = p.post_stage(raw, state.ema_depth)
@@ -466,7 +502,7 @@ def stage_times(torch, programs, program, frame_np, cfg, spec, dev, generic: boo
                 out, _, small = p.post_stereo_stage(raw, state.ema_depth, rgb)
             ev[-1].record()
             ev[-1].synchronize()
-            state = programs.FrameState(ema_depth=small)
+            state = programs.FrameState(ema_depth=small, model=carry)
             if i >= 3:
                 for j, n in enumerate(names):
                     times[n].append(ev[j].elapsed_time(ev[j + 1]))
@@ -690,6 +726,305 @@ def cli_crop(np, torch, counters, layers, card, out_dir):
                 card_stats=card_stats.tolist(), cpu_stats=cpu_stats.tolist(),
                 frames_run=eng.frames, delivered=sink.frames, shape=list(sink.last_shape),
                 launches=launches)
+
+
+VDA_MODEL = "Video-Depth-Anything-Large"
+CKPT_MODEL = "Video-Depth-Anything-Small"
+INT8_VDA_FRAMES = 10
+
+
+def vda_cache_shapes(spec, mh: int, mw: int):
+    """The eight caches' shapes at a model input of mh x mw: the patch grid
+    (temporal module 0, neck[2] channels), the stride-2 half grid (module 1,
+    neck[3]), the grid and twice the grid (modules 2 and 3, the fusion
+    channels), two attention sites each."""
+    gh, gw = mh // spec.patch_size, mw // spec.patch_size
+    neck, fusion = spec.neck_channels, spec.fusion_channels
+    sites = ((gh * gw, neck[2]), (((gh + 1) // 2) * ((gw + 1) // 2), neck[3]),
+             (gh * gw, fusion), (4 * gh * gw, fusion))
+    return [(1, p, 31, c) for p, c in sites for _ in range(2)]
+
+
+def temporal_flops(pixels: int, channels: int, window: int = 32) -> float:
+    """Operations of one temporal module in a streaming step (one query
+    frame, K and V over the whole window): proj_in and proj_out, two
+    attention blocks (q, K and V over the window, logits and P·V, to_out)
+    and the GEGLU feed-forward (C → 8C, 4C → C)."""
+    R, C, n = pixels, channels, window
+    attn = 2 * R * C * C + 2 * 2 * R * n * C * C + 2 * 2 * R * n * C + 2 * R * C * C
+    return 2 * 2 * R * C * C + 2 * attn + 2 * R * C * 8 * C + 2 * R * 4 * C * C
+
+
+def vda_original_arrays(np, spec, seed: int):
+    """A Video-Depth-Anything checkpoint in its original naming (pretrained.*
+    and head.*) at `spec`'s widths, values drawn from a seeded normal (x0.02)
+    and stored as F16, as a release would ship them."""
+    hidden, layers, _, mlp = spec.dims
+    neck, fusion = spec.neck_channels, spec.fusion_channels
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def add(name, *shape):
+        sd[name] = (rng.standard_normal(shape, dtype=np.float32) * 0.02).astype(np.float16)
+
+    add("pretrained.cls_token", 1, 1, hidden)
+    add("pretrained.pos_embed", 1, 37 * 37 + 1, hidden)
+    add("pretrained.patch_embed.proj.weight", hidden, 3, spec.patch_size, spec.patch_size)
+    for n in ("pretrained.patch_embed.proj.bias", "pretrained.norm.weight",
+              "pretrained.norm.bias"):
+        add(n, hidden)
+    for i in range(layers):
+        p = f"pretrained.blocks.{i}."
+        for n in ("norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias", "attn.proj.bias",
+                  "ls1.gamma", "ls2.gamma", "mlp.fc2.bias"):
+            add(p + n, hidden)
+        add(p + "attn.qkv.weight", 3 * hidden, hidden)
+        add(p + "attn.qkv.bias", 3 * hidden)
+        add(p + "attn.proj.weight", hidden, hidden)
+        add(p + "mlp.fc1.weight", mlp, hidden)
+        add(p + "mlp.fc1.bias", mlp)
+        add(p + "mlp.fc2.weight", hidden, mlp)
+    for i, ch in enumerate(neck):
+        add(f"head.projects.{i}.weight", ch, hidden, 1, 1)
+        add(f"head.projects.{i}.bias", ch)
+        add(f"head.scratch.layer{i + 1}_rn.weight", fusion, ch, 3, 3)
+    for i, k in ((0, 4), (1, 2), (3, 3)):
+        add(f"head.resize_layers.{i}.weight", neck[i], neck[i], k, k)
+        add(f"head.resize_layers.{i}.bias", neck[i])
+    for rn in (1, 2, 3, 4):
+        p = f"head.scratch.refinenet{rn}."
+        add(p + "out_conv.weight", fusion, fusion, 1, 1)
+        add(p + "out_conv.bias", fusion)
+        for unit in (1, 2):
+            for conv in (1, 2):
+                add(p + f"resConfUnit{unit}.conv{conv}.weight", fusion, fusion, 3, 3)
+                add(p + f"resConfUnit{unit}.conv{conv}.bias", fusion)
+    for m, C in enumerate((neck[2], neck[3], fusion, fusion)):
+        p = f"head.motion_modules.{m}.temporal_transformer."
+        for n in ("norm.weight", "norm.bias", "proj_in.bias", "proj_out.bias"):
+            add(p + n, C)
+        add(p + "proj_in.weight", C, C)
+        add(p + "proj_out.weight", C, C)
+        bp = p + "transformer_blocks.0."
+        for a in range(2):
+            ap = bp + f"attention_blocks.{a}."
+            for n in ("to_q", "to_k", "to_v", "to_out.0"):
+                add(ap + n + ".weight", C, C)
+            add(ap + "to_out.0.bias", C)
+            add(bp + f"norms.{a}.weight", C)
+            add(bp + f"norms.{a}.bias", C)
+        for n in ("ff_norm.weight", "ff_norm.bias", "ff.net.2.bias"):
+            add(bp + n, C)
+        add(bp + "ff.net.0.proj.weight", 8 * C, C)
+        add(bp + "ff.net.0.proj.bias", 8 * C)
+        add(bp + "ff.net.2.weight", C, 4 * C)
+    add("head.scratch.output_conv1.weight", fusion // 2, fusion, 3, 3)
+    add("head.scratch.output_conv1.bias", fusion // 2)
+    add("head.scratch.output_conv2.0.weight", 32, fusion // 2, 3, 3)
+    add("head.scratch.output_conv2.0.bias", 32)
+    add("head.scratch.output_conv2.2.weight", 1, 32, 1, 1)
+    add("head.scratch.output_conv2.2.bias", 1)
+    return sd
+
+
+class _TemporalProbe:
+    """Within `with`: every temporal module's forward bracketed by CUDA
+    events (`records`, in call order) or inside `record_function(label)`."""
+
+    def __init__(self, torch, vda_module, label=None) -> None:
+        self.torch, self.cls, self.label = torch, vda_module.TemporalTransformer, label
+        self.records = []
+
+    def __enter__(self):
+        torch, orig, probe = self.torch, self.cls.forward, self
+        self.orig = orig
+
+        def forward(module, x, caches=None):
+            if probe.label is not None:
+                with torch.profiler.record_function(probe.label):
+                    return orig(module, x, caches)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = orig(module, x, caches)
+            b.record()
+            probe.records.append((a, b))
+            return out
+
+        self.cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames,
+               policy, dev, card):
+    """17-19: Video-Depth-Anything-Large at depth resolution 518 on 4K
+    Half-SBS (the fused tail): FRAMES frames through FrameEngine with exact
+    launches, the eight cache shapes, stage ms, the temporal modules' ms,
+    peak memory and a traced frame; three small frames streamed on the card
+    (bf16) and on the CPU (f32) against each other; the int8 encoder."""
+    from desktop2stereo_tpu_torch.models import vda as VDA
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vda, vda_spec = build_bound(VDA_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED)
+    out["build_s"] = time.perf_counter() - t0
+    layers = len(vda.backbone.layer)
+    shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    cfg = drive("vda", vda, "Half-SBS", "high", shape, {"attention": layers, "dibr_pair": 1},
+                net_spec=vda_spec)
+    program = driven.pop("vda")
+    mh, mw = programs.ema_shape(cfg, vda_spec, *FRAME_SHAPE[:2])
+    want = vda_cache_shapes(vda_spec, mh, mw)
+    (key,) = program._states
+    carry = program._states[key].model
+    got = [tuple(c.shape) for c in carry]
+    carry_mb = sum(c.numel() * c.element_size() for c in carry) / 1e6
+    ok = got == want and all(c.dtype == policy.compute_dtype for c in carry)
+    log(f"[vda] carry after {FRAMES} frames, key {key}: {len(carry)} caches {got} (want "
+        f"{want}), {carry_mb:.1f} MB {carry[0].dtype} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("vda: the carry's caches have the wrong shapes")
+
+    # the temporal modules' share of a steady-state frame: CUDA events around
+    # each module's forward (eager, host gaps included), median of 10 frames
+    with _TemporalProbe(torch, VDA) as probe:
+        per_frame = []
+        for i in range(11):
+            probe.records.clear()
+            program(frames[i % len(frames)])
+            torch.cuda.synchronize()
+            if i:
+                per_frame.append([a.elapsed_time(b) for a, b in probe.records])
+    site_ms = [statistics.median(f[m] for f in per_frame) for m in range(4)]
+    gh, gw = mh // vda_spec.patch_size, mw // vda_spec.patch_size
+    pixels = (gh * gw, ((gh + 1) // 2) * ((gw + 1) // 2), gh * gw, 4 * gh * gw)
+    chans = (vda_spec.neck_channels[2], vda_spec.neck_channels[3], vda_spec.fusion_channels,
+             vda_spec.fusion_channels)
+    flops = [temporal_flops(p, c) for p, c in zip(pixels, chans)]
+    bound = bound_ms(policy.name, sum(c.numel() * c.element_size() for c in carry),
+                     sum(flops), "bf16")
+    out["temporal"] = dict(module_ms=site_ms, total_ms=statistics.median(map(sum, per_frame)),
+                           gflop=[f / 1e9 for f in flops], bound=bound)
+    log(f"[vda] temporal modules in a streamed 4K frame (CUDA events around each module, "
+        f"eager, median of 10): " + ", ".join(
+            f"module {m} [{p} px, C {c}] {ms:.3f} ms for {f / 1e9:.1f} GFLOP"
+            for m, (p, c, ms, f) in enumerate(zip(pixels, chans, site_ms, flops)))
+        + f"; total {out['temporal']['total_ms']:.3f} ms for {sum(flops) / 1e12:.3f} TFLOP, "
+        f"bound {bound[0]:.3f} ms ({bound[1]}); {card}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["carry_mb"] = carry_mb
+    out["cache_shapes"] = [list(g) for g in got]
+    log(f"[vda] peak device memory since the model build {out['peak_mem_gb']:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); {card}")
+    del program
+
+    with _TemporalProbe(torch, VDA, label="vda_temporal"):
+        out["trace"] = trace("vda", vda, vda_spec, cfg, "engine",
+                             {"K2 attention": layers, "K1 dibr_pair": 1}, spans=("vda_temporal",))
+
+    # -- 18. three small frames streamed on the card and on the CPU -------
+    cpu_vda, _ = build_bound(VDA_MODEL, device="cpu", dtype=torch.float32, seed=SEED)
+    card_prog = programs.ProgramCache(cfg, vda, vda_spec, compute_dtype=policy.compute_dtype)
+    cpu_prog = programs.ProgramCache(cfg, cpu_vda, vda_spec, compute_dtype=torch.float32)
+    small = synthetic_frames(np, 3, 216, 384, SEED + 5)
+    out["reference"] = [reference_check(torch, f"vda frame {i} ({'step' if i else 'first'})",
+                                        card_prog, cpu_prog, f) for i, f in enumerate(small)]
+    (key,) = card_prog._states
+    rel = [((c.float().cpu() - r).abs().max() / r.abs().max().clamp_min(1e-6)).item()
+           for c, r in zip(card_prog._states[key].model, cpu_prog._states[key].model)]
+    out["reference_carry_max_rel"] = rel
+    log(f"[vda] carry after 3 small frames, card bf16 against CPU f32, max abs err over max "
+        f"abs per cache: " + ", ".join(f"{r:.4f}" for r in rel))
+    del cpu_vda, cpu_prog, card_prog
+
+    # -- 19. int8 VDA ----------------------------------------------------------
+    t0 = time.perf_counter()
+    vda_q, _ = build_bound(VDA_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED,
+                           quant="int8")
+    out["int8_build_s"] = time.perf_counter() - t0
+    drive("vda_int8", vda_q, "Half-SBS", "high", shape,
+          {"attention": layers, "quant_matmul": 4 * layers, "dibr_pair": 1},
+          net_spec=vda_spec, n_frames=INT8_VDA_FRAMES)
+    driven.pop("vda_int8")
+    out["paths"] = {k: paths[k] for k in ("vda", "vda_int8")}
+    del vda, vda_q
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_phase(np, torch, build_bound, counters, dev, card, out_dir):
+    """20. A real-shape Video-Depth-Anything-Small checkpoint (original
+    naming, F16, seeded) written by the port's writer as one file and as
+    three shards with an index: `build_bound(..., checkpoint=path)` on the
+    card holds the tensors the CPU load holds, and the CLI runs
+    `--model Video-Depth-Anything-Small --checkpoint <index>` on a 4K
+    synthetic source into the null sink (12 K2 and one K1 a frame)."""
+    import tempfile
+
+    from desktop2stereo_tpu_torch.core.registry import get_spec
+    from desktop2stereo_tpu_torch.models import safetensors_io
+
+    spec = get_spec(CKPT_MODEL)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="d2s_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+        arrays = vda_original_arrays(np, spec, SEED + 7)
+        (tmp / "sharded").mkdir()
+        t0 = time.perf_counter()
+        single = tmp / "model.safetensors"
+        safetensors_io.save_file(arrays, single)
+        index = safetensors_io.save_sharded(arrays, tmp / "sharded", shards=3)
+        out["write_s"] = time.perf_counter() - t0
+        out["params"] = int(sum(a.size for a in arrays.values()))
+        out["bytes"] = single.stat().st_size
+        ref = None
+        for layout, path in (("single", single), ("sharded", index)):
+            t0 = time.perf_counter()
+            on_card, _ = build_bound(CKPT_MODEL, device=dev, dtype=torch.float32,
+                                     checkpoint=str(path))
+            load_s = time.perf_counter() - t0
+            on_cpu, _ = build_bound(CKPT_MODEL, device="cpu", checkpoint=str(path))
+            card_sd = {k: v.cpu() for k, v in on_card.state_dict().items()}
+            cpu_sd = on_cpu.state_dict()
+            ref = ref or cpu_sd
+            raw = safetensors_io.load_tensors(path, dev)
+            ok = (set(card_sd) == set(cpu_sd) == set(ref)
+                  and all(torch.equal(card_sd[k], cpu_sd[k]) and torch.equal(cpu_sd[k], ref[k])
+                          for k in cpu_sd)
+                  and len(raw) == len(arrays)
+                  and all(torch.equal(raw[k].cpu(), torch.from_numpy(arrays[k])) for k in arrays))
+            log(f"[checkpoint] {CKPT_MODEL}, {out['params']} parameters as F16 "
+                f"({out['bytes'] / 1e6:.1f} MB), {layout}: build_bound on the card "
+                f"{load_s:.2f} s; {len(card_sd)} tensors equal to the CPU load (and to the "
+                f"single file's), the raw tensors read onto the card equal to the written "
+                f"ones {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"checkpoint {layout}: the card's load differs from the CPU's")
+            out[layout] = dict(load_s=load_s, tensors=len(card_sd))
+            del on_card, on_cpu, raw
+        run = CliRun(counters)
+        rc = run(["--settings", str(cli_settings(out_dir)), "--model", CKPT_MODEL,
+                  "--checkpoint", index, "--source", "synthetic",
+                  "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null",
+                  "--frames", str(FRAMES), "--stop-file", str(out_dir / "stop.request"),
+                  "--stats-every", "0"])
+    _, _, sink, _ = run.parts
+    eng = run.engine
+    want_shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    ok = rc == 0 and sink.frames >= 1 and sink.last_shape == want_shape
+    log(f"[checkpoint] python -m desktop2stereo_tpu_torch.cli --model {CKPT_MODEL} "
+        f"--checkpoint <index> --source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} "
+        f"--sink null --frames {FRAMES}: exit {rc}; {eng.frames} frames run, {sink.frames} "
+        f"delivered {sink.last_shape} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli with --checkpoint: exit code or output off")
+    out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames,
+                      launches=run.check_launches("checkpoint", spec.dims[1], CLI_WARM_FRAMES))
+    return out
 
 
 def main() -> int:
@@ -999,26 +1334,31 @@ def main() -> int:
     layers = len(model.backbone.layer)  # 24 for ViT-L
     frames = synthetic_frames(np, 4, FRAME_SHAPE[0], FRAME_SHAPE[1], SEED)
     paths = {}
+    driven = {}  # path name → its ProgramCache, for the checks after a run
 
-    def drive(name, net, mode, quality, want_shape, want):
-        """Warm up, run FRAMES frames of model `net` through FrameEngine,
+    def drive(name, net, mode, quality, want_shape, want, net_spec=None, n_frames=FRAMES):
+        """Warm up, run `n_frames` frames of model `net` through FrameEngine,
         check the counts `want` (kernel → launches per frame), time the
         stages."""
-        cfg = config(programs, mode, quality)
-        program = programs.ProgramCache(cfg, net, spec, compute_dtype=policy.compute_dtype)
+        net_spec = net_spec or spec
+        cfg = config(programs, mode, quality, net_spec.name)
+        program = programs.ProgramCache(cfg, net, net_spec, compute_dtype=policy.compute_dtype)
         warm = program.warmup(FRAME_SHAPE)
-        source = SaturatingSource(frames, FRAMES)
+        source = SaturatingSource(frames, n_frames)
         sink = CheckingNullSink(want_shape)
-        fps, counts, stats = run_engine(FrameEngine, program, source, sink, counters, FRAMES)
-        log(f"[{name}] {mode} {quality}: {FRAMES} frames, {sink.count} delivered; launches "
-            + ", ".join(f"{k} {n} (want {want.get(k, 0) * FRAMES})" for k, n in counts.items()))
-        if any(counts[k] != want.get(k, 0) * FRAMES for k in counts):
+        fps, counts, stats = run_engine(FrameEngine, program, source, sink, counters, n_frames)
+        log(f"[{name}] {net_spec.name} {mode} {quality}: {n_frames} frames, {sink.count} "
+            f"delivered; launches " + ", ".join(
+                f"{k} {n} (want {want.get(k, 0) * n_frames})" for k, n in counts.items()))
+        if any(counts[k] != want.get(k, 0) * n_frames for k in counts):
             raise AssertionError(f"{name}: a kernel was not launched as the path needs")
+        driven[name] = program
         generic = not program.program.fused(*FRAME_SHAPE[:2])
-        stages, out = stage_times(torch, programs, program, frames[0], cfg, spec, dev, generic)
+        stages, out = stage_times(torch, programs, program, frames[0], cfg, net_spec, dev,
+                                  generic)
         if tuple(out.shape) != want_shape or out.dtype != torch.uint8:
             raise AssertionError(f"{name}: step output {out.dtype} {tuple(out.shape)}")
-        log(f"[{name}] engine {fps:.2f} frames/s over {FRAMES} frames (fps counter "
+        log(f"[{name}] engine {fps:.2f} frames/s over {n_frames} frames (fps counter "
             f"{stats.fps:.2f}); stage ms " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
             + f" (CUDA events at the stage seams, host launch gaps included, median of "
             f"{TIMED_RUNS}); first calls " + ", ".join(f"{k} {v:.2f}" for k, v in warm.items())
@@ -1143,12 +1483,14 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    traces = {}
-    for name, net, staging in (("flagship", model, "engine"), ("int8", model_q, "engine"),
-                               ("flagship_pageable", model, "pageable")):
-        program = programs.ProgramCache(flagship_cfg, net, spec,
-                                        compute_dtype=policy.compute_dtype)
+
+    def trace(name, net, net_spec, cfg, staging, want, spans=()):
+        """One traced 4K frame of `net`, after a warm-up and 3 untraced
+        frames (a stateful model's carry is warm: the traced frame runs
+        `step`), its kernel instances checked against `want`."""
+        program = programs.ProgramCache(cfg, net, net_spec, compute_dtype=policy.compute_dtype)
         program.warmup(FRAME_SHAPE)
+        engine = None
         if staging == "engine":
             # as FrameEngine runs a frame: _dispatch uploads it through the
             # pinned staging ring, runs the program and enqueues the copies
@@ -1172,8 +1514,9 @@ def main() -> int:
             torch.cuda.synchronize()
         path = out_dir / f"trace_{name}.json"
         prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-        tr = summarize_trace(trace["traceEvents"] if isinstance(trace, dict) else trace)
+        trace_json = json.loads(path.read_text())
+        tr = summarize_trace(trace_json["traceEvents"] if isinstance(trace_json, dict)
+                             else trace_json, spans)
         tr["staging"] = staging
         # the host's cost of getting the 4K frame onto the card, untraced
         # (median of 10): the engine's staging (copy into the pinned slot,
@@ -1194,28 +1537,36 @@ def main() -> int:
         host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                        for e in prof.key_averages()), key=lambda kv: -kv[1])[:8]
         tr["host_top"] = [{"op": k, "self_ms": ms, "calls": n} for k, ms, n in host]
-        traces[name] = tr
         g = tr["groups"]
         how = ("FrameEngine._dispatch/_finish: pinned upload, program, pinned download"
                if staging == "engine" else
                "harness path, not the engine's: pageable upload, program, .cpu()")
-        log(f"[trace] {name} 4K frame ({how}; {card}): span "
+        log(f"[trace] {name} 4K frame ({net_spec.name}; {how}; {card}): span "
             f"{tr['span_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms, idle share "
             f"{tr['idle_share']:.3f}; the upload's host ms, untraced, median of 10: "
             f"{tr['upload_host_ms']:.3f}; device ms (kernels) by group: "
             + ", ".join(f"{k} {v['ms']:.3f} ({v['calls']})"
                         for k, v in sorted(g.items(), key=lambda kv: -kv[1]["ms"]))
+            + "".join(f"; of which inside {k}: " + (f"{v['ms']:.3f} ms ({v['calls']} kernels, "
+                                                     f"{v['ranges']} ranges)" if v else
+                                                     "not separable (no GPU-side range "
+                                                     "in the trace)")
+                      for k, v in tr["spans"].items())
             + "; top kernels: " + "; ".join(f"{k[:60]} {v['ms']:.3f} ({v['calls']})"
                                              for k, v in list(tr["top_kernels"].items())[:8])
             + "; host ops by self CPU ms: " + "; ".join(
                 f"{h['op'][:40]} {h['self_ms']:.3f} ({h['calls']})" for h in tr["host_top"]))
+        if any(g.get(k, {}).get("calls") != n for k, n in want.items()):
+            raise AssertionError(f"trace {name}: kernel instances off, want {want}")
+        return tr
+
+    traces = {}
+    for name, net, staging in (("flagship", model, "engine"), ("int8", model_q, "engine"),
+                               ("flagship_pageable", model, "pageable")):
         want = {"K2 attention": layers, "K1 dibr_pair": 1}
         if name == "int8":
             want["K4 quant_matmul"] = 2 * 4 * layers  # the row pass and the product a call
-        if any(g.get(k, {}).get("calls") != n for k, n in want.items()):
-            raise AssertionError(f"trace {name}: kernel instances off, want {want}")
-        del program
-        engine = None
+        traces[name] = trace(name, net, spec, flagship_cfg, staging, want)
     report["trace"] = traces
     del model, model_q
     torch.cuda.empty_cache()
@@ -1225,6 +1576,13 @@ def main() -> int:
         "flagship": cli_flagship(np, counters, layers, card, out_dir),
         "crop": cli_crop(np, torch, counters, layers, card, out_dir),
     }
+
+    # -- 17. VDA flagship: Video-Depth-Anything-Large, 4K Half-SBS ----------
+    report["vda"] = vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths,
+                               frames, policy, dev, card)
+
+    # -- 20. a real-shape checkpoint on the card, and the CLI with it -------
+    report["checkpoint"] = checkpoint_phase(np, torch, build_bound, counters, dev, card, out_dir)
 
     def entry(name, source, replaces, key, launches):
         tm = timing[key]

@@ -15,10 +15,13 @@ probe run as frame 0.
 exits non-zero without one: there is no CPU fallback.  `--device cpu` runs
 the plain-PyTorch versions of the kernels, for tests and small runs.
 `--fp32` computes in float32 on the card; `--quant int8` builds the int8
-encoder.  What the port cannot do yet is refused by name: `--streams` > 1
-and `--batched` (ROADMAP A6), `--profile-dir` (A10), `--checkpoint` (A11:
-the port draws seeded random weights), the tcp source and the rtmp and xr
-sinks (A1b).
+encoder.  `--checkpoint` loads safetensors weights (one file, an index json
+or one shard of a sharded set); without it the model factory looks in its
+local caches (`models/factory.py:find_checkpoint`) and otherwise draws
+seeded random weights.  `--model Video-Depth-Anything-*` streams, its
+temporal window carried from frame to frame.  What the port cannot do yet
+is refused by name: `--streams` > 1 and `--batched` (ROADMAP A6),
+`--profile-dir` (A10), the tcp source and the rtmp and xr sinks (A1b).
 """
 
 from __future__ import annotations
@@ -80,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "clients (view-only host)")
     p.add_argument("--quality", default="high", choices=["high", "fast"],
                    help="stereo path: DIBR+inpaint vs grid-shift")
-    p.add_argument("--checkpoint", help="safetensors path (ROADMAP A11; the port draws "
-                                        "seeded random weights)")
+    p.add_argument("--checkpoint", help="safetensors weights: a file, an index json or one "
+                                        "shard (default: the local caches, else seeded "
+                                        "random weights)")
     p.add_argument("--fp32", action="store_true", help="float32 compute instead of bf16")
     p.add_argument("--device", default="cuda", choices=list(DEVICES),
                    help="'cuda' (default; 'auto' is an alias): CUDA device 0, "
@@ -114,9 +118,6 @@ def refuse_unported(args) -> None:
     if args.profile_dir:
         raise SystemExit("--profile-dir is not ported to desktop2stereo_tpu_torch yet "
                          "(ROADMAP A10)")
-    if args.checkpoint:
-        raise SystemExit("--checkpoint: desktop2stereo_tpu_torch cannot read weights yet "
-                         "(ROADMAP A11); it draws seeded random weights")
 
 
 def _sink_for_run_mode(run_mode: str) -> str:
@@ -198,7 +199,7 @@ def make_components(args, settings):
     compute_dtype = effective_compute_dtype(get_spec(settings.model), dtype)
     print(f"[d2s] device: {device}, compute dtype: {compute_dtype}")
     model, spec = build_bound(settings.model, device=device, dtype=compute_dtype,
-                              quant=args.quant)
+                              quant=args.quant, checkpoint=args.checkpoint)
 
     cfg = ProgramConfig.from_settings(settings, quality=args.quality)
     kinds = [k.strip() for k in args.sink.split(",") if k.strip()]
@@ -335,7 +336,8 @@ def run(args=None) -> int:
     apply_settings_defaults(args, settings)
     try:
         source, program, sink, settings = make_components(args, settings)
-    except (KeyError, ValueError) as e:  # unknown model, mode, or an unported kind
+    except (KeyError, ValueError, FileNotFoundError) as e:
+        # unknown model or mode, an unported kind, a checkpoint that is not there
         raise SystemExit(f"[d2s] {e}")
 
     shutdown = threading.Event()

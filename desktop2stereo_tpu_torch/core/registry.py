@@ -1,9 +1,10 @@
-"""Model registry for the port: the Depth-Anything family.
+"""Model registry for the port: the Depth-Anything and Video-Depth-Anything
+families.
 
 The same `ModelSpec` facts as `desktop2stereo_tpu/core/registry.py` (family,
 ViT variant, patch size, normalization, metric-ness, HF repo, resolution
-menu), restricted to the family the port builds today.  The other families
-are ROADMAP items; `get_spec` raises for them.
+menu), restricted to the families the port builds today.  The other families
+are ROADMAP A5; `get_spec` raises for them.
 """
 
 from __future__ import annotations
@@ -79,9 +80,9 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {}
 
 
 def _register(name: str, variant: str, repo: str, metric: bool = False,
-              max_depth: float = 1.0) -> None:
+              max_depth: float = 1.0, family: str = "depth_anything") -> None:
     MODEL_REGISTRY[name] = ModelSpec(
-        name=name, family="depth_anything", variant=variant, hf_repo=repo,
+        name=name, family=family, variant=variant, hf_repo=repo,
         metric=metric, max_depth=max_depth, resolutions=_DA_MENU)
 
 
@@ -109,6 +110,15 @@ for _size in ("Small", "Base", "Large"):
     _register(f"Distill-Any-Depth-{_size}", _SIZE[_size.lower()],
               f"{_owner}/Distill-Any-Depth-{_size}-hf")
 
+# Video-Depth-Anything: the streaming family (a temporal DPT head carrying
+# a 31-frame window), on the DA resolution menu
+for _size in ("Small", "Base", "Large"):
+    _register(f"Video-Depth-Anything-{_size}", _SIZE[_size.lower()],
+              f"depth-anything/Video-Depth-Anything-{_size}", family="vda")
+    _register(f"Metric-Video-Depth-Anything-{_size}", _SIZE[_size.lower()],
+              f"depth-anything/Metric-Video-Depth-Anything-{_size}", metric=True,
+              family="vda")
+
 _register("depth-ai", "vitl", "lc700x/depth-ai-hf", metric=True)
 
 
@@ -117,10 +127,9 @@ def get_spec(name: str) -> ModelSpec:
         return MODEL_REGISTRY[name]
     except KeyError:
         raise KeyError(
-            f"unknown model {name!r} for the torch port (only the "
-            f"depth_anything family is ported; ROADMAP A4 (VDA) and A5 "
-            f"(other families) cover the rest); registered: "
-            f"{sorted(MODEL_REGISTRY)}") from None
+            f"unknown model {name!r} for the torch port (the depth_anything "
+            f"and vda families are ported; ROADMAP A5 covers the other "
+            f"families); registered: {sorted(MODEL_REGISTRY)}") from None
 
 
 def effective_compute_dtype(spec: ModelSpec, policy_dtype: torch.dtype,

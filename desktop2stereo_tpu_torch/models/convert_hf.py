@@ -1,0 +1,237 @@
+"""HF / original checkpoint names → the JAX package's parameter tree, in numpy.
+
+A copy of the numpy-only converters of `desktop2stereo_tpu/models/
+convert_hf.py` (the port imports nothing of that package): each returns the
+same nested tree of float32 arrays as its original, and `models/from_flax.py`
+turns that tree into the port's state_dict.  A checkpoint therefore reaches
+the port as it reaches the JAX package, through the same names:
+
+    safetensors on disk → convert_* → from_flax → load_state_dict
+
+Torch → flax layouts: Linear (out, in) → kernel (in, out); Conv2d
+(out, in, kh, kw) → kernel (kh, kw, in, out); ConvTranspose2d (in, out, f, f)
+kept; the patch conv (D, 3, p, p) → (p·p·3, D); HF's q/k/v Linears → one
+fused qkv kernel (D, 3D).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+from desktop2stereo_tpu_torch.core.registry import ModelSpec
+from desktop2stereo_tpu_torch.models.safetensors_io import load_checkpoint
+
+Params = Dict[str, Any]
+
+
+def _linear(sd: Mapping[str, np.ndarray], prefix: str) -> Params:
+    return {"kernel": np.ascontiguousarray(sd[prefix + ".weight"].T),
+            "bias": sd[prefix + ".bias"]}
+
+
+def _conv(sd: Mapping[str, np.ndarray], prefix: str, bias: bool = True) -> Params:
+    out: Params = {"kernel": np.ascontiguousarray(sd[prefix + ".weight"].transpose(2, 3, 1, 0))}
+    if bias:
+        out["bias"] = sd[prefix + ".bias"]
+    return out
+
+
+def _layernorm(sd: Mapping[str, np.ndarray], prefix: str) -> Params:
+    return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+
+def to_numpy_state_dict(obj: Any) -> Dict[str, np.ndarray]:
+    """A checkpoint path (single file, index json or one shard; see
+    `safetensors_io.load_checkpoint`) or a {name: tensor or array} mapping →
+    {name: float32 array}."""
+    if isinstance(obj, (str, os.PathLike)):
+        obj = load_checkpoint(obj)
+    out = {}
+    for k, v in obj.items():
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().float().numpy()
+        out[k] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+def convert_dinov2_backbone(sd: Mapping[str, np.ndarray], num_layers: int,
+                            use_swiglu: bool = False, prefix: str = "backbone.") -> Params:
+    """HF Dinov2Backbone state dict slice → Dinov2Encoder params."""
+    D = sd[prefix + "embeddings.cls_token"].shape[-1]
+    pw = sd[prefix + "embeddings.patch_embeddings.projection.weight"]  # (D,3,p,p)
+    params: Params = {
+        "embeddings": {
+            "cls_token": sd[prefix + "embeddings.cls_token"],
+            "position_embeddings": sd[prefix + "embeddings.position_embeddings"],
+            "patch_embeddings": {
+                "kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, D)),
+                "bias": sd[prefix + "embeddings.patch_embeddings.projection.bias"],
+            },
+        },
+        "layernorm": _layernorm(sd, prefix + "layernorm"),
+    }
+    for i in range(num_layers):
+        lp = f"{prefix}encoder.layer.{i}."
+        if lp + "norm1.weight" not in sd:
+            break  # a converted encoder may be truncated to max(out_layers)
+        att = lp + "attention.attention."
+        qkv_kernel = np.ascontiguousarray(np.concatenate(
+            [sd[att + n + ".weight"] for n in ("query", "key", "value")], axis=0).T)
+        qkv_bias = np.concatenate([sd[att + n + ".bias"] for n in ("query", "key", "value")])
+        if use_swiglu:
+            mlp = {"weights_in": _linear(sd, lp + "mlp.weights_in"),
+                   "weights_out": _linear(sd, lp + "mlp.weights_out")}
+        else:
+            mlp = {"fc1": _linear(sd, lp + "mlp.fc1"), "fc2": _linear(sd, lp + "mlp.fc2")}
+        params[f"layer_{i}"] = {
+            "norm1": _layernorm(sd, lp + "norm1"),
+            "norm2": _layernorm(sd, lp + "norm2"),
+            "attention": {"qkv": {"kernel": qkv_kernel, "bias": qkv_bias},
+                          "proj": _linear(sd, lp + "attention.output.dense")},
+            "layer_scale1": sd[lp + "layer_scale1.lambda1"],
+            "layer_scale2": sd[lp + "layer_scale2.lambda1"],
+            "mlp": mlp,
+        }
+    return params
+
+
+def convert_dpt_neck(sd: Mapping[str, np.ndarray], prefix: str = "neck.") -> Params:
+    params: Params = {}
+    for i in range(4):
+        rp = f"{prefix}reassemble_stage.layers.{i}."
+        layer: Params = {"projection": _conv(sd, rp + "projection")}
+        if rp + "resize.weight" in sd:
+            if i == 3:  # stage 3 downsamples with a stride-2 Conv2d (out,in,3,3)
+                layer["resize"] = _conv(sd, rp + "resize")
+            else:       # ConvTranspose2d (in,out,f,f) kept as it is
+                layer["resize"] = {"kernel": sd[rp + "resize.weight"],
+                                   "bias": sd[rp + "resize.bias"]}
+        params[f"reassemble_{i}"] = layer
+        params[f"conv_{i}"] = _conv(sd, f"{prefix}convs.{i}", bias=False)
+    for j in range(4):
+        fp = f"{prefix}fusion_stage.layers.{j}."
+        layer = {"projection": _conv(sd, fp + "projection"),
+                 "res2": {"conv1": _conv(sd, fp + "residual_layer2.convolution1"),
+                          "conv2": _conv(sd, fp + "residual_layer2.convolution2")}}
+        if j > 0:
+            # fusion layer 0 never receives a residual, so its
+            # residual_layer1 weights are dead in the torch graph too
+            layer["res1"] = {"conv1": _conv(sd, fp + "residual_layer1.convolution1"),
+                             "conv2": _conv(sd, fp + "residual_layer1.convolution2")}
+        params[f"fusion_{j}"] = layer
+    return params
+
+
+def convert_dpt_head(sd: Mapping[str, np.ndarray], prefix: str = "head.") -> Params:
+    return {f"conv{i}": _conv(sd, f"{prefix}conv{i}") for i in (1, 2, 3)}
+
+
+def convert_depth_anything(state_dict: Any, spec: ModelSpec) -> Params:
+    """A whole HF DepthAnythingForDepthEstimation checkpoint → param tree."""
+    sd = to_numpy_state_dict(state_dict)
+    _, num_layers, _, _ = spec.dims
+    return {"backbone": convert_dinov2_backbone(sd, num_layers,
+                                                use_swiglu=(spec.variant == "vitg")),
+            "neck": convert_dpt_neck(sd),
+            "head": convert_dpt_head(sd)}
+
+
+def convert_dinov2_original(sd: Mapping[str, np.ndarray], num_layers: int,
+                            prefix: str = "pretrained.") -> Params:
+    """Original (non-HF) DINOv2 naming → Dinov2Encoder params: the naming of
+    the VDA checkpoints (blocks.{i}.attn.qkv already fused, ls1/ls2.gamma,
+    the final `norm`)."""
+    D = sd[prefix + "cls_token"].shape[-1]
+    pw = sd[prefix + "patch_embed.proj.weight"]  # (D,3,p,p)
+    params: Params = {
+        "embeddings": {
+            "cls_token": sd[prefix + "cls_token"],
+            "position_embeddings": sd[prefix + "pos_embed"],
+            "patch_embeddings": {
+                "kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, D)),
+                "bias": sd[prefix + "patch_embed.proj.bias"],
+            },
+        },
+        "layernorm": _layernorm(sd, prefix + "norm"),
+    }
+    for i in range(num_layers):
+        lp = f"{prefix}blocks.{i}."
+        if lp + "norm1.weight" not in sd:
+            break
+        params[f"layer_{i}"] = {
+            "norm1": _layernorm(sd, lp + "norm1"),
+            "norm2": _layernorm(sd, lp + "norm2"),
+            "attention": {"qkv": _linear(sd, lp + "attn.qkv"),
+                          "proj": _linear(sd, lp + "attn.proj")},
+            "layer_scale1": sd[lp + "ls1.gamma"],
+            "layer_scale2": sd[lp + "ls2.gamma"],
+            "mlp": {"fc1": _linear(sd, lp + "mlp.fc1"), "fc2": _linear(sd, lp + "mlp.fc2")},
+        }
+    return params
+
+
+def _convert_temporal_module(sd: Mapping[str, np.ndarray], prefix: str) -> Params:
+    """head.motion_modules.{m}.temporal_transformer.* → TemporalTransformer
+    params."""
+    tt = prefix + "temporal_transformer."
+    params: Params = {"norm": _layernorm(sd, tt + "norm"),  # GroupNorm weight/bias
+                      "proj_in": _linear(sd, tt + "proj_in"),
+                      "proj_out": _linear(sd, tt + "proj_out")}
+    bp = tt + "transformer_blocks.0."
+    for a in range(2):
+        ap = f"{bp}attention_blocks.{a}."
+        params[f"attn_{a}"] = {
+            **{n: {"kernel": np.ascontiguousarray(sd[f"{ap}{n}.weight"].T)}
+               for n in ("to_q", "to_k", "to_v")},
+            "to_out": _linear(sd, ap + "to_out.0"),
+        }
+        params[f"norm_{a}"] = _layernorm(sd, f"{bp}norms.{a}")
+    params["ff_norm"] = _layernorm(sd, bp + "ff_norm")
+    params["ff_proj"] = _linear(sd, bp + "ff.net.0.proj")
+    params["ff_out"] = _linear(sd, bp + "ff.net.2")
+    return params
+
+
+def convert_vda(state_dict: Any, spec: ModelSpec) -> Params:
+    """Video-Depth-Anything checkpoint (original naming: pretrained.* +
+    head.*) → VideoDepthAnything param tree."""
+    sd = to_numpy_state_dict(state_dict)
+    # some releases nest everything under "model."
+    if not any(k.startswith("pretrained.") for k in sd) and any(
+            k.startswith("model.pretrained.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    _, num_layers, _, _ = spec.dims
+
+    head: Params = {}
+    for i in range(4):
+        layer: Params = {"projection": _conv(sd, f"head.projects.{i}")}
+        if i != 2:
+            rp = f"head.resize_layers.{i}"
+            if i == 3:
+                layer["resize"] = _conv(sd, rp)
+            else:  # ConvTranspose2d (in,out,f,f) as it is
+                layer["resize"] = {"kernel": sd[rp + ".weight"], "bias": sd[rp + ".bias"]}
+        head[f"reassemble_{i}"] = layer
+        head[f"conv_{i}"] = _conv(sd, f"head.scratch.layer{i + 1}_rn", bias=False)
+
+    # fusion_{0..3} ↔ refinenet{4..1} (coarsest first, like the HF neck)
+    for j, rn in enumerate((4, 3, 2, 1)):
+        fp = f"head.scratch.refinenet{rn}."
+        layer = {"projection": _conv(sd, fp + "out_conv"),
+                 "res2": {"conv1": _conv(sd, fp + "resConfUnit2.conv1"),
+                          "conv2": _conv(sd, fp + "resConfUnit2.conv2")}}
+        if j > 0:  # refinenet4 never receives a residual; its unit1 is dead
+            layer["res1"] = {"conv1": _conv(sd, fp + "resConfUnit1.conv1"),
+                             "conv2": _conv(sd, fp + "resConfUnit1.conv2")}
+        head[f"fusion_{j}"] = layer
+
+    for m in range(4):
+        head[f"temporal_{m}"] = _convert_temporal_module(sd, f"head.motion_modules.{m}.")
+
+    head["head_conv1"] = _conv(sd, "head.scratch.output_conv1")
+    head["head_conv2"] = _conv(sd, "head.scratch.output_conv2.0")
+    head["head_conv3"] = _conv(sd, "head.scratch.output_conv2.2")
+    return {"backbone": convert_dinov2_original(sd, num_layers), "head": head}

@@ -49,10 +49,17 @@ class PatchEmbed(nn.Module):
 
 
 class Dinov2Embeddings(nn.Module):
-    def __init__(self, hidden_size: int, patch_size: int = 14) -> None:
+    """Patch tokens, the cls token and the position table, bicubically
+    interpolated to the grid.  `interpolate_offset` (0.1 for the original
+    DINOv2 weights VDA ships) samples the table at scale (g + offset) / 37,
+    as the original code's scale_factor call does; HF's DINOv2 uses 0."""
+
+    def __init__(self, hidden_size: int, patch_size: int = 14,
+                 interpolate_offset: float = 0.0) -> None:
         super().__init__()
         self.hidden_size = hidden_size
         self.patch_size = patch_size
+        self.interpolate_offset = interpolate_offset
         self.patch_embeddings = PatchEmbed(hidden_size, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_size))
         self.position_embeddings = nn.Parameter(
@@ -68,7 +75,9 @@ class Dinov2Embeddings(nn.Module):
         if (gh, gw) != (M, M):
             # HF interpolates in f32, bicubic, align_corners=False
             grid = patch_pos.reshape(M, M, self.hidden_size).float()
-            grid = resize(grid, (gh, gw), mode="bicubic")
+            off = self.interpolate_offset
+            scale = ((gh + off) / M, (gw + off) / M) if off else None
+            grid = resize(grid, (gh, gw), mode="bicubic", scale_override=scale)
             patch_pos = grid.reshape(1, gh * gw, self.hidden_size).to(pos.dtype)
         pos_full = torch.cat([cls_pos, patch_pos], dim=1)
         cls = self.cls_token.expand(B, 1, self.hidden_size).to(tokens.dtype)
@@ -133,10 +142,10 @@ class Dinov2Encoder(nn.Module):
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14,
-                 quant: bool = False) -> None:
+                 quant: bool = False, interpolate_offset: float = 0.0) -> None:
         super().__init__()
         self.out_layers = tuple(sorted(out_layers))
-        self.embeddings = Dinov2Embeddings(hidden_size, patch_size)
+        self.embeddings = Dinov2Embeddings(hidden_size, patch_size, interpolate_offset)
         n_run = min(num_layers, max(self.out_layers) + 1)
         self.layer = nn.ModuleList(
             Dinov2Layer(hidden_size, num_heads, mlp_dim, quant) for _ in range(n_run))

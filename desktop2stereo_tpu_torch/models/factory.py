@@ -1,18 +1,26 @@
-"""Model factory: registry name → (model, spec), random weights from a seed.
+"""Model factory: registry name → (model, spec), weights from a checkpoint or
+from a seed.
 
 Port of `desktop2stereo_tpu/models/factory.py:build_bound` for the
-depth_anything family.  No checkpoint exists offline, so weights are random,
-drawn from a seeded `torch.Generator` with flax's default initializers
-(truncated-normal lecun kernels, zero biases, unit LayerNorm and LayerScale,
-zero cls/position tables).  Weights from a JAX parameter tree load through
-`models/from_flax.py` instead.  `quant="int8"` quantizes the encoder's dense
-weights at load (`ops/quant.py:quantize_state_dict`), as the JAX factory's
-`quantize_tree` step does.
+depth_anything and vda families.  Weights come, in the JAX factory's order,
+from an explicit checkpoint path, then from a local cache
+(`find_checkpoint`), then from a seeded draw (printing the JAX factory's
+"no checkpoint found" line).  A checkpoint (safetensors, one file or
+sharded) goes through the family's converter (`models/convert_hf.py`, the
+JAX converters' copy) and `models/from_flax.py`, so it reaches the port
+through the same names as the JAX package.  The seeded draw uses a
+`torch.Generator` with flax's default initializers (truncated-normal lecun
+kernels, zero biases, unit norms and LayerScale, zero cls/position tables).
+`quant="int8"` quantizes the encoder's dense weights at load
+(`ops/quant.py:quantize_state_dict`), as the JAX factory's `quantize_tree`
+step does.
 """
 
 from __future__ import annotations
 
+import glob
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -20,12 +28,29 @@ import torch.nn as nn
 
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
 from desktop2stereo_tpu_torch.core.runtime import COMPUTE_DTYPE, cuda_policy
+from desktop2stereo_tpu_torch.models.convert_hf import convert_depth_anything, convert_vda
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
 from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
+from desktop2stereo_tpu_torch.models.from_flax import from_flax
+from desktop2stereo_tpu_torch.models.safetensors_io import INDEX_NAME
+from desktop2stereo_tpu_torch.models.vda import VideoDepthAnything
 from desktop2stereo_tpu_torch.ops.quant import quantize_state_dict
 
 QUANT_MODES = ("none", "int8")
+
+# where converted checkpoints are looked for (the reference keeps them in
+# ./models), before the Hugging Face cache
+DEFAULT_WEIGHTS_DIRS = ("./models", os.path.expanduser("~/.cache/desktop2stereo_tpu/models"))
+
+# families whose ViT encoder runs int8 under --quant int8 (the JAX list)
+QUANT_FAMILIES = frozenset(
+    {"depth_anything", "dpt_dinov2", "vda", "depthpro", "da3",
+     "infinidepth", "dpt", "dpt_beit", "dpt_hybrid", "zoedepth"})
+
+# family → (model class, checkpoint converter)
+FAMILIES = {"depth_anything": (DepthAnything, convert_depth_anything),
+            "vda": (VideoDepthAnything, convert_vda)}
 
 # std of N(0,1) truncated to ±2, the correction flax's truncated_normal
 # initializer divides by so the drawn variance is the requested one
@@ -39,12 +64,16 @@ def _lecun_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded flax-style init of every kernel (biases and tables as built)."""
+    """Seeded flax-style init of every kernel (biases and tables as built).
+    VDA's `proj_out`, which flax initialises to zero, is drawn like every
+    other kernel, so that a run on random weights goes through the temporal
+    modules rather than around them."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             _lecun_(m.weight, m.in_features, gen)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Conv2d):
             _lecun_(m.weight, m.weight[0].numel(), gen)
             if m.bias is not None:
@@ -56,28 +85,87 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def _resolve_in_dir(d: str) -> Optional[str]:
+    """model.safetensors in `d`, else a sharded checkpoint's index json,
+    else its first shard (the loader globs the siblings)."""
+    single = os.path.join(d, "model.safetensors")
+    if os.path.exists(single):
+        return single
+    idx = os.path.join(d, INDEX_NAME)
+    if os.path.exists(idx):
+        return idx
+    shards = sorted(glob.glob(os.path.join(d, "model-*-of-*.safetensors")))
+    return shards[0] if shards else None
+
+
+def find_checkpoint(spec: ModelSpec) -> Optional[str]:
+    """A local safetensors checkpoint for `spec`, single-file or sharded:
+    `<dir>/<name>.safetensors`, `<dir>/<org--repo>/` or `<dir>/<name>/` in
+    each of DEFAULT_WEIGHTS_DIRS, then the snapshots of the Hugging Face hub
+    cache (`$HF_HOME`, else ~/.cache/huggingface)."""
+    repo_flat = spec.hf_repo.replace("/", "--")
+    dirs = []
+    for d in DEFAULT_WEIGHTS_DIRS:
+        dirs += [os.path.join(d, repo_flat), os.path.join(d, spec.name)]
+        flat = os.path.join(d, f"{spec.name}.safetensors")
+        if os.path.exists(flat):
+            return flat
+    hf_cache = os.environ.get("HF_HOME", os.path.expanduser("~/.cache/huggingface"))
+    hub_dir = os.path.join(hf_cache, "hub", f"models--{repo_flat}", "snapshots")
+    if os.path.isdir(hub_dir):
+        for snap in sorted(os.listdir(hub_dir)):
+            dirs.append(os.path.join(hub_dir, snap))
+    for d in dirs:
+        if os.path.isdir(d):
+            hit = _resolve_in_dir(d)
+            if hit is not None:
+                return hit
+    return None
+
+
 def build_bound(name: str, device: Optional[torch.device | str] = None,
                 dtype: Optional[torch.dtype] = None, seed: int = 0,
-                quant: str = "none") -> Tuple[DepthAnything, ModelSpec]:
+                quant: str = "none", checkpoint: Optional[str] = None
+                ) -> Tuple[nn.Module, ModelSpec]:
     """Registry name → (eval-mode model on `device` in `dtype`, spec).
+
+    `checkpoint` is a safetensors path (a file, an index json or one shard);
+    without one, `find_checkpoint` looks in the local caches, and without a
+    hit the weights are drawn from `seed`.  A `checkpoint` that does not
+    exist raises FileNotFoundError.  A vda model is stateful: it exposes
+    `first(pixels)` and `step(pixels, carry)` beside `forward`.
 
     `device=None` is the CUDA device policy's (`cuda_policy()`, which raises
     without CUDA); a caller that wants the CPU says so.  `dtype=None` is the
     policy's compute dtype on a CUDA device and float32 on the CPU.  The
-    weights are drawn on the CPU, so one seed gives the same model on every
-    device.  `quant="int8"` draws the same float model, quantizes its
-    encoder's dense weights in f32 on the CPU and loads them into the int8
-    model; its `scale` and `bias` buffers stay f32 in any `dtype`."""
+    weights are loaded or drawn on the CPU in f32, so one checkpoint or seed
+    gives the same model on every device.  `quant="int8"` quantizes the
+    float weights' encoder products in f32 on the CPU and loads them into
+    the int8 model; its `scale` and `bias` buffers stay f32 in any
+    `dtype`."""
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r} ({'|'.join(QUANT_MODES)})")
+    spec = get_spec(name)
+    if quant != "none" and spec.family not in QUANT_FAMILIES:
+        raise NotImplementedError(
+            f"--quant {quant} is implemented for families {sorted(QUANT_FAMILIES)}; "
+            f"{name} is family {spec.family!r}")
+    if spec.family not in FAMILIES:
+        raise NotImplementedError(f"{name}: family {spec.family!r} is not ported (ROADMAP A5)")
     if device is None:
         device = cuda_policy().device
     if dtype is None:
         dtype = COMPUTE_DTYPE if torch.device(device).type == "cuda" else torch.float32
-    spec = get_spec(name)
-    model = init_random(DepthAnything.from_spec(spec), seed)
+    cls, convert = FAMILIES[spec.family]
+    ckpt = checkpoint or find_checkpoint(spec)
+    if ckpt is not None:
+        model = cls.from_spec(spec)
+        model.load_state_dict(from_flax(convert(ckpt, spec)), strict=True)
+    else:
+        model = init_random(cls.from_spec(spec), seed)
+        print(f"[models] no checkpoint found for {name}; using random init")
     if quant == "int8":
         state = quantize_state_dict(model.state_dict())
-        model = DepthAnything.from_spec(spec, quant=True)
+        model = cls.from_spec(spec, quant=True)
         model.load_state_dict(state, strict=True)
     return model.to(device=device, dtype=dtype).eval(), spec

@@ -4,11 +4,13 @@ The port names its modules after the flax tree, so the mapping is
 mechanical:
 
 - a path component `name_<i>` (flax's `layer_3`, `reassemble_0`, `conv_1`,
-  `fusion_2`) becomes `name.<i>` (an nn.ModuleList entry);
+  `fusion_2`) becomes `name.<i>` (an nn.ModuleList entry), unless a sibling
+  is called `name` itself (VDA's temporal module holds `norm`, a GroupNorm,
+  beside `norm_0` and `norm_1`): then it keeps its name;
 - Dense kernels [in, out] become Linear weights [out, in];
 - Conv kernels HWIO become Conv2d weights OIHW;
-- the neck's conv-transpose kernels are stored (C, O, f, f) on both sides and
-  are kept as they are;
+- the conv-transpose kernels of a reassemble stage (the DPT neck's, and the
+  VDA head's) are stored (C, O, f, f) on both sides and are kept as they are;
 - LayerNorm `scale` becomes `weight`; every other leaf keeps its name;
 - a quantized Dense (`kernel_q` [in, out] int8, `scale`, `bias`; see the JAX
   `ops/quant.py:quantize_tree`) becomes a QuantLinear: `weight_q` [out, in]
@@ -29,7 +31,8 @@ import torch
 from desktop2stereo_tpu_torch.models.dpt import REASSEMBLE_FACTORS
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
-_CONV_TRANSPOSE = {f"neck.reassemble.{i}.resize.kernel"
+_CONV_TRANSPOSE = {f"{owner}.reassemble.{i}.resize.kernel"
+                   for owner in ("neck", "head")
                    for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1}
 
 
@@ -37,7 +40,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         m = _INDEXED.match(k)
-        name = f"{m.group(1)}.{m.group(2)}" if m else k
+        name = f"{m.group(1)}.{m.group(2)}" if m and m.group(1) not in tree else k
         path = f"{prefix}.{name}" if prefix else name
         if isinstance(v, Mapping):
             out.update(_flatten(v, path))

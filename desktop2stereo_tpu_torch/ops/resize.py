@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,15 +40,18 @@ def resize_weights(
     mode: str = "bilinear",
     align_corners: bool = False,
     antialias: bool = False,
+    scale_override: Optional[float] = None,
 ) -> np.ndarray:
     """[out_size, in_size] float32 row matrix replicating torch F.interpolate.
 
-    Modes: "bilinear", "bicubic", "area" (the JAX package's "nearest" and its
-    `scale_override` come with the paths that use them).  Clamp-to-edge
-    borders; antialias windows truncate at the edge and renormalize (aten's
-    AA path).
+    Modes: "bilinear", "bicubic", "area" (the JAX package's "nearest" comes
+    with the path that uses it).  Clamp-to-edge borders; antialias windows
+    truncate at the edge and renormalize (aten's AA path).  `scale_override`
+    samples at src = dst / scale, as torch's scale_factor calls do where the
+    scale differs from out/in (DINOv2's `interpolate_offset` position
+    table).
     """
-    if in_size == out_size and mode != "area":
+    if in_size == out_size and mode != "area" and scale_override is None:
         return np.eye(out_size, dtype=np.float32)
 
     W = np.zeros((out_size, in_size), dtype=np.float64)
@@ -76,7 +79,7 @@ def resize_weights(
         centers = np.arange(out_size) * scale
         kscale = 1.0
     else:
-        scale = in_size / out_size
+        scale = (1.0 / scale_override) if scale_override else in_size / out_size
         centers = (np.arange(out_size) + 0.5) * scale - 0.5
         kscale = max(scale, 1.0) if antialias else 1.0
 
@@ -107,12 +110,13 @@ def resize_weights(
 @functools.lru_cache(maxsize=64)
 def _table(n_in: int, n_out: int, mode: str, align_corners: bool,
            antialias: bool, halved: bool,
-           device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+           device: torch.device, dtype: torch.dtype,
+           scale_override: Optional[float] = None) -> torch.Tensor:
     """A resize table as a tensor on `device`, uploaded once per key (the 4K
     tables are several MB; re-uploading them every frame would be an H2D
     copy per resize).  Made outside inference mode, so that a table first
     built under `torch.inference_mode` also serves callers outside it."""
-    w = resize_weights(n_in, n_out, mode, align_corners, antialias)
+    w = resize_weights(n_in, n_out, mode, align_corners, antialias, scale_override)
     if halved:
         w = 0.5 * (w[0::2] + w[1::2])  # fold the pair-mean into the table
     with torch.inference_mode(False):
@@ -142,8 +146,10 @@ def resize(
     mode: str = "bilinear",
     align_corners: bool = False,
     antialias: bool = False,
+    scale_override: Optional[Tuple[float, float]] = None,
 ) -> torch.Tensor:
-    """Resize NHWC / HWC / HW to `size` (H, W) with F.interpolate semantics.
+    """Resize NHWC / HWC / HW to `size` (H, W) with F.interpolate semantics;
+    `scale_override` = (sh, sw) replicates a scale_factor call.
 
     An "area" downscale by an integer factor is a block mean, computed as a
     reshape and a sum instead of the dense table: each table row holds 1/f
@@ -151,20 +157,21 @@ def resize(
     (a + b) / 2 rounds exactly as 0.5·a + 0.5·b.  At 4K the dense table
     would be [3840, 7680] f32 (118 MB) and ~0.4 TFLOP a frame."""
     h_axis = x.ndim - 3 if x.ndim >= 3 else 0
-    if tuple(x.shape[h_axis:h_axis + 2]) == tuple(size):
+    scales = scale_override or (None, None)
+    if tuple(x.shape[h_axis:h_axis + 2]) == tuple(size) and scale_override is None:
         return x
     if not x.is_floating_point():
         x = x.float()
-    for axis, n_out in ((h_axis, size[0]), (h_axis + 1, size[1])):
+    for axis, n_out, sc in ((h_axis, size[0], scales[0]), (h_axis + 1, size[1], scales[1])):
         n_in = x.shape[axis]
-        if n_in == n_out:
+        if n_in == n_out and sc is None:
             continue
-        if mode == "area" and n_in % n_out == 0:
+        if mode == "area" and n_in % n_out == 0 and sc is None:
             f = n_in // n_out
             x = x.unflatten(axis, (n_out, f)).sum(axis + 1) / f
         else:
             w = _table(n_in, n_out, mode, align_corners, antialias, False,
-                       x.device, x.dtype)
+                       x.device, x.dtype, sc)
             x = _apply_1d(x, w, axis)
     return x
 

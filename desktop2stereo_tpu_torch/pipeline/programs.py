@@ -16,9 +16,14 @@ Port of `desktop2stereo_tpu/pipeline/programs.py` (`_build_step` and
   K3 at fast quality), then the u8 cast.
 
 Each stage is its own method so that it can be timed on its own.  PyTorch
-runs them eagerly; there is no jit analog.  `ProgramCache` carries the EMA
-state per (stream, output size) and switches display mode, depth strength
-and edge feather live, at the start of the next frame.
+runs them eagerly; there is no jit analog.  `ProgramCache` carries the state
+per (stream, output size): the EMA, and a stateful model's carry (VDA's
+temporal window).  A stateful model has `first(pixels) → (raw, carry)` and
+`step(pixels, carry) → (raw, carry')`; the model stage runs `first` on an
+empty carry (a new stream or output size) and `step` after it, as the JAX
+package's first and step programs do.  A stateless model runs `forward` and
+carries `()`.  Display mode, depth strength and edge feather switch live, at
+the start of the next frame, and every carry survives the switch.
 """
 
 from __future__ import annotations
@@ -48,9 +53,12 @@ QUALITIES = ("high", "fast")
 
 
 class FrameState(NamedTuple):
-    """Carried state: the EMA depth at model resolution, NaN before frame 1."""
+    """Carried state: the EMA depth at model resolution (NaN before frame 1)
+    and the model's carry (`()` before frame 1, and always for a stateless
+    model)."""
 
     ema_depth: torch.Tensor  # [mh, mw] float32
+    model: Tuple = ()
 
 
 def init_state(height: int, width: int,
@@ -127,6 +135,8 @@ class FrameProgram:
         check_supported(cfg)
         self.cfg = cfg
         self.model = model
+        self.stateful = callable(getattr(model, "first", None)) and callable(
+            getattr(model, "step", None))
         self.spec = spec or get_spec(cfg.model_name)
         self.compute_dtype = compute_dtype
         self.tab = cfg.display_mode == "Half-TAB"
@@ -183,8 +193,14 @@ class FrameProgram:
             rgb_h = (planar[:, :, 0::2] + planar[:, :, 1::2]) * 0.5
         return rgb_h.contiguous(), model_in
 
-    def model_stage(self, model_in: torch.Tensor) -> torch.Tensor:
-        return self.model(model_in)[0]
+    def model_stage(self, model_in: torch.Tensor, carry: Tuple = ()) -> Tuple[torch.Tensor, Tuple]:
+        """→ (raw depth [mh, mw], the model's next carry).  A stateful model
+        runs `first` on an empty carry and `step` on its carry; a stateless
+        one passes the carry through."""
+        if not self.stateful:
+            return self.model(model_in)[0], carry
+        raw, carry = self.model.step(model_in, carry) if carry else self.model.first(model_in)
+        return raw[0], carry
 
     def post_stage(self, raw_depth: torch.Tensor, ema_prev: torch.Tensor) -> torch.Tensor:
         """Depth post + EMA at model resolution; a carry of another shape
@@ -242,7 +258,7 @@ class FrameProgram:
 
     def __call__(self, frame_u8: torch.Tensor, state: FrameState):
         rgb, model_in = self.preprocess(frame_u8)
-        raw = self.model_stage(model_in)
+        raw, carry = self.model_stage(model_in, state.model)
         if self.fused(frame_u8.shape[0], frame_u8.shape[1]):
             sbs, depth, small = self.post_stereo_stage(raw, state.ema_depth, rgb)
         else:
@@ -250,7 +266,7 @@ class FrameProgram:
             sbs, depth = self.stereo_stage(rgb, small)
             if self.cfg.emit_depth == "model":
                 depth = small
-        return sbs, depth, FrameState(ema_depth=small)
+        return sbs, depth, FrameState(ema_depth=small, model=carry)
 
 
 class ProgramCache:
@@ -388,7 +404,8 @@ class ProgramCache:
     def warmup(self, frame_shape: Tuple[int, ...], steps: int = 2) -> Dict[str, float]:
         """Run each stage once on a zero frame (first-call seconds per stage:
         kernel builds and cuDNN/cuBLAS plan selection land here), then
-        `steps` whole frames; the carried state is discarded after.  Keys:
+        `steps` whole frames (a stateful model's first frame, then steps);
+        every carried state is discarded after.  Keys:
         pre_s, model_s, then tail_s (fused tail) or post_s and stereo_s
         (generic tail)."""
         if self._pending is not None:
@@ -407,7 +424,7 @@ class ProgramCache:
             return out
 
         rgb, model_in = timed("pre_s", p.preprocess, dummy)
-        raw = timed("model_s", p.model_stage, model_in)
+        raw, _ = timed("model_s", p.model_stage, model_in, state.model)
         if p.fused(frame_shape[0], frame_shape[1]):
             timed("tail_s", p.post_stereo_stage, raw, state.ema_depth, rgb)
         else:

@@ -131,7 +131,7 @@ def tiny_build(monkeypatch):
     records its calls."""
     calls = []
 
-    def build(name, device=None, dtype=None, seed=0, quant="none"):
+    def build(name, device=None, dtype=None, seed=0, quant="none", checkpoint=None):
         calls.append((name, str(device), dtype, quant))
         return (T_factory.init_random(DepthAnything(**TINY), seed).eval(), TSpec(**SPEC))
 
@@ -143,13 +143,12 @@ def tiny_build(monkeypatch):
     (["--streams", "2"], "A6"),
     (["--batched"], "A6"),
     (["--profile-dir", "trace"], "A10"),
-    (["--checkpoint", "model.safetensors"], "A11"),
     (["--device", "cpu", "--source", "tcp:7800", "--sink", "null"], "A1b"),
     (["--device", "cpu", "--source", "tcp", "--sink", "null"], "A1b"),
     (["--device", "cpu", "--source", "synthetic", "--sink", "rtmp"], "A1b"),
     (["--device", "cpu", "--source", "synthetic", "--sink", "xr"], "A1b"),
     (["--device", "cpu", "--source", "synthetic", "--sink", "null,xr"], "A1b"),
-], ids=["streams", "batched", "profile_dir", "checkpoint", "tcp_port", "tcp", "rtmp", "xr",
+], ids=["streams", "batched", "profile_dir", "tcp_port", "tcp", "rtmp", "xr",
         "tee_xr"])
 def test_unported_options_exit_naming_their_roadmap_item(tmp_path, monkeypatch, tiny_build,
                                                          argv, item):

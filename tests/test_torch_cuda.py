@@ -355,3 +355,69 @@ def test_quant_dense_kernel_refuses_what_it_does_not_take(dev):
         K4.quant_dense(x.half(), wq, scale, bias)
     with pytest.raises(ValueError, match="contiguous"):
         K4.quant_dense(x, torch.cat([wq, wq], dim=1)[:, ::2], scale, bias)
+
+
+def test_reader_loads_a_checkpoint_onto_the_card(dev, tmp_path):
+    from desktop2stereo_tpu_torch.models import safetensors_io
+
+    rng = np.random.default_rng(0)
+    arrays = {"w": rng.standard_normal((64, 48)).astype(np.float16),
+              "b": rng.standard_normal(48).astype(np.float32),
+              "steps": np.arange(-4, 4, dtype=np.int32)}
+    index = safetensors_io.save_sharded(arrays, tmp_path, shards=2)
+    for path in (index, tmp_path / "model-00001-of-00002.safetensors"):
+        got = safetensors_io.load_tensors(path, dev)
+        assert set(got) == set(arrays)
+        for k, a in arrays.items():
+            assert got[k].device == dev and got[k].dtype == torch.from_numpy(a).dtype
+            assert torch.equal(got[k].cpu(), torch.from_numpy(a)), k
+
+
+def _moving_frames(n, h, w, seed):
+    """Seeded BGRA frames: a smooth scene moving a few pixels a frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for t in range(n):
+        base = 128 + 90 * np.sin((xx + 6 * t) / 23.0) * np.cos(yy / 17.0)
+        rgb = base[..., None] + np.array([0.0, 25.0, -25.0]) + rng.normal(0, 8, (h, w, 3))
+        bgra = np.full((h, w, 4), 255, np.uint8)
+        bgra[..., :3] = np.clip(rgb[..., ::-1], 0, 255)
+        out.append(bgra)
+    return out
+
+
+def test_vda_streams_on_the_card_like_the_cpu(dev):
+    """Video-Depth-Anything-Small from one seed through ProgramCache, three
+    frames (first, step, step): the card in bf16 with its kernels (12 K2 and
+    one K1 a frame) against the CPU in f32 with the plain versions, each
+    frame held to chip_smoke.py's reference thresholds (depth mean ≤ 0.03,
+    SBS mean ≤ 3 LSB, ≤ 3% of values more than 32 LSB off)."""
+    from desktop2stereo_tpu_torch.models.factory import build_bound
+    from desktop2stereo_tpu_torch.pipeline import programs as P
+
+    name = "Video-Depth-Anything-Small"
+    card, spec = build_bound(name, device=dev, seed=0)
+    cpu, _ = build_bound(name, device="cpu", seed=0)
+    cfg = P.ProgramConfig(model_name=name, depth_resolution=196, output_height=216,
+                          display_mode="Half-SBS", ipd=0.064, depth_strength=2.0,
+                          convergence=0.0, foreground_scale=0.0, aa_strength=2.0,
+                          ema_alpha=0.9, temporal_smooth=True, quality="high",
+                          emit_depth="model")
+    card_prog = P.ProgramCache(cfg, card, spec, compute_dtype=torch.bfloat16)
+    cpu_prog = P.ProgramCache(cfg, cpu, spec, compute_dtype=torch.float32)
+    k2, k1 = K2.KERNEL.launches, K1.KERNEL.launches
+    for frame in _moving_frames(3, 216, 384, seed=1):
+        sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
+        sbs_r, depth_r = cpu_prog(frame)
+        assert sbs_c.shape == sbs_r.shape == (216, 384, 3) and torch.isfinite(depth_c).all()
+        s_err = (sbs_c.int() - sbs_r.int()).abs().float()
+        assert (depth_c - depth_r).abs().mean().item() <= 0.03
+        assert s_err.mean().item() <= 3.0 and (s_err > 32).float().mean().item() <= 0.03
+    assert K2.KERNEL.launches - k2 == 3 * 12 and K1.KERNEL.launches - k1 == 3
+    (key,) = card_prog._states
+    carry, carry_r = card_prog._states[key].model, cpu_prog._states[key].model
+    assert len(carry) == 8
+    for c, r in zip(carry, carry_r):
+        assert c.shape == r.shape and c.shape[2] == 31 and c.dtype == torch.bfloat16
+        assert torch.isfinite(c).all()

@@ -37,7 +37,8 @@ def _rel(a, b):
 
 def test_registry_entries_equal_jax():
     port = T_reg.MODEL_REGISTRY
-    jax_da = {k: v for k, v in J_reg.MODEL_REGISTRY.items() if v.family == "depth_anything"}
+    jax_da = {k: v for k, v in J_reg.MODEL_REGISTRY.items()
+              if v.family in ("depth_anything", "vda")}
     assert set(port) == set(jax_da)
     for name, spec in port.items():
         assert dataclasses.asdict(spec) == dataclasses.asdict(jax_da[name]), name
