@@ -14,7 +14,12 @@ four products of every encoder layer of the int8 model (`quant="int8"`).
 The streaming family runs beside it: Video-Depth-Anything-Large (the same
 ViT-L encoder, a temporal DPT head carrying a 31-frame window) at 518 on
 the same 4K capture, and a real-shape Video-Depth-Anything-Small checkpoint
-that the script writes itself goes through the loader and the CLI.
+that the script writes itself goes through the loader and the CLI.  Then
+the Depth-Anything-3 family at depth resolution 504 (a 280x504 input, 721
+tokens): DA3-LARGE (ViT-L with QK-norm, 2D RoPE and cross-view layers from
+layer 8, the DualDPT head), DA3MONO-LARGE (DPT head, sky post), int8
+DA3-LARGE and DA3NESTED-GIANT-LARGE (ViT-G with SwiGLU, 40 layers, beside a
+ViT-L metric branch), through the same entry points.
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -81,7 +86,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     checkpoint=path)` on the card holds exactly the CPU load's tensors,
     and `cli.run` with `--model Video-Depth-Anything-Small --checkpoint
     <index>` runs FRAMES 4K frames into the null sink, exit 0, 12 K2 and
-    one K1 launches per frame.
+    one K1 launches per frame;
+21-26. the DA3 family (`da3_phases`), each path with exact launches; phase
+    23 holds DA3-LARGE and DA3MONO-LARGE card bf16 against CPU f32 on a
+    small frame, and DA3MONO-LARGE's raw depth (over the non-sky pixels)
+    and sky mask as well, since the sky fill covers most of its frame on
+    random weights.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -89,9 +99,12 @@ before it and reads them just after; launches recorded into a CUDA graph
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.  A JSON report with every number also
-goes to chiprun_out/chip_smoke.json, and the four traces to
+goes to chiprun_out/chip_smoke.json, and the traces to
 chiprun_out/trace_flagship.json, trace_int8.json,
-trace_flagship_pageable.json and trace_vda.json.
+trace_flagship_pageable.json, trace_vda.json, trace_da3.json and
+trace_da3_full_outputs.json.  Each kernels entry's `launches_by_path` holds
+each path's count from its own run (the flagship's and DA3-LARGE's; int8:
+both int8 paths), and `launches` their sum.
 """
 
 from __future__ import annotations
@@ -198,11 +211,11 @@ def bound_ms(name: str, nbytes: float, ops: float, unit: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def config(programs, mode="Half-SBS", quality="high", model=FLAGSHIP_MODEL):
+def config(programs, mode="Half-SBS", quality="high", model=FLAGSHIP_MODEL, res=518):
     """bench.py's flagship settings (Settings defaults otherwise), with the
-    model-resolution depth a null sink takes."""
+    model-resolution depth a null sink takes; `res` the depth resolution."""
     return programs.ProgramConfig(
-        model_name=model, depth_resolution=518, output_height=2160,
+        model_name=model, depth_resolution=res, output_height=2160,
         display_mode=mode, ipd=IPD, depth_strength=STRENGTH, convergence=0.0,
         foreground_scale=0.0, aa_strength=2.0, ema_alpha=0.9,
         temporal_smooth=True, quality=quality, emit_depth="model")
@@ -827,34 +840,35 @@ def vda_original_arrays(np, spec, seed: int):
     return sd
 
 
-class _TemporalProbe:
-    """Within `with`: every temporal module's forward bracketed by CUDA
+class _Probe:
+    """Within `with`: every call of `owner.attr` (a method of a class, or a
+    function of a module that its callers look up there) bracketed by CUDA
     events (`records`, in call order) or inside `record_function(label)`."""
 
-    def __init__(self, torch, vda_module, label=None) -> None:
-        self.torch, self.cls, self.label = torch, vda_module.TemporalTransformer, label
+    def __init__(self, torch, owner, attr: str, label=None) -> None:
+        self.torch, self.owner, self.attr, self.label = torch, owner, attr, label
         self.records = []
 
     def __enter__(self):
-        torch, orig, probe = self.torch, self.cls.forward, self
+        torch, orig, probe = self.torch, getattr(self.owner, self.attr), self
         self.orig = orig
 
-        def forward(module, x, caches=None):
+        def wrapped(*args, **kw):
             if probe.label is not None:
                 with torch.profiler.record_function(probe.label):
-                    return orig(module, x, caches)
+                    return orig(*args, **kw)
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
-            out = orig(module, x, caches)
+            out = orig(*args, **kw)
             b.record()
             probe.records.append((a, b))
             return out
 
-        self.cls.forward = forward
+        setattr(self.owner, self.attr, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self.cls.forward = self.orig
+        setattr(self.owner, self.attr, self.orig)
 
 
 def vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames,
@@ -891,7 +905,7 @@ def vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
 
     # the temporal modules' share of a steady-state frame: CUDA events around
     # each module's forward (eager, host gaps included), median of 10 frames
-    with _TemporalProbe(torch, VDA) as probe:
+    with _Probe(torch, VDA.TemporalTransformer, "forward") as probe:
         per_frame = []
         for i in range(11):
             probe.records.clear()
@@ -922,7 +936,7 @@ def vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
         f"(torch.cuda.max_memory_allocated); {card}")
     del program
 
-    with _TemporalProbe(torch, VDA, label="vda_temporal"):
+    with _Probe(torch, VDA.TemporalTransformer, "forward", label="vda_temporal"):
         out["trace"] = trace("vda", vda, vda_spec, cfg, "engine",
                              {"K2 attention": layers, "K1 dibr_pair": 1}, spans=("vda_temporal",))
 
@@ -1024,6 +1038,267 @@ def checkpoint_phase(np, torch, build_bound, counters, dev, card, out_dir):
         raise AssertionError("cli with --checkpoint: exit code or output off")
     out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames,
                       launches=run.check_launches("checkpoint", spec.dims[1], CLI_WARM_FRAMES))
+    return out
+
+
+DA3_MODEL = "DA3-LARGE"
+DA3_MONO_MODEL = "DA3MONO-LARGE"
+DA3_NESTED_MODEL = "DA3NESTED-GIANT-LARGE"
+DA3_RES = 504           # the top of the DA3 menu: a 280x504 input, 721 tokens
+DA3_INPUT = (280, 504)
+DA3_SHORT_FRAMES = 10   # int8 and NESTED runs
+# int8 against bf16 DA3-LARGE on one model input: the JAX package's bound
+# for the DA3 family (tests/test_quant.py, DA3-SMALL on the CPU)
+INT8_DA3_MIN_CORR = 0.99
+
+
+# DA3MONO's raw outputs, card bf16 vs CPU f32 on one model input: the depth
+# over the reference's non-sky pixels, normalised as the metric post does
+# (1/d, percentile clip), under phase 6's depth bound; the sky masks may
+# disagree on at most this share of pixels
+REF_SKY_MASK_DISAGREE = 0.03
+
+
+def sky_reference_check(torch, D3, normalize_depth, name, card_net, cpu_net, model_in, dev,
+                        dtype):
+    """predict(depth, sky) of the mono preset on the card and on the CPU:
+    the depth where the CPU's mask says non-sky (what the sky fill would
+    hide in the frame's output), the masks' agreement, and the sky share."""
+    with torch.inference_mode():
+        c = card_net.predict(model_in.to(dev, dtype), ("depth", "sky"))
+        r = cpu_net.predict(model_in.float().cpu(), ("depth", "sky"))
+    dc, sc = c["depth"].float().cpu()[0, 0], c["sky"].float().cpu()[0, 0]
+    dr, sr = r["depth"][0, 0], r["sky"][0, 0]
+    non_sky = sr < D3.SKY_THRESHOLD
+    err = (normalize_depth(torch.where(non_sky, dc, 0.0), metric=True)
+           - normalize_depth(torch.where(non_sky, dr, 0.0), metric=True)).abs()[non_sky]
+    ref = {"sky_share_cpu": 1.0 - non_sky.float().mean().item(),
+           "non_sky_pixels": int(non_sky.sum().item()),
+           "mask_disagree": ((sc < D3.SKY_THRESHOLD) != non_sky).float().mean().item(),
+           "non_sky_depth_mean_abs": err.mean().item() if err.numel() else float("nan"),
+           "non_sky_depth_max_abs": err.max().item() if err.numel() else float("nan")}
+    ok = (bool(torch.isfinite(dc).all()) and err.numel() > 0
+          and ref["non_sky_depth_mean_abs"] <= REF_DEPTH_MEAN_ABS
+          and ref["mask_disagree"] <= REF_SKY_MASK_DISAGREE)
+    log(f"[reference] {name} raw depth and sky, model input {list(model_in.shape)}, card bf16 "
+        f"vs CPU f32: sky share {ref['sky_share_cpu']:.4f} ({ref['non_sky_pixels']} non-sky "
+        f"pixels); masks disagree on {ref['mask_disagree']:.2e} (tol {REF_SKY_MASK_DISAGREE}); "
+        f"normalised non-sky depth mean {ref['non_sky_depth_mean_abs']:.4f} "
+        f"(tol {REF_DEPTH_MEAN_ABS}) max {ref['non_sky_depth_max_abs']:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"reference {name}: the raw depth or sky mask disagrees with the CPU")
+    return ref
+
+
+def finite_share(torch, net, program, frame_np, dev):
+    """The model's raw depth on one 4K frame's model input, and the share
+    of its values that are finite (exp heads on random weights can
+    overflow)."""
+    with torch.inference_mode():
+        _, model_in = program.program.preprocess(torch.from_numpy(frame_np).to(dev))
+        raw = net(model_in)
+        return model_in, raw, torch.isfinite(raw).float().mean().item()
+
+
+def da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames, counters,
+               policy, dev, card, out_dir):
+    """21-26: the Depth-Anything-3 family at depth resolution 504 on 4K
+    Half-SBS (the fused tail): DA3-LARGE (exact launches, stage ms, peak
+    memory, the share of finite depth, a traced frame without the ray branch
+    or the camera decoder, beside a traced full-output call that runs them);
+    DA3MONO-LARGE (the sky post's ms); card bf16 against CPU f32 for both;
+    int8 DA3-LARGE (K4, correlation with bf16); DA3NESTED-GIANT-LARGE (64 K2
+    a frame, build s, peak memory); the CLI with `--model DA3-LARGE`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from desktop2stereo_tpu_torch.models import da3 as D3
+    from desktop2stereo_tpu_torch.ops.depth_post import normalize_depth
+
+    out = {}
+    shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+
+    def build(name, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net, net_spec = build_bound(name, device=dev, dtype=policy.compute_dtype, seed=SEED, **kw)
+        return net, net_spec, time.perf_counter() - t0
+
+    # -- 21. DA3-LARGE @504, 4K Half-SBS ------------------------------------
+    net, spec, build_s = build(DA3_MODEL)
+    layers = len(net.backbone.layer)
+    cfg = drive("da3", net, "Half-SBS", "high", shape, {"attention": layers, "dibr_pair": 1},
+                net_spec=spec, res=DA3_RES)
+    program = driven.pop("da3")
+    mi_shape = programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2])
+    if tuple(mi_shape) != DA3_INPUT:
+        raise AssertionError(f"da3: model input {mi_shape}, want {DA3_INPUT}")
+    model_in, raw, finite = finite_share(torch, net, program, frames[0], dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["large"] = dict(build_s=build_s, peak_mem_gb=peak, finite_share=finite,
+                        model_input=list(model_in.shape))
+    log(f"[da3] {DA3_MODEL} built in {build_s:.1f} s; model input {list(model_in.shape)} "
+        f"({DA3_INPUT[0] // 14 * DA3_INPUT[1] // 14 + 1} tokens); raw depth finite on "
+        f"{finite:.6f} of {raw.numel()} values, range {raw.float().nan_to_num().min().item():.4g}"
+        f"..{raw.float().nan_to_num().max().item():.4g}; peak device memory {peak:.2f} GB; {card}")
+
+    # the traced frame runs neither the ray branch nor the camera decoder:
+    # both are bracketed by record_function ranges, and a full-output call
+    # (every output of the preset) traced beside it shows the ranges with
+    # their kernels
+    spans = ("da3_ray", "da3_cam_dec")
+    with _Probe(torch, D3.DA3DualDPT, "_aux", "da3_ray"), \
+            _Probe(torch, D3.DA3CameraDec, "forward", "da3_cam_dec"):
+        tr = trace("da3", net, spec, cfg, "engine", {"K2 attention": layers, "K1 dibr_pair": 1},
+                   spans=spans)
+        with torch.inference_mode():
+            for _ in range(3):
+                net.predict(model_in)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("frame"):
+                    full = net.predict(model_in)
+                torch.cuda.synchronize()
+    path = out_dir / "trace_da3_full_outputs.json"
+    prof.export_chrome_trace(str(path))
+
+    def events_of(p):
+        data = json.loads(p.read_text())
+        return data["traceEvents"] if isinstance(data, dict) else data
+
+    def host_ranges(events, label):
+        return sum(1 for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == label)
+
+    full_events, frame_events = events_of(path), events_of(out_dir / "trace_da3.json")
+    full_tr = summarize_trace(full_events, spans)
+    conv_frame = tr["groups"].get("convolution", {}).get("calls", 0)
+    conv_full = full_tr["groups"].get("convolution", {}).get("calls", 0)
+    ranges = {k: (host_ranges(frame_events, k), host_ranges(full_events, k)) for k in spans}
+    ok = (all(f == 0 and g == 1 for f, g in ranges.values())
+          and all(tr["spans"][k] is None for k in spans) and set(full) == set(D3.ANYVIEW_OUTPUTS))
+    log(f"[da3] traced 4K frame: da3_ray and da3_cam_dec ranges on the host "
+        + ", ".join(f"{k} {f}" for k, (f, _) in ranges.items())
+        + f" (the ray branch and the camera decoder did not run), {conv_frame} convolution "
+        f"kernels; a traced predict(every output) on the same input: host ranges "
+        + ", ".join(f"{k} {g}" for k, (_, g) in ranges.items()) + "; on the card " + ", ".join(
+            f"{k} {v['ms']:.3f} ms in {v['calls']} kernels" if v else f"{k} not separable"
+            for k, v in full_tr["spans"].items())
+        + f", {conv_full} convolution kernels, busy {full_tr['busy_ms']:.3f} ms "
+        f"{'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("da3: the frame ran a dead branch, or the full call missed one")
+    out["large"].update(trace=tr, full_outputs_trace=dict(
+        busy_ms=full_tr["busy_ms"], spans=full_tr["spans"], groups=full_tr["groups"]))
+    del program, full, raw
+
+    # -- 22. DA3MONO-LARGE: the DPT head with the sky post -------------------
+    mono, mono_spec, mono_build_s = build(DA3_MONO_MODEL)
+    mono_cfg = drive("da3_mono", mono, "Half-SBS", "high", shape,
+                     {"attention": layers, "dibr_pair": 1}, net_spec=mono_spec, res=DA3_RES)
+    program = driven.pop("da3_mono")
+    _, raw, mono_finite = finite_share(torch, mono, program, frames[0], dev)
+    with _Probe(torch, D3, "sky_to_max_depth") as probe:
+        per_frame = []
+        for i in range(11):
+            probe.records.clear()
+            program(frames[i % len(frames)])
+            torch.cuda.synchronize()
+            if i:
+                per_frame.append(probe.records[0][0].elapsed_time(probe.records[0][1]))
+    with torch.inference_mode():
+        sky = mono.predict(model_in, ("depth", "sky"))["sky"]
+    sky_share = (sky >= 0.3).float().mean().item()
+    out["mono"] = dict(build_s=mono_build_s, finite_share=mono_finite,
+                       sky_post_ms=statistics.median(per_frame), sky_share=sky_share,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[da3] {DA3_MONO_MODEL}: sky post (two sorts of {raw[0].numel()} values and the "
+        f"fill, on the card) {out['mono']['sky_post_ms']:.3f} ms (CUDA events around it in "
+        f"the frame, eager, median of 10); sky share {sky_share:.4f}; raw depth finite on "
+        f"{mono_finite:.6f}; built in {mono_build_s:.1f} s; {card}")
+    del program, raw, sky
+
+    # -- 23. card bf16 against CPU f32 on a small frame ----------------------
+    small = synthetic_frames(np, 1, 216, 384, SEED + 1)[0]
+    out["reference"] = {}
+    for name, card_net, net_cfg in ((DA3_MODEL, net, cfg), (DA3_MONO_MODEL, mono, mono_cfg)):
+        cpu_net, net_spec = build_bound(name, device="cpu", dtype=torch.float32, seed=SEED)
+        card_prog = programs.ProgramCache(net_cfg, card_net, net_spec,
+                                          compute_dtype=policy.compute_dtype)
+        cpu_prog = programs.ProgramCache(net_cfg, cpu_net, net_spec, compute_dtype=torch.float32)
+        out["reference"][name] = reference_check(torch, f"{name} @{DA3_RES}", card_prog,
+                                                 cpu_prog, small)
+        if name == DA3_MONO_MODEL:
+            # the frame's depth is mostly the sky fill on random weights:
+            # hold the raw depth and the sky mask as well
+            _, cpu_in = cpu_prog.program.preprocess(torch.from_numpy(small))
+            out["reference"][name + " raw"] = sky_reference_check(
+                torch, D3, normalize_depth, f"{name} @{DA3_RES}", card_net, cpu_net, cpu_in,
+                dev, policy.compute_dtype)
+        del cpu_net, cpu_prog, card_prog
+    del mono
+
+    # -- 24. int8 DA3-LARGE -------------------------------------------------
+    net_q, _, q_build_s = build(DA3_MODEL, quant="int8")
+    with torch.inference_mode():
+        raw_f = net(model_in)[0].float()
+        raw_q = net_q(model_in)[0].float()
+    both = torch.stack([raw_f.flatten(), raw_q.flatten()])
+    corr = torch.corrcoef(both)[0, 1].item()
+    rel = ((raw_q - raw_f).abs().max() / raw_f.abs().max().clamp_min(1e-6)).item()
+    ok = bool(torch.isfinite(both).all()) and corr > INT8_DA3_MIN_CORR
+    log(f"[da3] int8 {DA3_MODEL} against bf16 on one {list(model_in.shape)} model input: "
+        f"correlation {corr:.5f} (min {INT8_DA3_MIN_CORR}), max rel err {rel:.4f}; built in "
+        f"{q_build_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8 DA3 does not track the bf16 model")
+    out["int8"] = dict(corr=corr, max_rel_err=rel, build_s=q_build_s)
+    drive("da3_int8", net_q, "Half-SBS", "high", shape,
+          {"attention": layers, "quant_matmul": 4 * layers, "dibr_pair": 1}, net_spec=spec,
+          n_frames=DA3_SHORT_FRAMES, res=DA3_RES)
+    driven.pop("da3_int8")
+    del net_q, raw_f, raw_q, both
+
+    # -- 25. DA3NESTED-GIANT-LARGE ---------------------------------------------
+    del net
+    nested, nested_spec, nested_build_s = build(DA3_NESTED_MODEL)
+    n_layers = len(nested.da3.backbone.layer) + len(nested.da3_metric.backbone.layer)
+    drive("da3_nested", nested, "Half-SBS", "high", shape,
+          {"attention": n_layers, "dibr_pair": 1}, net_spec=nested_spec,
+          n_frames=DA3_SHORT_FRAMES, res=DA3_RES)
+    program = driven.pop("da3_nested")
+    _, raw, nested_finite = finite_share(torch, nested, program, frames[0], dev)
+    params = sum(p.numel() for p in nested.parameters())
+    out["nested"] = dict(build_s=nested_build_s, layers=n_layers, params=params,
+                         finite_share=nested_finite,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[da3] {DA3_NESTED_MODEL}: {params} parameters (ViT-G {len(nested.da3.backbone.layer)}"
+        f" layers with SwiGLU + ViT-L {len(nested.da3_metric.backbone.layer)}), built in "
+        f"{nested_build_s:.1f} s (drawn in f32 on the host, moved to the card in bf16); raw "
+        f"depth finite on {nested_finite:.6f}; peak device memory "
+        f"{out['nested']['peak_mem_gb']:.2f} GB; {card}")
+    del nested, program, raw
+    torch.cuda.empty_cache()
+
+    # -- 26. the CLI with --model DA3-LARGE ------------------------------------
+    run = CliRun(counters)
+    rc = run(["--settings", str(cli_settings(out_dir)), "--model", DA3_MODEL, "--depth-res",
+              str(DA3_RES), "--source", "synthetic", "--size",
+              f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null", "--frames", str(FRAMES),
+              "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
+    _, _, sink, _ = run.parts
+    eng = run.engine
+    ok = rc == 0 and sink.frames >= 1 and sink.last_shape == shape
+    log(f"[cli] python -m desktop2stereo_tpu_torch.cli --model {DA3_MODEL} --depth-res "
+        f"{DA3_RES} --source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} --sink null "
+        f"--frames {FRAMES}: exit {rc}; {eng.frames} frames run, {sink.frames} delivered "
+        f"{sink.last_shape} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli with --model DA3-LARGE: exit code or output off")
+    out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames,
+                      launches=run.check_launches("da3", layers, CLI_WARM_FRAMES))
+    out["paths"] = {k: paths[k] for k in ("da3", "da3_mono", "da3_int8", "da3_nested")}
     return out
 
 
@@ -1336,12 +1611,13 @@ def main() -> int:
     paths = {}
     driven = {}  # path name → its ProgramCache, for the checks after a run
 
-    def drive(name, net, mode, quality, want_shape, want, net_spec=None, n_frames=FRAMES):
-        """Warm up, run `n_frames` frames of model `net` through FrameEngine,
-        check the counts `want` (kernel → launches per frame), time the
-        stages."""
+    def drive(name, net, mode, quality, want_shape, want, net_spec=None, n_frames=FRAMES,
+              res=518):
+        """Warm up, run `n_frames` frames of model `net` at depth resolution
+        `res` through FrameEngine, check the counts `want` (kernel →
+        launches per frame), time the stages."""
         net_spec = net_spec or spec
-        cfg = config(programs, mode, quality, net_spec.name)
+        cfg = config(programs, mode, quality, net_spec.name, res)
         program = programs.ProgramCache(cfg, net, net_spec, compute_dtype=policy.compute_dtype)
         warm = program.warmup(FRAME_SHAPE)
         source = SaturatingSource(frames, n_frames)
@@ -1584,28 +1860,40 @@ def main() -> int:
     # -- 20. a real-shape checkpoint on the card, and the CLI with it -------
     report["checkpoint"] = checkpoint_phase(np, torch, build_bound, counters, dev, card, out_dir)
 
-    def entry(name, source, replaces, key, launches):
+    # -- 21-26. the Depth-Anything-3 family at 504 ----------------------------
+    report["da3"] = da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths,
+                               frames, counters, policy, dev, card, out_dir)
+
+    def entry(name, source, replaces, key, by_path):
+        """`launches` sums the runs in `by_path` (path → that run's count,
+        each read from its own run with the counts set to 0 before it)."""
         tm = timing[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": float(worst[name]), "ms": tm["kernel"],
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": float(worst[name]), "ms": tm["kernel"],
                 "plain_ms": tm["plain"], "bound_ms": tm["bound"][0],
                 "bound_by": tm["bound"][1], "library_ms": tm.get("library")}
 
     csrc = "desktop2stereo_tpu_torch/csrc/"
     pallas = "desktop2stereo_tpu/ops/pallas/"
+
+    def launches(kernel, *names):
+        return {n: paths[n]["launches"][kernel] for n in names}
+
+    # each entry's launches: the slice's main path, and the DA3 path's beside it
     kernels = [
         entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_half", paths["main"]["launches"]["dibr_pair"]),
+              "dibr_pair_half", launches("dibr_pair", "main", "da3")),
         entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_eyes", paths["generic_high"]["launches"]["dibr_pair"]),
+              "dibr_pair_eyes", launches("dibr_pair", "generic_high")),
         entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention", paths["main"]["launches"]["attention"]),
+              "attention", launches("attention", "main", "da3")),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
-              paths["generic_fast"]["launches"]["warp"]),
+              launches("warp", "generic_fast")),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
-              render_counts["dibr_fill"]),
+              {"dibr_render": render_counts["dibr_fill"]}),
         entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
-              "quant_matmul_fc1", paths["int8"]["launches"]["quant_matmul"]),
+              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8")),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,

@@ -19,7 +19,9 @@ encoder.  `--checkpoint` loads safetensors weights (one file, an index json
 or one shard of a sharded set); without it the model factory looks in its
 local caches (`models/factory.py:find_checkpoint`) and otherwise draws
 seeded random weights.  `--model Video-Depth-Anything-*` streams, its
-temporal window carried from frame to frame.  What the port cannot do yet
+temporal window carried from frame to frame; `--model DA3-*` runs the
+Depth-Anything-3 family (`--quant int8` exits naming the refusal for
+DA3NESTED-GIANT-LARGE, as the JAX CLI's factory refuses it).  What the port cannot do yet
 is refused by name: `--streams` > 1 and `--batched` (ROADMAP A6),
 `--profile-dir` (A10), the tcp source and the rtmp and xr sinks (A1b).
 """
@@ -336,8 +338,9 @@ def run(args=None) -> int:
     apply_settings_defaults(args, settings)
     try:
         source, program, sink, settings = make_components(args, settings)
-    except (KeyError, ValueError, FileNotFoundError) as e:
-        # unknown model or mode, an unported kind, a checkpoint that is not there
+    except (KeyError, ValueError, FileNotFoundError, NotImplementedError) as e:
+        # unknown model or mode, an unported kind, a checkpoint that is not
+        # there, a quant mode the model refuses (DA3NESTED)
         raise SystemExit(f"[d2s] {e}")
 
     shutdown = threading.Event()

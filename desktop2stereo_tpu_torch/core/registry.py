@@ -1,5 +1,5 @@
-"""Model registry for the port: the Depth-Anything and Video-Depth-Anything
-families.
+"""Model registry for the port: the Depth-Anything, Video-Depth-Anything and
+Depth-Anything-3 families.
 
 The same `ModelSpec` facts as `desktop2stereo_tpu/core/registry.py` (family,
 ViT variant, patch size, normalization, metric-ness, HF repo, resolution
@@ -72,7 +72,10 @@ class ModelSpec:
         return FUSION_CHANNELS[self.variant]
 
 
-_DA_MENU = (196, 238, 294, 336, 392, 448, 518)  # patch-14 resolution menu
+# Per-family depth-resolution menus (the JAX registry's family menu table)
+_DA_MENU = (196, 238, 294, 336, 392, 448, 518)   # patch-14 DA/VDA/Distill
+_DA3_MENU = (182, 224, 280, 322, 378, 434, 504)  # patch-14 DA3 spread
+_FAMILY_MENUS = {"depth_anything": _DA_MENU, "vda": _DA_MENU, "da3": _DA3_MENU}
 
 _SIZE = {"small": "vits", "base": "vitb", "large": "vitl", "giant": "vitg"}
 
@@ -83,7 +86,7 @@ def _register(name: str, variant: str, repo: str, metric: bool = False,
               max_depth: float = 1.0, family: str = "depth_anything") -> None:
     MODEL_REGISTRY[name] = ModelSpec(
         name=name, family=family, variant=variant, hf_repo=repo,
-        metric=metric, max_depth=max_depth, resolutions=_DA_MENU)
+        metric=metric, max_depth=max_depth, resolutions=_FAMILY_MENUS[family])
 
 
 for _size in ("Small", "Base", "Large"):
@@ -119,7 +122,35 @@ for _size in ("Small", "Base", "Large"):
               f"depth-anything/Metric-Video-Depth-Anything-{_size}", metric=True,
               family="vda")
 
+# Depth-Anything-3: every entry metric; NESTED pairs a ViT-G anyview branch
+# with a ViT-L metric branch
+for _size in ("SMALL", "BASE", "LARGE", "GIANT"):
+    _register(f"DA3-{_size}", _SIZE[_size.lower()], f"depth-anything/DA3-{_size}",
+              metric=True, family="da3")
+_register("DA3METRIC-LARGE", "vitl", "depth-anything/DA3METRIC-LARGE", metric=True,
+          family="da3")
+_register("DA3MONO-LARGE", "vitl", "depth-anything/DA3MONO-LARGE", metric=True, family="da3")
+_register("DA3NESTED-GIANT-LARGE", "vitg", "depth-anything/DA3NESTED-GIANT-LARGE-1.1",
+          metric=True, family="da3")
+
 _register("depth-ai", "vitl", "lc700x/depth-ai-hf", metric=True)
+
+
+def da3_mode(name: str) -> str:
+    """"anyview" (DualDPT + camera decoder), "mono" or "metric" (DPT + sky)
+    for a DA3 registry name, as the JAX `DepthAnything3.from_spec` reads it
+    (NESTED's own branch is anyview)."""
+    upper = name.upper()
+    if "MONO" in upper:
+        return "mono"
+    if "METRIC" in upper and "NESTED" not in upper:
+        return "metric"
+    return "anyview"
+
+
+def is_da3_nested(spec: ModelSpec) -> bool:
+    """DA3NESTED-GIANT-LARGE: two branches aligned, not one DepthAnything3."""
+    return spec.family == "da3" and "NESTED" in spec.name.upper()
 
 
 def get_spec(name: str) -> ModelSpec:
@@ -127,8 +158,8 @@ def get_spec(name: str) -> ModelSpec:
         return MODEL_REGISTRY[name]
     except KeyError:
         raise KeyError(
-            f"unknown model {name!r} for the torch port (the depth_anything "
-            f"and vda families are ported; ROADMAP A5 covers the other "
+            f"unknown model {name!r} for the torch port (the depth_anything, "
+            f"vda and da3 families are ported; ROADMAP A5 covers the other "
             f"families); registered: {sorted(MODEL_REGISTRY)}") from None
 
 

@@ -16,12 +16,13 @@ fused qkv kernel (D, 3D).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
 
-from desktop2stereo_tpu_torch.core.registry import ModelSpec
+from desktop2stereo_tpu_torch.core.registry import ModelSpec, da3_mode
 from desktop2stereo_tpu_torch.models.safetensors_io import load_checkpoint
 
 Params = Dict[str, Any]
@@ -235,3 +236,129 @@ def convert_vda(state_dict: Any, spec: ModelSpec) -> Params:
     head["head_conv2"] = _conv(sd, "head.scratch.output_conv2.0")
     head["head_conv3"] = _conv(sd, "head.scratch.output_conv2.2")
     return {"backbone": convert_dinov2_original(sd, num_layers), "head": head}
+
+
+def _convert_da3_backbone(sd: Mapping[str, np.ndarray], spec: ModelSpec,
+                          anyview: bool, prefix: str) -> Params:
+    """DA3's DinoVisionTransformer naming (blocks.{i}.attn.{qkv,proj,q_norm,
+    k_norm}, ls1/ls2.gamma, mlp.{fc1,fc2} or ViT-G's SwiGLU mlp.{w12,w3}) →
+    DA3Backbone params."""
+    hidden, num_layers, _, _ = spec.dims
+    pw = sd[prefix + "patch_embed.proj.weight"]  # (D,3,p,p)
+    params: Params = {
+        "cls_token": sd[prefix + "cls_token"],
+        "pos_embed": sd[prefix + "pos_embed"],
+        "patch_kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, hidden)),
+        "patch_bias": sd[prefix + "patch_embed.proj.bias"],
+        "norm": _layernorm(sd, prefix + "norm"),
+    }
+    if anyview:
+        params["camera_token"] = sd[prefix + "camera_token"]
+    for i in range(num_layers):
+        lp = f"{prefix}blocks.{i}."
+        attn: Params = {"qkv": _linear(sd, lp + "attn.qkv"),
+                        "proj": _linear(sd, lp + "attn.proj")}
+        if lp + "attn.q_norm.weight" in sd:  # the QK-norm blocks only
+            attn["q_norm"] = _layernorm(sd, lp + "attn.q_norm")
+            attn["k_norm"] = _layernorm(sd, lp + "attn.k_norm")
+        if lp + "mlp.w12.weight" in sd:      # ViT-G SwiGLU
+            mlp = {"w12": _linear(sd, lp + "mlp.w12"), "w3": _linear(sd, lp + "mlp.w3")}
+        else:
+            mlp = {"fc1": _linear(sd, lp + "mlp.fc1"), "fc2": _linear(sd, lp + "mlp.fc2")}
+        params[f"layer_{i}"] = {
+            "norm1": _layernorm(sd, lp + "norm1"),
+            "norm2": _layernorm(sd, lp + "norm2"),
+            "attention": attn,
+            "layer_scale1": sd[lp + "ls1.gamma"],
+            "layer_scale2": sd[lp + "ls2.gamma"],
+            "mlp": mlp,
+        }
+    return params
+
+
+def _convert_da3_fusion_chain(sd: Mapping[str, np.ndarray], prefix: str, aux: bool) -> Params:
+    """refinenet{4..1}(_aux) → fusion(_aux)_{0..3}; refinenet4 has no
+    resConfUnit1 (it never receives a residual)."""
+    tag = "_aux" if aux else ""
+    chain: Params = {}
+    for j, rnum in enumerate((4, 3, 2, 1)):
+        fp = f"{prefix}refinenet{rnum}{tag}."
+        layer: Params = {"projection": _conv(sd, fp + "out_conv"),
+                         "res2": {"conv1": _conv(sd, fp + "resConfUnit2.conv1"),
+                                  "conv2": _conv(sd, fp + "resConfUnit2.conv2")}}
+        if j > 0:
+            layer["res1"] = {"conv1": _conv(sd, fp + "resConfUnit1.conv1"),
+                             "conv2": _conv(sd, fp + "resConfUnit1.conv2")}
+        chain[f"fusion{tag}_{j}"] = layer
+    return chain
+
+
+def convert_da3(state_dict: Any, spec: ModelSpec) -> Params:
+    """A Depth-Anything-3 checkpoint (model.backbone.pretrained.*, model.head.*,
+    model.cam_dec.*, or the same without `model.`) → DepthAnything3 param
+    tree."""
+    sd = to_numpy_state_dict(state_dict)
+    for p in ("model.", ""):
+        if any(k.startswith(p + "backbone.") for k in sd):
+            sd = {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+            break
+    anyview = da3_mode(spec.name) == "anyview"
+
+    head: Params = {"reassemble": {}}
+    hp = "head."
+    if anyview:
+        head["reassemble"]["norm"] = _layernorm(sd, hp + "norm")
+    for i in range(4):
+        head["reassemble"][f"project_{i}"] = _conv(sd, f"{hp}projects.{i}")
+        if i in (0, 1):  # ConvTranspose2d (in,out,f,f) as it is
+            head["reassemble"][f"resize_{i}"] = {"kernel": sd[f"{hp}resize_layers.{i}.weight"],
+                                                 "bias": sd[f"{hp}resize_layers.{i}.bias"]}
+        elif i == 3:
+            head["reassemble"]["resize_3"] = _conv(sd, f"{hp}resize_layers.3")
+        head[f"conv_{i}"] = _conv(sd, f"{hp}scratch.layer{i + 1}_rn", bias=False)
+
+    sp = hp + "scratch."
+    head["main"] = _convert_da3_fusion_chain(sd, sp, aux=False)
+    head["head_conv1"] = _conv(sd, sp + "output_conv1")
+    head["head_conv2"] = _conv(sd, sp + "output_conv2.0")
+    head["head_conv3"] = _conv(sd, sp + "output_conv2.2")
+    if anyview:
+        head["aux"] = _convert_da3_fusion_chain(sd, sp, aux=True)
+        for k in range(5):
+            head[f"aux_conv1_{k}"] = _conv(sd, f"{sp}output_conv1_aux.3.{k}")
+        head["aux_conv2"] = _conv(sd, sp + "output_conv2_aux.3.0")
+        head["aux_ln"] = _layernorm(sd, sp + "output_conv2_aux.3.2")
+        head["aux_conv3"] = _conv(sd, sp + "output_conv2_aux.3.5")
+    else:
+        head["sky_conv2"] = _conv(sd, sp + "sky_output_conv2.0")
+        head["sky_conv3"] = _conv(sd, sp + "sky_output_conv2.2")
+
+    params: Params = {
+        "backbone": _convert_da3_backbone(sd, spec, anyview, "backbone.pretrained."),
+        "head": head,
+    }
+    if anyview and "cam_dec.fc_t.weight" in sd:
+        params["cam_dec"] = {"fc0": _linear(sd, "cam_dec.backbone.0"),
+                             "fc1": _linear(sd, "cam_dec.backbone.2"),
+                             "fc_t": _linear(sd, "cam_dec.fc_t"),
+                             "fc_qvec": _linear(sd, "cam_dec.fc_qvec"),
+                             "fc_fov": _linear(sd, "cam_dec.fc_fov.0")}
+    return params
+
+
+def convert_da3_nested(state_dict: Any, spec: ModelSpec) -> Params:
+    """DA3NESTED checkpoint → {"da3": anyview tree, "da3_metric": metric
+    tree}.  The branches sit under model.da3.* and model.da3_metric.*, each
+    with or without a further `model.` (the JAX build_da3_nested's prefix
+    handling); the metric branch converts as DA3METRIC-LARGE."""
+    sd = to_numpy_state_dict(state_dict)
+
+    def branch(name: str, branch_spec: ModelSpec) -> Params:
+        prefix = f"model.{name}.model."
+        if not any(k.startswith(prefix) for k in sd):
+            prefix = f"model.{name}."
+        return convert_da3({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)},
+                           branch_spec)
+
+    metric_spec = dataclasses.replace(spec, name="DA3METRIC-LARGE", variant="vitl")
+    return {"da3": branch("da3", spec), "da3_metric": branch("da3_metric", metric_spec)}

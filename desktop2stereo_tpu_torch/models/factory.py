@@ -2,7 +2,7 @@
 from a seed.
 
 Port of `desktop2stereo_tpu/models/factory.py:build_bound` for the
-depth_anything and vda families.  Weights come, in the JAX factory's order,
+depth_anything, vda and da3 families.  Weights come, in the JAX factory's order,
 from an explicit checkpoint path, then from a local cache
 (`find_checkpoint`), then from a seeded draw (printing the JAX factory's
 "no checkpoint found" line).  A checkpoint (safetensors, one file or
@@ -10,10 +10,10 @@ sharded) goes through the family's converter (`models/convert_hf.py`, the
 JAX converters' copy) and `models/from_flax.py`, so it reaches the port
 through the same names as the JAX package.  The seeded draw uses a
 `torch.Generator` with flax's default initializers (truncated-normal lecun
-kernels, zero biases, unit norms and LayerScale, zero cls/position tables).
-`quant="int8"` quantizes the encoder's dense weights at load
-(`ops/quant.py:quantize_state_dict`), as the JAX factory's `quantize_tree`
-step does.
+kernels, zero biases, unit norms and LayerScale, zero cls/position tables,
+a unit-normal DA3 camera token).  `quant="int8"` quantizes the encoder's
+dense weights at load (`ops/quant.py:quantize_state_dict`), as the JAX
+factory's `quantize_tree` step does; DA3NESTED refuses it, as JAX does.
 """
 
 from __future__ import annotations
@@ -26,9 +26,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec
+from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec, is_da3_nested
 from desktop2stereo_tpu_torch.core.runtime import COMPUTE_DTYPE, cuda_policy
-from desktop2stereo_tpu_torch.models.convert_hf import convert_depth_anything, convert_vda
+from desktop2stereo_tpu_torch.models import da3
+from desktop2stereo_tpu_torch.models.convert_hf import (
+    convert_da3, convert_da3_nested, convert_depth_anything, convert_vda)
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
 from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
@@ -48,9 +50,18 @@ QUANT_FAMILIES = frozenset(
     {"depth_anything", "dpt_dinov2", "vda", "depthpro", "da3",
      "infinidepth", "dpt", "dpt_beit", "dpt_hybrid", "zoedepth"})
 
-# family → (model class, checkpoint converter)
-FAMILIES = {"depth_anything": (DepthAnything, convert_depth_anything),
-            "vda": (VideoDepthAnything, convert_vda)}
+NESTED_QUANT_MESSAGE = ("--quant is not supported for the NESTED preset (two aligned "
+                        "branches); use DA3METRIC/DA3-* instead")
+
+
+def _convert_da3(ckpt, spec: ModelSpec):
+    return (convert_da3_nested if is_da3_nested(spec) else convert_da3)(ckpt, spec)
+
+
+# family → (`from_spec(spec, quant=False)` making the model, checkpoint converter)
+FAMILIES = {"depth_anything": (DepthAnything.from_spec, convert_depth_anything),
+            "vda": (VideoDepthAnything.from_spec, convert_vda),
+            "da3": (da3.from_spec, _convert_da3)}
 
 # std of N(0,1) truncated to ±2, the correction flax's truncated_normal
 # initializer divides by so the drawn variance is the requested one
@@ -67,7 +78,13 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Seeded flax-style init of every kernel (biases and tables as built).
     VDA's `proj_out`, which flax initialises to zero, is drawn like every
     other kernel, so that a run on random weights goes through the temporal
-    modules rather than around them."""
+    modules rather than around them.  A DA3 trunk's patch kernel is drawn
+    as a kernel and its camera token from N(0, 1); a DA3Nested draws its
+    anyview branch from `seed` and its metric branch from `seed + 1`."""
+    if isinstance(model, da3.DA3Nested):
+        init_random(model.da3, seed)
+        init_random(model.da3_metric, seed + 1)
+        return model
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Linear):
@@ -82,6 +99,10 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             _lecun_(m.weight, m.weight.shape[1], gen)
         elif isinstance(m, ConvTransposeSameStride):
             _lecun_(m.weight, m.weight.shape[0], gen)
+        elif isinstance(m, da3.DA3Backbone):
+            _lecun_(m.patch_kernel, m.patch_kernel.shape[0], gen)
+            if hasattr(m, "camera_token"):
+                m.camera_token.normal_(generator=gen)
     return model
 
 
@@ -152,20 +173,22 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
             f"{name} is family {spec.family!r}")
     if spec.family not in FAMILIES:
         raise NotImplementedError(f"{name}: family {spec.family!r} is not ported (ROADMAP A5)")
+    if quant != "none" and is_da3_nested(spec):
+        raise NotImplementedError(NESTED_QUANT_MESSAGE)
     if device is None:
         device = cuda_policy().device
     if dtype is None:
         dtype = COMPUTE_DTYPE if torch.device(device).type == "cuda" else torch.float32
-    cls, convert = FAMILIES[spec.family]
+    make, convert = FAMILIES[spec.family]
     ckpt = checkpoint or find_checkpoint(spec)
     if ckpt is not None:
-        model = cls.from_spec(spec)
+        model = make(spec)
         model.load_state_dict(from_flax(convert(ckpt, spec)), strict=True)
     else:
-        model = init_random(cls.from_spec(spec), seed)
+        model = init_random(make(spec), seed)
         print(f"[models] no checkpoint found for {name}; using random init")
     if quant == "int8":
         state = quantize_state_dict(model.state_dict())
-        model = cls.from_spec(spec, quant=True)
+        model = make(spec, quant=True)
         model.load_state_dict(state, strict=True)
     return model.to(device=device, dtype=dtype).eval(), spec

@@ -9,8 +9,10 @@ mechanical:
   beside `norm_0` and `norm_1`): then it keeps its name;
 - Dense kernels [in, out] become Linear weights [out, in];
 - Conv kernels HWIO become Conv2d weights OIHW;
-- the conv-transpose kernels of a reassemble stage (the DPT neck's, and the
-  VDA head's) are stored (C, O, f, f) on both sides and are kept as they are;
+- the conv-transpose kernels of a reassemble stage (the DPT neck's, the VDA
+  head's, and the DA3 heads' `reassemble.resize_{0,1}`, whichever branch
+  holds them) are stored (C, O, f, f) on both sides and are kept as they
+  are;
 - LayerNorm `scale` becomes `weight`; every other leaf keeps its name;
 - a quantized Dense (`kernel_q` [in, out] int8, `scale`, `bias`; see the JAX
   `ops/quant.py:quantize_tree`) becomes a QuantLinear: `weight_q` [out, in]
@@ -31,9 +33,11 @@ import torch
 from desktop2stereo_tpu_torch.models.dpt import REASSEMBLE_FACTORS
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
-_CONV_TRANSPOSE = {f"{owner}.reassemble.{i}.resize.kernel"
-                   for owner in ("neck", "head")
-                   for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1}
+# path endings of the (C, O, f, f) conv-transpose kernels
+_CONV_TRANSPOSE = tuple(end for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1
+                        for end in (f"neck.reassemble.{i}.resize.kernel",
+                                    f"head.reassemble.{i}.resize.kernel",
+                                    f"head.reassemble.resize.{i}.kernel"))
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -64,7 +68,7 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             continue
         a = np.array(leaf, dtype=np.float32)  # a writable copy
         if name == "kernel":
-            if path in _CONV_TRANSPOSE:
+            if path.endswith(_CONV_TRANSPOSE):
                 pass                               # (C, O, f, f) on both sides
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)        # HWIO → OIHW

@@ -421,3 +421,73 @@ def test_vda_streams_on_the_card_like_the_cpu(dev):
     for c, r in zip(carry, carry_r):
         assert c.shape == r.shape and c.shape[2] == 31 and c.dtype == torch.bfloat16
         assert torch.isfinite(c).all()
+
+
+def test_attention_kernel_on_rope_qk_and_strided_v(dev):
+    """DA3's inputs to K2: q and k through the per-head LayerNorm and the 2D
+    RoPE rotation (fresh contiguous bf16 tensors), v still a strided view of
+    the qkv product, at DA3-LARGE's 721 tokens."""
+    import torch.nn.functional as F
+
+    from desktop2stereo_tpu_torch.models import da3
+
+    B, N, H = 1, 721, 16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qkv = torch.randn(B, N, 3 * H * 64, generator=gen, device=dev).bfloat16()
+    q, k, v = (t.unflatten(-1, (H, 64)) for t in qkv.split(H * 64, dim=-1))
+    cos, sin = da3._rope(64, 20, 36, 1, True, dev, torch.bfloat16)
+    q = da3._apply_rope(F.layer_norm(q, (64,), eps=1e-5), cos, sin)
+    k = da3._apply_rope(F.layer_norm(k, (64,), eps=1e-5), cos, sin)
+    assert q.is_contiguous() and k.is_contiguous() and not v.is_contiguous()
+    before = K2.KERNEL.launches
+    got = K2.attention(q, k, v)
+    assert K2.KERNEL.launches == before + 1
+    want = K2.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def test_tiny_da3_on_the_card_like_the_cpu(dev):
+    """DA3-SMALL and DA3MONO-LARGE from one seed through ProgramCache, two
+    frames each: the card in bf16 with its kernels (12 or 24 K2 and one K1 a
+    frame) against the CPU in f32 with the plain versions, held to
+    chip_smoke.py's reference thresholds.  The mono frame's depth is mostly
+    the sky fill on random weights, so its raw depth over the CPU's non-sky
+    pixels (normalised as the metric post does) and its sky mask are held
+    too."""
+    from desktop2stereo_tpu_torch.models import da3
+    from desktop2stereo_tpu_torch.models.factory import build_bound
+    from desktop2stereo_tpu_torch.ops.depth_post import normalize_depth
+    from desktop2stereo_tpu_torch.pipeline import programs as P
+
+    for name, layers in (("DA3-SMALL", 12), ("DA3MONO-LARGE", 24)):
+        card, spec = build_bound(name, device=dev, seed=0)
+        cpu, _ = build_bound(name, device="cpu", seed=0)
+        cfg = P.ProgramConfig(model_name=name, depth_resolution=182, output_height=216,
+                              display_mode="Half-SBS", ipd=0.064, depth_strength=2.0,
+                              convergence=0.0, foreground_scale=0.0, aa_strength=2.0,
+                              ema_alpha=0.9, temporal_smooth=True, quality="high",
+                              emit_depth="model")
+        card_prog = P.ProgramCache(cfg, card, spec, compute_dtype=torch.bfloat16)
+        cpu_prog = P.ProgramCache(cfg, cpu, spec, compute_dtype=torch.float32)
+        k2, k1 = K2.KERNEL.launches, K1.KERNEL.launches
+        for frame in _moving_frames(2, 216, 384, seed=2):
+            sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
+            sbs_r, depth_r = cpu_prog(frame)
+            assert sbs_c.shape == sbs_r.shape == (216, 384, 3) and torch.isfinite(depth_c).all()
+            s_err = (sbs_c.int() - sbs_r.int()).abs().float()
+            assert (depth_c - depth_r).abs().mean().item() <= 0.03, name
+            assert s_err.mean().item() <= 3.0 and (s_err > 32).float().mean().item() <= 0.03
+        assert K2.KERNEL.launches - k2 == 2 * layers and K1.KERNEL.launches - k1 == 2
+        if name == "DA3MONO-LARGE":
+            _, model_in = cpu_prog.program.preprocess(torch.from_numpy(frame))
+            with torch.inference_mode():
+                c = card.predict(model_in.to(dev, torch.bfloat16), ("depth", "sky"))
+                r = cpu.predict(model_in, ("depth", "sky"))
+            dc, sc = c["depth"].float().cpu()[0, 0], c["sky"].float().cpu()[0, 0]
+            dr, non_sky = r["depth"][0, 0], r["sky"][0, 0] < da3.SKY_THRESHOLD
+            assert non_sky.any() and torch.isfinite(dc).all()
+            err = (normalize_depth(torch.where(non_sky, dc, 0.0), metric=True)
+                   - normalize_depth(torch.where(non_sky, dr, 0.0), metric=True)).abs()[non_sky]
+            assert err.mean().item() <= 0.03
+            assert ((sc < da3.SKY_THRESHOLD) != non_sky).float().mean().item() <= 0.03
