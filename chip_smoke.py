@@ -91,7 +91,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     23 holds DA3-LARGE and DA3MONO-LARGE card bf16 against CPU f32 on a
     small frame, and DA3MONO-LARGE's raw depth (over the non-sky pixels)
     and sky mask as well, since the sky fill covers most of its frame on
-    random weights.
+    random weights;
+27. remote topology, Half-SBS: `cli.run --source tcp:0 --sink xr --port 0
+    --xr-no-input` on the phase-16 settings file for CLI_SECONDS, fed by a
+    capture agent in a thread (the port's TcpFrameSender connection
+    streaming seeded 4K BGRA frames over loopback, each packed beforehand:
+    zlib-compressed noisy synthetic frames, the worst case for zlib, then
+    zlib-compressed desktop-like frames, then the synthetic ones raw) and
+    polled by the port's FrameNetClient in a process of its own: exit 0; 24
+    K2 and one K1 a frame; the client's frames [2160, 3840, 3] u8 with depth
+    [294, 518] f32 in [0, 1], each (rgb, depth) pair one the engine pushed
+    into the sink (CRC-32 of the rgb and of the zu16 depth on both sides);
+    the source's received / delivered / dropped add up and every delivered
+    frame is one the agent sent (CRC-32 taken at the source, before the
+    program); ingest fps, engine and client frames/s, bytes a frame, the
+    wire ratio and the host's zlib decode ms of each frame set;
+28. the same with `--display-mode Mono`, raw: the generic tail, one K1
+    (eyes mode: both eyes in one pass, the left one kept) a frame;
+29. `--sink rtmp --out rtmp://127.0.0.1/live/d2s` with a fake ffmpeg first on
+    PATH: its argv equals the run's sink's `ffmpeg_argv` (held against the
+    JAX sink's by the CPU tests) and its stdin took exactly the pushed
+    Half-SBS frames' bytes;
+30. the web control panel (`service.control.serve(port=0)` in a thread):
+    POST /start spawns the port's CLI on the card (synthetic source, null
+    sink), /status and /logs are polled until its stats line shows frames,
+    POST /stop ends it with exit 0 within the grace period.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -103,8 +127,9 @@ goes to chiprun_out/chip_smoke.json, and the traces to
 chiprun_out/trace_flagship.json, trace_int8.json,
 trace_flagship_pageable.json, trace_vda.json, trace_da3.json and
 trace_da3_full_outputs.json.  Each kernels entry's `launches_by_path` holds
-each path's count from its own run (the flagship's and DA3-LARGE's; int8:
-both int8 paths), and `launches` their sum.
+each path's count from its own run (the flagship's, DA3-LARGE's and the
+remote Half-SBS run's; K1 eyes: generic high and remote Mono; int8: both
+int8 paths), and `launches` their sum.
 """
 
 from __future__ import annotations
@@ -554,8 +579,9 @@ class CliRun:
     launch counts when it started (after the warm-up and the preload of the
     shape probe).  The counts are set to 0 just before the run."""
 
-    def __init__(self, counters) -> None:
+    def __init__(self, counters, on_parts=None) -> None:
         self.counters = counters
+        self.on_parts = on_parts  # called with the parts as soon as they are made
         self.parts = None
         self.engine = None
         self.warm_counts = None
@@ -569,6 +595,8 @@ class CliRun:
 
         def recording_make_components(args, settings):
             run.parts = make_components(args, settings)
+            if run.on_parts is not None:
+                run.on_parts(run.parts)
             return run.parts
 
         class RecordingEngine(engine_cls):
@@ -739,6 +767,489 @@ def cli_crop(np, torch, counters, layers, card, out_dir):
                 card_stats=card_stats.tolist(), cpu_stats=cpu_stats.tolist(),
                 frames_run=eng.frames, delivered=sink.frames, shape=list(sink.last_shape),
                 launches=launches)
+
+
+# ---- 27-30: the remote topology ---------------------------------------------
+
+REMOTE_DISTINCT = 4      # seeded 4K frames the capture agent cycles through
+RTMP_URL = "rtmp://127.0.0.1/live/d2s"
+MODEL_SHAPE = (294, 518)  # DA-V2-Large's input for a 4K capture at 518
+CONTROL_S = 600.0         # bound on the control panel's worker reaching its first stats line
+
+
+# The XR client, in a process of its own as on the headset's workstation:
+# polls the xr sink (raw rgb, zu16 depth) until the stop file exists, then
+# prints what it received as one JSON line
+XR_CLIENT = r"""
+import json, os, sys, time, zlib
+from concurrent.futures import ThreadPoolExecutor
+sys.path.insert(0, sys.argv[1])
+from desktop2stereo_tpu_torch.xr.net import FrameNetClient, _encode_depth
+client = FrameNetClient(port=int(sys.argv[2]))
+pool = ThreadPoolExecutor(2)  # the rgb's CRC-32 off the poll loop (each packet is a fresh array)
+seen, t0, t1 = [], None, None
+try:
+    while not os.path.exists(sys.argv[3]):
+        p = client.poll(timeout=0.5)
+        if p is None:
+            continue
+        t1 = time.perf_counter()
+        t0 = t0 or t1
+        d = p.depth
+        zd = _encode_depth(d)
+        seen.append([list(p.rgb.shape), str(p.rgb.dtype), p.rgb.nbytes, len(zd),
+                     list(d.shape), str(d.dtype), float(d.min()), float(d.max()),
+                     pool.submit(zlib.crc32, p.rgb), zlib.crc32(zd)])
+except (ConnectionError, OSError):
+    pass  # the sink went away at the end of the run
+client.close()
+pool.shutdown()
+for s in seen:
+    s[8] = s[8].result()
+print(json.dumps({"seen": seen, "s": (t1 - t0) if seen else 0.0}))
+"""
+
+
+class RemoteFeed:
+    """A capture agent and an XR client around one in-process `cli.run`.
+
+    Once the CLI has made its parts, a thread connects the port's
+    TcpFrameSender to the tcp source's bound port and streams REMOTE_DISTINCT
+    seeded 4K BGRA frames in a cycle, each packed once (`_pack`: raw, or
+    zlib-compressed as `--compress zlib` does) and written as fast as
+    loopback takes it, until the run ends; the agent's compression is left
+    out of the rate (a desktop does it on its own cores).  The source's
+    `grab` is wrapped to hand each delivered frame to a thread that takes
+    its CRC-32 (the frames are fresh arrays the program only reads) for the
+    check after the run.  With an xr sink, XR_CLIENT runs in a subprocess,
+    and the sink's `push` is wrapped to take the CRC-32 of each pushed SBS
+    frame and of its depth as the wire carries it (`_encode_depth`) before
+    the sink has it, so each frame the client received can be matched to a
+    pushed one."""
+
+    def __init__(self, packets, client: bool, out_dir):
+        import queue
+        import threading
+
+        self.packets, self.client = packets, client
+        self.stop = threading.Event()
+        self.stop_file = out_dir / "xr_client.stop"
+        self.crcs, self.ingest_fps, self.client_out = [], [], None
+        self.pushed, self.push_crc_s = set(), 0.0
+        self.sent, self.sent_s = 0, 0.0
+        self.source = self.sink = self.proc = None
+        self.threads = []
+        self._delivered = queue.SimpleQueue()
+
+    def on_parts(self, parts):
+        import threading
+
+        self.source, _, self.sink, _ = parts
+        grab = self.source.grab
+
+        def kept_grab():
+            frame = grab()
+            if frame is not None:
+                self._delivered.put(frame)
+                self.ingest_fps.append(self.source.stats()["ingest_fps"])
+            return frame
+
+        self.source.grab = kept_grab
+        if self.client:
+            self._hash_pushes()
+        self.threads = [threading.Thread(target=t, daemon=True)
+                        for t in (self._hasher, self._agent)]
+        for t in self.threads:
+            t.start()
+        if self.client:
+            if self.stop_file.exists():
+                self.stop_file.unlink()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", XR_CLIENT, str(ROOT), str(self.sink.port),
+                 str(self.stop_file)], stdout=subprocess.PIPE, text=True)
+
+    def _hash_pushes(self):
+        import zlib
+
+        import numpy as np
+
+        from desktop2stereo_tpu_torch.xr.net import _encode_depth
+
+        push = self.sink.push
+
+        def hashed_push(sbs, depth, stats):
+            t0 = time.perf_counter()
+            self.pushed.add((zlib.crc32(np.ascontiguousarray(sbs)),
+                             zlib.crc32(_encode_depth(depth))))
+            self.push_crc_s += time.perf_counter() - t0
+            push(sbs, depth, stats)
+
+        self.sink.push = hashed_push
+
+    def _hasher(self):
+        import zlib
+
+        while True:
+            frame = self._delivered.get()
+            if frame is None:
+                return
+            self.crcs.append(zlib.crc32(frame))  # releases the GIL on a frame
+
+    def _agent(self):
+        from desktop2stereo_tpu_torch.sources.net import TcpFrameSender
+
+        snd = TcpFrameSender("127.0.0.1", self.source.port)
+        t0 = time.perf_counter()
+        try:
+            while not self.stop.is_set():
+                snd.sock.sendall(self.packets[self.sent % len(self.packets)])
+                self.sent += 1
+                self.sent_s = time.perf_counter() - t0
+        except OSError:
+            pass  # the source closed at the end of the run
+        finally:
+            snd.close()
+
+    def finish(self):
+        self.stop.set()
+        self._delivered.put(None)
+        if self.proc is not None:
+            self.stop_file.touch()
+            out, _ = self.proc.communicate(timeout=60)
+            if self.proc.returncode != 0:
+                raise AssertionError(f"the XR client exited {self.proc.returncode}")
+            self.client_out = json.loads(out.strip().splitlines()[-1])
+        for t in self.threads:
+            t.join(60)
+            if t.is_alive():
+                raise AssertionError(f"remote feed: thread {t.name} did not end")
+
+
+def remote_packets(frames, compress: str):
+    """The agent's frames, each packed once as TcpFrameSender sends it (in
+    parallel: zlib releases the GIL), their CRC-32s, and the ms it took."""
+    import socket
+    import zlib
+
+    from desktop2stereo_tpu_torch.sources.net import TcpFrameSender
+
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    snd = TcpFrameSender("127.0.0.1", lst.getsockname()[1], compress=compress)
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(frames)) as pool:
+            packets = list(pool.map(snd._pack, frames))
+        pack_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        snd.close()
+        lst.close()
+    return packets, {zlib.crc32(f) for f in frames}, pack_ms
+
+
+def zlib_decode_ms(packet) -> float:
+    """The host's ms to inflate one zlib 4K frame at the source (median of 5)."""
+    from desktop2stereo_tpu_torch.sources.net import _FRAME_HDR, _decode_payload
+
+    _, w, h, c, flags, _ = _FRAME_HDR.unpack(packet[:_FRAME_HDR.size])
+    payload = packet[_FRAME_HDR.size:]
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _decode_payload(payload, w, h, c, flags)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def remote_run(counters, layers, card, out_dir, name, packets, crcs, sink_argv,
+               mode="Half-SBS", client=True, on_parts=None):
+    """One `cli.run --source tcp:0` on the flagship settings file for
+    CLI_SECONDS (`--duration`: a steady stream, as phase 16a times the
+    CLI), fed by a RemoteFeed; checks the exit code, the launches (24 K2 and
+    one K1 a frame), the source's stats, and that every delivered frame is
+    one the agent sent (by CRC-32).  Returns (measurements, CliRun,
+    RemoteFeed)."""
+    feed = RemoteFeed(packets, client, out_dir)
+
+    def parts(p):
+        feed.on_parts(p)
+        if on_parts is not None:
+            on_parts(p)
+
+    run = CliRun(counters, on_parts=parts)
+    try:
+        rc = run(["--settings", str(cli_settings(out_dir)), "--source", "tcp:0",
+                  "--display-mode", mode, "--duration", str(CLI_SECONDS), *sink_argv,
+                  "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
+    finally:
+        feed.finish()
+    eng = run.engine
+    st = feed.source.stats()
+    bad = sum(c not in crcs for c in feed.crcs)
+    fps = eng.frames / run.wall_s
+    readings = [v for v in feed.ingest_fps if v > 0]
+    out = dict(rc=rc, frames_run=eng.frames, dropped=eng.dropped, engine_fps=fps,
+               sent=feed.sent, received=st["frames_received"],
+               delivered=st["frames_delivered"], net_dropped=st["frames_dropped"],
+               decode_errors=st["decode_errors"], not_sent=bad,
+               ingest_fps=statistics.median(readings) if readings else 0.0,
+               received_per_s=st["frames_received"] / feed.sent_s if feed.sent_s else 0.0,
+               wall_s=run.wall_s)
+    ok = (rc == 0 and st["decode_errors"] == 0 and bad == 0
+          and st["frames_delivered"] == len(feed.crcs)
+          and st["frames_received"] == st["frames_delivered"] + st["frames_dropped"]
+          and st["frames_delivered"] <= st["frames_received"] <= feed.sent
+          and 1 <= eng.frames <= st["frames_delivered"])
+    log(f"[remote] {name}: cli --source tcp:0 --display-mode {mode} {' '.join(sink_argv)} "
+        f"--duration {CLI_SECONDS}: exit {rc}; the agent sent {feed.sent} 4K BGRA frames in "
+        f"{feed.sent_s:.2f} s; the source received {st['frames_received']}, delivered "
+        f"{st['frames_delivered']}, dropped {st['frames_dropped']}, decode errors "
+        f"{st['decode_errors']}; {bad} delivered frames not among the sent ones (CRC-32); "
+        f"ingest fps {out['ingest_fps']:.2f} (the source's stats, median of its readings at "
+        f"each delivery), {out['received_per_s']:.2f} frames received a second of sending; "
+        f"engine {eng.frames} frames run ({eng.dropped} superseded), {fps:.2f} frames/s over "
+        f"{run.wall_s:.2f} s; {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError(f"remote {name}: exit code, ingest stats or frames off")
+    out["launches"] = run.check_launches(f"remote {name}", layers, CLI_WARM_FRAMES)
+    return out, run, feed
+
+
+def remote_client_check(feed, name, want_rgb, card):
+    """The XR client's frames: the frame's shape in u8, the depth at the
+    model's resolution in f32 within [0, 1], and each (rgb, depth) pair, by
+    CRC-32, one the engine pushed into the sink; its frames/s and bytes a
+    frame."""
+    seen, secs = feed.client_out["seen"], feed.client_out["s"]
+    not_pushed = sum((p[8], p[9]) not in feed.pushed for p in seen)
+    ok = bool(seen) and not_pushed == 0 and all(
+        tuple(rgb_shape) == want_rgb and rgb_dtype == "uint8" and tuple(d_shape) == MODEL_SHAPE
+        and d_dtype == "float32" and 0.0 <= d_min <= d_max <= 1.0
+        for rgb_shape, rgb_dtype, _, _, d_shape, d_dtype, d_min, d_max, _, _ in seen)
+    crc_ms = feed.push_crc_s * 1e3 / len(feed.pushed) if feed.pushed else 0.0
+    fps = (len(seen) - 1) / secs if len(seen) > 1 and secs else 0.0
+    rgb_b = statistics.median(p[2] for p in seen) if seen else 0
+    dep_b = statistics.median(p[3] for p in seen) if seen else 0
+    lo = min((p[6] for p in seen), default=None)
+    hi = max((p[7] for p in seen), default=None)
+    log(f"[remote] {name} XR client (the port's FrameNetClient in a process of its own, raw "
+        f"rgb, zu16 depth): {len(seen)} frames, {fps:.2f} frames/s (first to last), rgb "
+        f"{rgb_b} bytes and depth {dep_b} bytes a frame (median); the first frame "
+        f"{seen[0][:2] if seen else None}, depth {seen[0][4:6] if seen else None} in "
+        f"[{lo}, {hi}] (want {list(want_rgb)} uint8, depth {list(MODEL_SHAPE)} float32 in "
+        f"[0, 1]); {not_pushed} of its frames not among the {len(feed.pushed)} pushed ones "
+        f"(CRC-32 of the rgb and the zu16 depth; {crc_ms:.2f} ms a push on the sink thread) "
+        f"{'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError(f"remote {name}: the XR client's frames are off")
+    return dict(frames=len(seen), fps=fps, rgb_bytes=rgb_b, depth_bytes=dep_b,
+                not_pushed=not_pushed, pushed=len(feed.pushed), push_crc_ms=crc_ms)
+
+
+def desktop_frames(np, count: int, h: int, w: int, seed: int):
+    """Seeded BGRA frames that look like a desktop: a flat wallpaper and
+    taskbar, windows with flat title bars and borders, and lines of text
+    drawn from a seeded 64-glyph font (8x14 cells), light and dark themes;
+    each frame moves the windows and scrolls their text."""
+    rng = np.random.default_rng(seed)
+    glyphs = (rng.random((64, 14, 8)) < 0.3)
+    glyphs[:, :2] = glyphs[:, 12:] = glyphs[:, :, 7] = False  # line gap and letter gap
+    glyphs[0] = False  # the space
+    lines, cols = 60, 200
+    text = rng.integers(1, 64, (lines + count * 2, cols))
+    text[rng.random(text.shape) < 0.18] = 0
+    windows = [((0.08, 0.06, 0.42, 0.55), (235, 235, 235), (30, 30, 30), (190, 120, 40)),
+               ((0.30, 0.38, 0.48, 0.50), (35, 30, 30), (200, 210, 210), (90, 90, 90)),
+               ((0.58, 0.10, 0.38, 0.42), (250, 250, 250), (60, 60, 60), (140, 80, 200))]
+    frames = []
+    for t in range(count):
+        bgra = np.empty((h, w, 4), np.uint8)
+        bgra[...] = (120, 80, 30, 255)  # wallpaper
+        bgra[h - h // 27:] = (40, 40, 40, 255)  # taskbar
+        for i, ((y, x, hh, ww), bg, fg, bar) in enumerate(windows):
+            y0, x0 = int(y * h) + 23 * t * (i - 1), int(x * w) + 41 * t * (1 - i)
+            wh, ww = int(hh * h), int(ww * w)
+            y0, x0 = min(max(y0, 0), h - wh - 1), min(max(x0, 0), w - ww - 1)
+            bgra[y0:y0 + wh, x0:x0 + ww, :3] = (128, 128, 128)  # border
+            bgra[y0 + 1:y0 + 31, x0 + 1:x0 + ww - 1, :3] = bar
+            area = bgra[y0 + 31:y0 + wh - 1, x0 + 1:x0 + ww - 1, :3]
+            area[...] = bg
+            rows, cs = min(area.shape[0] // 14, lines), min(area.shape[1] // 8 - 2, cols)
+            ink = glyphs[text[2 * t + i:2 * t + i + rows, :cs]]  # [rows, cs, 14, 8]
+            ink = ink.transpose(0, 2, 1, 3).reshape(rows * 14, cs * 8)
+            area[:rows * 14, 8:8 + cs * 8][ink] = fg
+        frames.append(bgra)
+    return frames
+
+
+def remote_phases(np, counters, layers, card, out_dir):
+    """27-29: the remote topology through `cli.run` on the flagship
+    settings file (DA-V2-Large @518), fed over loopback by a capture agent:
+    zlib on the noisy synthetic frames (the worst case for zlib) and on
+    desktop-like ones, then raw."""
+    want_rgb = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    raw_bytes = FRAME_SHAPE[0] * FRAME_SHAPE[1] * 4
+    out = {}
+    xr = ["--sink", "xr", "--port", "0", "--xr-no-input"]
+    frames = synthetic_frames(np, REMOTE_DISTINCT, *FRAME_SHAPE[:2], seed=SEED + 27)
+    desktop = desktop_frames(np, REMOTE_DISTINCT, *FRAME_SHAPE[:2], seed=SEED + 27)
+    runs = (("xr_zlib", frames, "zlib"),
+            ("xr_zlib_desktop", desktop, "zlib"), ("xr_raw", frames, "none"))
+    for name, feed_frames, compress in runs:  # 27: Half-SBS into the xr sink
+        packets, crcs, pack_ms = remote_packets(feed_frames, compress)
+        res, _, feed = remote_run(counters, layers, card, out_dir, name, packets, crcs, xr)
+        res["client"] = remote_client_check(feed, name, want_rgb, card)
+        res["wire_bytes"] = statistics.median(len(p) for p in packets)
+        res["pack_ms"] = pack_ms / len(packets)
+        if compress == "zlib":
+            res["zlib_decode_ms"] = zlib_decode_ms(packets[0])
+            log(f"[remote] {name}: {res['wire_bytes']} wire bytes a 4K BGRA frame "
+                f"({res['wire_bytes'] / raw_bytes:.4f} of raw); compress {res['pack_ms']:.1f} ms "
+                f"a frame (the agent's side, {len(packets)} in parallel), decode at the source "
+                f"{res['zlib_decode_ms']:.1f} ms a frame (median of 5); {card}")
+        out[name] = res
+        del feed
+
+    # 28: Mono, raw: the generic tail, whose stereo stage computes both eyes
+    # in one K1 pass (eyes mode) and keeps the left one
+    res, _, feed = remote_run(counters, layers, card, out_dir, "xr_mono", packets, crcs, xr,
+                              mode="Mono")
+    res["client"] = remote_client_check(feed, "xr_mono", want_rgb, card)
+    out["xr_mono"] = res
+    del feed
+
+    # 29: the rtmp sink into a fake ffmpeg first on PATH
+    out["rtmp"] = rtmp_phase(counters, layers, card, out_dir, packets, crcs)
+    return out
+
+
+def rtmp_phase(counters, layers, card, out_dir, packets, crcs):
+    """29. The rtmp sink into a fake ffmpeg first on PATH: its argv and the
+    bytes on its stdin."""
+    import os
+
+    fake = out_dir / "fake_ffmpeg"
+    if fake.exists():
+        for f in fake.iterdir():
+            f.unlink()
+    fake.mkdir(exist_ok=True)
+    ffmpeg = fake / "ffmpeg"
+    # ignores SIGTERM (the sink terminates it right after closing its stdin)
+    ffmpeg.write_text(f"#!/bin/sh\ntrap '' TERM\nprintf '%s\\n' \"$0\" \"$@\" > \"{fake}/$$.argv\"\n"
+                      f"wc -c > \"{fake}/$$.tmp\" && mv \"{fake}/$$.tmp\" \"{fake}/$$.bytes\"\n")
+    ffmpeg.chmod(0o755)
+    pushed = {"n": 0}
+
+    def count_pushes(parts):
+        sink = pushed["sink"] = parts[2]
+        push = sink.push
+
+        def counted(*a):
+            push(*a)
+            pushed["n"] += 1
+
+        sink.push = counted
+
+    path = os.environ["PATH"]
+    os.environ["PATH"] = f"{fake}{os.pathsep}{path}"
+    try:
+        res, _, _ = remote_run(counters, layers, card, out_dir, "rtmp", packets, crcs,
+                                 ["--sink", "rtmp", "--out", RTMP_URL], client=False,
+                                 on_parts=count_pushes)
+    finally:
+        os.environ["PATH"] = path
+    deadline = time.monotonic() + 60
+    while not list(fake.glob("*.bytes")) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    argvs = sorted(fake.glob("*.argv"))
+    counts = [int(f.read_text()) for f in sorted(fake.glob("*.bytes"))]
+    want = pushed["sink"].ffmpeg_argv(*FRAME_SHAPE[:2])
+    got = argvs[0].read_text().splitlines() if argvs else None
+    frame_bytes = FRAME_SHAPE[0] * FRAME_SHAPE[1] * 3
+    ok = len(argvs) == 1 and counts == [pushed["n"] * frame_bytes] and pushed["n"] >= 1 \
+        and got == want
+    log(f"[remote] rtmp: ffmpeg started {len(argvs)} time(s) with argv {got} (want {want}); "
+        f"{counts} bytes on its stdin for {pushed['n']} pushed frames of {frame_bytes} bytes "
+        f"(Half-SBS 2160x3840 rgb24) {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("remote rtmp: the ffmpeg argv or the bytes on its stdin are off")
+    res.update(argv=got, stdin_bytes=counts, pushed=pushed["n"])
+    return res
+
+
+def control_phase(card, out_dir):
+    """30. The web control panel in a thread of this process: POST /start
+    with the synthetic source and the null sink spawns the port's CLI on the
+    card (DA-V2-Large @518); /status and /logs are polled until the worker's
+    stats line shows frames; POST /stop ends it through the stop file, and
+    it exits 0 within the grace period."""
+    import os
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    from desktop2stereo_tpu_torch.service import control
+
+    work = out_dir / "control"
+    work.mkdir(exist_ok=True)
+    cwd, pythonpath = os.getcwd(), os.environ.get("PYTHONPATH")
+    os.chdir(work)  # the panel keeps its log, stop file and settings here
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), pythonpath) if p)
+    server = control.serve(port=0, settings_path=str(work / "settings.yaml"))
+    manager = server.manager
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=60).read()
+
+    def post(path, fields):
+        urllib.request.urlopen(urllib.request.Request(
+            url + path, data=urllib.parse.urlencode(fields).encode()), timeout=60).read()
+
+    try:
+        t0 = time.perf_counter()
+        post("/start", {"source": "synthetic", "sink": "null", "model": FLAGSHIP_MODEL,
+                        "depth_resolution": "518", "output_resolution": "1080",
+                        "display_mode": "Half-SBS", "fps": "1000"})
+        status = {}
+        while not status.get("stats", {}).get("fps"):
+            if time.perf_counter() - t0 > CONTROL_S or not manager.running:
+                raise AssertionError("control: the worker showed no frames:\n"
+                                     + get("/logs").decode(errors="replace")[-4000:])
+            time.sleep(0.25)
+            status = json.loads(get("/status"))
+        first_s = time.perf_counter() - t0
+        logs = get("/logs").decode(errors="replace")
+        t1 = time.perf_counter()
+        post("/stop", {})
+        rc = manager.proc.wait(60)
+        stop_s = time.perf_counter() - t1
+    finally:
+        if manager.running:
+            manager.proc.kill()
+            manager.proc.wait(60)
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        os.chdir(cwd)
+        if pythonpath is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = pythonpath
+    tail = (work / "logs" / "worker.log").read_text(errors="replace")
+    ok = (rc == 0 and "device: cuda" in logs and "stop.request received" in tail
+          and stop_s < 8.5 and status["stats"]["fps"] > 0)
+    log(f"[control] POST /start (synthetic 1080x1920, null sink, DA-V2-Large @518): the worker "
+        f"(pid {status['pid']}) showed {status['stats']} in /status {first_s:.2f} s after the "
+        f"POST (stats every 2 s); POST /stop: exit {rc} in {stop_s:.2f} s (grace 8 s: the stop "
+        f"file, then SIGINT at 4 s) {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("control: the worker did not run on the card or stop cleanly:\n"
+                             + tail[-4000:])
+    return dict(spawn_to_stats_s=first_s, stats=status["stats"], rc=rc, stop_s=stop_s)
 
 
 VDA_MODEL = "Video-Depth-Anything-Large"
@@ -1864,6 +2375,16 @@ def main() -> int:
     report["da3"] = da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths,
                                frames, counters, policy, dev, card, out_dir)
 
+    # -- 27-29. the remote topology; 30. the control panel ----------------------
+    report["remote"] = remote_phases(np, counters, layers, card, out_dir)
+    for name in ("xr_raw", "xr_zlib", "xr_zlib_desktop", "xr_mono"):
+        r = report["remote"][name]
+        log(f"[remote] {name}: engine {r['engine_fps']:.2f} frames/s against the synthetic-source "
+            f"flagship's {paths['main']['engine_fps']:.2f} (phase 5) and the CLI's "
+            f"{report['cli']['flagship']['timed']['fps']:.2f} (phase 16a) in this call; ingest "
+            f"{r['ingest_fps']:.2f} fps; the XR client {r['client']['fps']:.2f} frames/s; {card}")
+    report["control"] = control_phase(card, out_dir)
+
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
         each read from its own run with the counts set to 0 before it)."""
@@ -1880,14 +2401,20 @@ def main() -> int:
     def launches(kernel, *names):
         return {n: paths[n]["launches"][kernel] for n in names}
 
+    def remote_launches(kernel, name):  # a remote CLI run's count, after its warm-up
+        return {f"remote_{name}": report["remote"][name]["launches"]["run"][kernel]}
+
     # each entry's launches: the slice's main path, and the DA3 path's beside it
     kernels = [
         entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_half", launches("dibr_pair", "main", "da3")),
+              "dibr_pair_half", {**launches("dibr_pair", "main", "da3"),
+                                 **remote_launches("dibr_pair", "xr_raw")}),
         entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_eyes", launches("dibr_pair", "generic_high")),
+              "dibr_pair_eyes", {**launches("dibr_pair", "generic_high"),
+                                 **remote_launches("dibr_pair", "xr_mono")}),
         entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention", launches("attention", "main", "da3")),
+              "attention", {**launches("attention", "main", "da3"),
+                            **remote_launches("attention", "xr_raw")}),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
               launches("warp", "generic_fast")),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",

@@ -4,6 +4,7 @@ the torch port.
     python -m desktop2stereo_tpu_torch.cli --source synthetic --sink null --frames 30
     python -m desktop2stereo_tpu_torch.cli --device cpu --source synthetic \\
         --size 64x112 --frames 2 --sink null --model Depth-Anything-V2-Small --depth-res 56
+    python -m desktop2stereo_tpu_torch.cli --source tcp:7800 --sink xr,mjpeg
 
 Port of `desktop2stereo_tpu/cli.py`, with its flags and behaviour: settings
 defaults from a reference settings.yaml, the sink-negotiated depth output,
@@ -21,9 +22,15 @@ local caches (`models/factory.py:find_checkpoint`) and otherwise draws
 seeded random weights.  `--model Video-Depth-Anything-*` streams, its
 temporal window carried from frame to frame; `--model DA3-*` runs the
 Depth-Anything-3 family (`--quant int8` exits naming the refusal for
-DA3NESTED-GIANT-LARGE, as the JAX CLI's factory refuses it).  What the port cannot do yet
-is refused by name: `--streams` > 1 and `--batched` (ROADMAP A6),
-`--profile-dir` (A10), the tcp source and the rtmp and xr sinks (A1b).
+DA3NESTED-GIANT-LARGE, as the JAX CLI's factory refuses it).
+
+The remote topology: `--source tcp[:PORT]` listens for a capture agent
+(`python -m desktop2stereo_tpu_torch.tools.capture_agent --connect
+HOST:PORT` on the desktop; the shared secret `D2S_INGEST_TOKEN` on both
+ends), `--sink xr` serves the frame and its model-resolution depth to XR
+clients on `--port` (1123 by default; 0 binds a free port), and `--sink
+rtmp` publishes through ffmpeg.  What the port cannot do yet is refused by
+name: `--streams` > 1 and `--batched` (ROADMAP A6), `--profile-dir` (A10).
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--settings", help="settings.yaml (reference-compatible)")
     p.add_argument("--model", help="model name from the registry")
     p.add_argument("--source", default=None,
-                   help="synthetic|image|video|screen|shm (tcp: ROADMAP A1b). "
+                   help="synthetic|image|video|screen|shm|tcp[:PORT]. "
+                        "tcp listens for a remote capture agent "
+                        "(tools.capture_agent --connect HOST:PORT). "
                         "default: screen when --settings is given (the "
                         "reference app's behavior), else synthetic")
     p.add_argument("--input", help="path for image/video sources, ring name for shm")
@@ -62,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rtmp sink: 'auto' (system audio if present), "
                         "'none', or an explicit pulse device name")
     p.add_argument("--sink", default=None,
-                   help="one of mjpeg|png|video|null|viewer|window (rtmp, xr: "
-                        "ROADMAP A1b), or a comma list to tee. default: "
+                   help="one of mjpeg|png|video|null|rtmp|viewer|window|xr, "
+                        "or a comma list to tee (e.g. xr,mjpeg). default: "
                         "derived from the settings 'Run Mode' when "
                         "--settings is given, else mjpeg")
     p.add_argument("--show-fps", action="store_true",
@@ -72,14 +81,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-eye edge feathering (the reference viewer's "
                         "KEY_B effect; toggle live with 'b' in the window "
                         "sink or GET /feather on the MJPEG sink)")
-    p.add_argument("--out", help="output path/dir for png/video sinks")
+    p.add_argument("--out", help="output path/dir for png/video sinks, URL for rtmp")
     p.add_argument("--frames", type=int, help="stop after N frames")
     p.add_argument("--duration", type=float, help="stop after N seconds")
     p.add_argument("--fps", type=float, help="capture pacing FPS")
     p.add_argument("--size", default="1080x1920", help="synthetic source HxW")
     p.add_argument("--depth-res", type=int, help="model input resolution")
     p.add_argument("--display-mode", help="Half-SBS/Full-SBS/.../Depth")
-    p.add_argument("--port", type=int, help="MJPEG port")
+    p.add_argument("--port", type=int, help="MJPEG port (xr: its port, 0 a free one)")
     p.add_argument("--xr-no-input", action="store_true",
                    help="xr sink: refuse OS-input injection from headset "
                         "clients (view-only host)")
@@ -240,6 +249,22 @@ def make_components(args, settings):
                   "monitor_index": args.monitor}
     elif args.source == "shm":
         src_kw = {"name": args.input or "/d2s_frames"}
+    elif args.source.split(":", 1)[0] == "tcp":
+        # network frame ingest from a remote desktop's capture agent; the
+        # optional shared secret rides D2S_INGEST_TOKEN
+        port = 7800
+        if ":" in args.source:
+            try:
+                port = int(args.source.split(":", 1)[1])
+            except ValueError:
+                port = -1
+            if not 0 <= port <= 65535:
+                raise SystemExit(f"--source {args.source!r}: expected tcp:<port 0-65535> "
+                                 f"(e.g. tcp:7800)")
+        # timeout None: a server waits for its agent indefinitely (agents
+        # restart, links drop for more than 30 s), unless the run is bounded
+        src_kw = {"port": port, "timeout": 30.0 if args.frames else None,
+                  "token": os.environ.get("D2S_INGEST_TOKEN")}
     elif args.source in ("image", "video"):
         if not args.input:
             raise SystemExit(f"--source {args.source} requires --input")
@@ -300,6 +325,26 @@ def _sink_kwargs(kind: str, args, settings) -> dict:
     if kind == "window":
         return {"keep_aspect": bool(settings.extra.get("Fix Viewer Aspect", False)),
                 "fill_16_9": settings.fill_16_9}
+    if kind == "rtmp":
+        # no --out: publish to a local mediamtx sidecar at the settings
+        # 'Stream Key' path (reference main.py:754, 987, 993-1017); CRF and
+        # Audio Delay ride the settings file too (main.py:522, 535)
+        key = str(settings.extra.get("Stream Key") or "live")
+        return {"url": args.out or f"rtmp://127.0.0.1:1935/{key}", "serve": not args.out,
+                "fps": settings.fps, "audio": args.audio,
+                "crf": int(settings.extra.get("CRF") or 20),
+                "audio_delay": float(settings.extra.get("Audio Delay") or 0.0)}
+    if kind == "xr":
+        # the settings-derived session config, so clients at default flags
+        # render with the file's stereo parameters
+        return {"port": 1123 if args.port is None else args.port,
+                "inject_input": not args.xr_no_input,
+                "meta": {"ipd": settings.ipd, "depth_strength": settings.depth_strength,
+                         "convergence": settings.convergence,
+                         "display_mode": settings.display_mode,
+                         "foreground_scale": settings.foreground_scale,
+                         "environment": settings.extra.get("Environment Model"),
+                         "controller": settings.extra.get("Controller Model")}}
     return {}
 
 
@@ -406,8 +451,13 @@ def run(args=None) -> int:
             if args.stats_every and now - last_stats >= args.stats_every:
                 s = engine.stats()
                 lat = ", ".join(f"{k}={v * 1000:.1f}ms" for k, v in s["latency"].items())
+                net = ""
+                if hasattr(source, "stats"):  # the tcp ingest's fps and drops
+                    ns = source.stats()
+                    net = (f" ingest={ns['ingest_fps']:.1f}fps "
+                           f"net_dropped={ns['frames_dropped']}")
                 print(f"[d2s] fps={s['fps']:.1f} (1%low={s['fps_1pct_low']:.1f}) "
-                      f"dropped={s['dropped']} {lat}")
+                      f"dropped={s['dropped']} {lat}{net}")
                 last_stats = now
             time.sleep(0.05)
     finally:

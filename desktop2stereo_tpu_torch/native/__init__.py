@@ -1,8 +1,7 @@
 """ctypes bindings for the native host runtime (the repository's
 `native/d2s_native.cpp`).
 
-Port of `desktop2stereo_tpu/native/__init__.py` for the classes the port's
-sources use:
+Port of `desktop2stereo_tpu/native/__init__.py`:
 
 - ShmFrameRing: a seqlocked latest-frame-wins ring in POSIX shared memory
   (the host-IPC analog of the reference's PBO/pinned DMA rings, reference
@@ -12,6 +11,9 @@ sources use:
 - X11Capture: Linux screen grab through a dlopen'd libX11, with XFixes
   cursor snapshots and window lookup (reference capture.py:249-491).
 - FramePacer: absolute-deadline pacing through clock_nanosleep.
+
+The XR sink's input injectors (`xr/injector.py`) call the XTest
+(`d2s_input_*`) and uinput touch (`d2s_touch_*`) entry points directly.
 
 The library is built with g++ at first use into
 `desktop2stereo_tpu_torch/_build/`, named by a hash of the source and the
@@ -28,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -58,10 +60,21 @@ SIGNATURES = {
     "d2s_x11_grab_rect": (_I, [_P, _P, _I, _I, _I, _I]),
     "d2s_x11_find_window": (_U64, [_P, ctypes.c_char_p]),
     "d2s_x11_window_rect": (_I, [_P, _U64, _PI, _PI, _PI, _PI]),
+    "d2s_x11_list_windows": (_U32, [_P, ctypes.c_char_p, _U32]),
     "d2s_x11_cursor": (_I, [_P, _P, _U32, _PI, _PI, _PI, _PI, _PI, _PI]),
     "d2s_x11_close": (None, [_P]),
     "d2s_now_ns": (_U64, []),
     "d2s_pace": (_U32, [ctypes.POINTER(ctypes.c_uint64), _U64]),
+    "d2s_input_open": (_P, [ctypes.c_char_p]),
+    "d2s_input_screen_size": (None, [_P, _PI, _PI]),
+    "d2s_input_move": (_I, [_P, _I, _I]),
+    "d2s_input_button": (_I, [_P, _I, _I]),
+    "d2s_input_key": (_I, [_P, _U32, _I]),
+    "d2s_input_close": (None, [_P]),
+    "d2s_touch_open": (_P, [_I, _I]),
+    "d2s_touch_point": (_I, [_P, _I, _I, _I, _I]),
+    "d2s_touch_frame": (_I, [_P]),
+    "d2s_touch_close": (None, [_P]),
 }
 
 
@@ -199,6 +212,16 @@ class X11Capture:
         """Case-insensitive title-substring window search; 0 = not found
         (the reference's window-title mode, reference capture.py:39-247)."""
         return int(self._lib.d2s_x11_find_window(self._h, title_substr.encode()))
+
+    def list_windows(self) -> List[str]:
+        """Titles of viewable top-level windows (_NET_CLIENT_LIST, tree-walk
+        fallback), each once, in order: the control panel's capture dropdown
+        (reference gui.py:376-470)."""
+        buf = ctypes.create_string_buffer(64 * 1024)
+        if not self._lib.d2s_x11_list_windows(self._h, buf, len(buf)):
+            return []
+        titles = buf.value.decode("utf-8", "replace").split("\n")
+        return list(dict.fromkeys(t for t in titles if t))
 
     def window_rect(self, window: int) -> Optional[Tuple[int, int, int, int]]:
         """(x, y, w, h) of a window in root coordinates, or None."""

@@ -169,7 +169,10 @@ class FrameEngine:
         """Upload, run, and enqueue the output copies; returns what
         `_finish` waits on."""
         if self._staging is None:
-            sbs, depth = self.program(torch.from_numpy(np.ascontiguousarray(frame)))
+            # a source may hand out a read-only view (the TCP source's frames
+            # are its received bytes), which torch.from_numpy does not take
+            frame = np.require(frame, requirements="CW")
+            sbs, depth = self.program(torch.from_numpy(frame))
             return sbs, depth if self.wants_depth else None, None
         with torch.inference_mode():
             sbs, depth = self.program(self._staging.upload(frame))

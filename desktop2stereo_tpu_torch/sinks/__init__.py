@@ -3,10 +3,10 @@
 Port of `desktop2stereo_tpu/sinks/`.  Every sink has `push(sbs_u8, depth,
 stats)` (the reference's `StereoWindow.update_frame`, reference
 viewer.py:2359) and says with `wants_depth` whether `FrameEngine` should copy
-the depth back.  The null and tee sinks need nothing beyond numpy; png
-imports PIL, and mjpeg, viewer, video and window import cv2, each when it is
-made or first writes.  The RTMP and XR sinks are not ported yet (ROADMAP
-A1b).
+the depth back.  The null, tee and xr sinks need nothing beyond numpy (xr
+imports cv2 only for a client asking for JPEG); png imports PIL, mjpeg,
+viewer, video and window import cv2, each when it is made or first writes,
+and rtmp runs an ffmpeg binary.
 """
 
 from desktop2stereo_tpu_torch.sinks.null import NullSink  # noqa: F401
@@ -37,7 +37,12 @@ def make_sink(kind: str, **kw):
         from desktop2stereo_tpu_torch.sinks.window import WindowSink
 
         return WindowSink(**kw)
-    if kind in ("rtmp", "xr"):
-        raise ValueError(f"the {kind} sink is not ported to desktop2stereo_tpu_torch yet "
-                         f"(ROADMAP A1b)")
+    if kind == "rtmp":
+        from desktop2stereo_tpu_torch.sinks.rtmp import RtmpSink
+
+        return RtmpSink(**kw)
+    if kind == "xr":
+        from desktop2stereo_tpu_torch.sinks.xr import XrSink
+
+        return XrSink(**kw)
     raise ValueError(f"unknown sink kind {kind!r}")

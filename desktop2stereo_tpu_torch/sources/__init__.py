@@ -2,10 +2,10 @@
 
 Port of `desktop2stereo_tpu/sources/`.  Every source has the reference's
 grabber interface (`grab() -> BGRA or BGR uint8 frame | None`, reference
-capture.py:219).  The synthetic and shared-memory sources need only numpy
-and the port's native library; the image source imports PIL, the video
-source cv2, and the screen source the native X11 shim, each when it is
-made.  The TCP ingest source is not ported yet (ROADMAP A1b).
+capture.py:219).  The synthetic, shared-memory and TCP sources need only
+numpy and the port's native library; the image source imports PIL, the
+video source cv2, and the screen source the native X11 shim, each when it
+is made (the TCP source imports cv2 for a JPEG frame).
 """
 
 from desktop2stereo_tpu_torch.sources.synthetic import SyntheticSource  # noqa: F401
@@ -31,6 +31,7 @@ def make_source(kind: str, **kw):
 
         return ShmSource(**kw)
     if kind == "tcp":
-        raise ValueError("the tcp ingest source is not ported to desktop2stereo_tpu_torch "
-                         "yet (ROADMAP A1b)")
+        from desktop2stereo_tpu_torch.sources.net import TcpFrameSource
+
+        return TcpFrameSource(**kw)
     raise ValueError(f"unknown source kind {kind!r}")

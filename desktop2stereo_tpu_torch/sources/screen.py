@@ -227,3 +227,20 @@ class ScreenSource:
         if self._sct is not None:
             self._sct.close()
 
+
+
+def list_windows() -> "list[str]":
+    """Viewable top-level window titles for the control panel's capture
+    dropdown (reference gui.py:376-470); [] on a host without a display.  A
+    native library that fails to build raises."""
+    from desktop2stereo_tpu_torch.native import X11Capture, load
+
+    load()
+    try:
+        cap = X11Capture("")
+    except RuntimeError:  # no X11 display
+        return []
+    try:
+        return cap.list_windows()
+    finally:
+        cap.close()

@@ -5,6 +5,9 @@ package's on the CPU.
   (`--device` takes cuda/cpu/auto in the port);
 - `apply_settings_defaults` and `_sink_for_run_mode` resolve as JAX's;
 - every option the port does not have yet exits naming its ROADMAP item;
+- the remote topology's options run: `--source tcp[:PORT]` fed over
+  loopback, `--sink rtmp` into a fake ffmpeg, `--sink xr` alone and in a tee
+  (each port bound free and read back), and a tcp port out of range exits;
 - `--device cpu` runs a small synthetic frame path to the end in a fresh
   interpreter, and without `--device` (CUDA, absent here) the CLI exits
   non-zero naming CUDA, with no CPU fallback;
@@ -143,18 +146,101 @@ def tiny_build(monkeypatch):
     (["--streams", "2"], "A6"),
     (["--batched"], "A6"),
     (["--profile-dir", "trace"], "A10"),
-    (["--device", "cpu", "--source", "tcp:7800", "--sink", "null"], "A1b"),
-    (["--device", "cpu", "--source", "tcp", "--sink", "null"], "A1b"),
-    (["--device", "cpu", "--source", "synthetic", "--sink", "rtmp"], "A1b"),
-    (["--device", "cpu", "--source", "synthetic", "--sink", "xr"], "A1b"),
-    (["--device", "cpu", "--source", "synthetic", "--sink", "null,xr"], "A1b"),
-], ids=["streams", "batched", "profile_dir", "tcp_port", "tcp", "rtmp", "xr",
-        "tee_xr"])
+], ids=["streams", "batched", "profile_dir"])
 def test_unported_options_exit_naming_their_roadmap_item(tmp_path, monkeypatch, tiny_build,
                                                          argv, item):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=item):
         T_cli.run(argv + ["--size", "64x112", "--frames", "1"])
+
+
+@pytest.mark.parametrize("argv,port", [
+    (["--source", "tcp:0", "--sink", "null"], 0),
+    (["--source", "tcp", "--sink", "null"], 7800),
+    (["--source", "synthetic", "--sink", "rtmp", "--out", "rtmp://127.0.0.1/live/t"], None),
+    (["--source", "synthetic", "--sink", "xr", "--port", "0", "--xr-no-input"], 0),
+    (["--source", "synthetic", "--sink", "null,xr", "--port", "0", "--xr-no-input"], 1123),
+], ids=["tcp_port", "tcp", "rtmp", "xr", "tee_xr"])
+def test_remote_options_run(tmp_path, monkeypatch, tiny_build, argv, port):
+    """Each option of the remote topology runs one frame to the end on the
+    CPU.  The tcp source is fed over loopback; a default port (7800 for
+    tcp, 1123 for an xr sink that --port does not steer) is checked as
+    asked for and then bound free."""
+    import stat
+    import threading
+
+    import desktop2stereo_tpu_torch.sinks as T_sinks
+    from desktop2stereo_tpu_torch.sources.net import TcpFrameSender
+
+    monkeypatch.chdir(tmp_path)
+    ffmpeg = tmp_path / "bin" / "ffmpeg"
+    ffmpeg.parent.mkdir()
+    ffmpeg.write_text(f"#!/bin/sh\nwc -c > {tmp_path}/ffmpeg.bytes\n")
+    ffmpeg.chmod(ffmpeg.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{ffmpeg.parent}{os.pathsep}{os.environ['PATH']}")
+    made, ready = {}, threading.Event()
+    make_source, make_sink = T_sources.make_source, T_sinks.make_sink
+
+    def rec_source(kind, **kw):
+        if kind == "tcp":
+            assert kw["port"] == port and kw["timeout"] == 30.0 and kw["max_frames"] == 1
+            kw["port"] = 0
+        made["source"] = make_source(kind, **kw)
+        ready.set()
+        return made["source"]
+
+    def rec_sink(kind, **kw):
+        if kind == "xr":
+            assert kw["port"] == port
+            kw["port"] = 0
+        made[kind] = make_sink(kind, **kw)
+        return made[kind]
+
+    monkeypatch.setattr(T_sources, "make_source", rec_source)
+    monkeypatch.setattr(T_sinks, "make_sink", rec_sink)
+    stop = threading.Event()
+
+    def agent():  # a capture agent streaming until the run ends
+        assert ready.wait(60)
+        snd = TcpFrameSender("127.0.0.1", made["source"].port)
+        try:
+            while not stop.is_set():
+                snd.send(np.zeros((64, 112, 4), np.uint8))
+                time.sleep(0.01)
+        except OSError:
+            pass  # the source closed at the end of the run
+        finally:
+            snd.close()
+
+    t = threading.Thread(target=agent)
+    if "tcp" in argv[1]:
+        t.start()
+    try:
+        rc = T_cli.run(argv + ["--device", "cpu", "--size", "64x112", "--frames", "1",
+                               "--stats-every", "0"])
+    finally:
+        stop.set()
+        if t.is_alive():
+            t.join(60)
+    assert rc == 0 and not t.is_alive()
+    if "tcp" in argv[1]:
+        st = made["source"].stats()
+        assert st["frames_delivered"] == 1 and st["frames_received"] >= 1
+    if "xr" in made:
+        assert made["xr"].frames.frames_served >= 1
+        assert made["xr"].frames.latest().depth is not None  # the xr sink takes depth
+    if "rtmp" in argv[3]:
+        deadline = time.monotonic() + 60
+        while not (tmp_path / "ffmpeg.bytes").exists():
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+
+
+def test_tcp_port_out_of_range_exits(tmp_path, monkeypatch, tiny_build):
+    monkeypatch.chdir(tmp_path)
+    for source in ("tcp:70000", "tcp:x"):
+        with pytest.raises(SystemExit, match="expected tcp:<port 0-65535>"):
+            T_cli.run(["--device", "cpu", "--source", source, "--sink", "null"])
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])

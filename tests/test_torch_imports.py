@@ -36,7 +36,9 @@ def test_port_has_the_slice_modules():
                  "sources", "sources.synthetic", "sources.image", "sources.video",
                  "sources.shm", "sources.screen", "sinks", "sinks.null", "sinks.png",
                  "sinks.video", "sinks.tee", "sinks.mjpeg", "sinks.viewer",
-                 "sinks.window", "cli"):
+                 "sinks.window", "cli", "sources.net", "sinks.rtmp", "sinks.xr", "xr",
+                 "xr.frame_server", "xr.net", "xr.injector", "tools", "tools.capture_agent",
+                 "service", "service.control"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 

@@ -12,7 +12,7 @@ CPU.
   cv2 (as `tests/test_screen_capture.py` and `tests/test_window_sink.py` do
   for the JAX package), each scenario run on both packages and compared;
 - the video sink and source through one file; the viewer facade;
-- the kinds that are not ported yet raise ValueError naming ROADMAP A1b.
+- the tcp source and the rtmp and xr sinks are made by kind.
 """
 
 import http.client
@@ -183,11 +183,36 @@ def test_tee_sink_fans_out_and_propagates_errors():
         TeeSink([])
 
 
-@pytest.mark.parametrize("kind,make", [("tcp", make_source), ("rtmp", make_sink),
-                                       ("xr", make_sink)])
-def test_unported_kinds_name_a1b(kind, make):
-    with pytest.raises(ValueError, match="A1b"):
-        make(kind)
+@pytest.mark.parametrize("kind", ["tcp", "rtmp", "xr"])
+def test_remote_kinds_are_made(tmp_path, kind):
+    """The remote topology's source and sinks are made by kind (ROADMAP
+    A1b's former refusals): the tcp source listens on its bound port, the
+    rtmp sink starts its ffmpeg with the first frame, the xr sink serves."""
+    if kind == "tcp":
+        from desktop2stereo_tpu_torch.sources.net import TcpFrameSource
+
+        obj = make_source("tcp", port=0, host="127.0.0.1", timeout=0.01)
+        assert isinstance(obj, TcpFrameSource) and obj.port > 0
+        assert obj.grab() is None  # no agent within the timeout
+    elif kind == "rtmp":
+        from desktop2stereo_tpu_torch.sinks.rtmp import RtmpSink
+
+        fake = tmp_path / "ffmpeg"
+        fake.write_text("#!/bin/sh\ncat > /dev/null\n")
+        fake.chmod(0o755)
+        obj = make_sink("rtmp", url="rtmp://127.0.0.1/live", ffmpeg=str(fake), audio="none")
+        assert isinstance(obj, RtmpSink) and not obj.wants_depth
+        obj.push(np.zeros((4, 6, 3), np.uint8), None, {})
+        assert obj._proc is not None
+        obj.shutdown()
+    else:
+        from desktop2stereo_tpu_torch.sinks.xr import XrSink
+
+        obj = make_sink("xr", port=0, host="127.0.0.1", inject_input=False)
+        assert isinstance(obj, XrSink) and obj.wants_depth and obj.port > 0
+        obj.push(np.zeros((4, 6, 3), np.uint8), np.zeros((2, 3), np.float32), {})
+        assert obj.frames.frames_served == 1
+    obj.close()
 
 
 @pytest.mark.parametrize("make", [make_source, make_sink])
