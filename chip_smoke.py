@@ -19,7 +19,12 @@ the Depth-Anything-3 family at depth resolution 504 (a 280x504 input, 721
 tokens): DA3-LARGE (ViT-L with QK-norm, 2D RoPE and cross-view layers from
 layer 8, the DualDPT head), DA3MONO-LARGE (DPT head, sky post), int8
 DA3-LARGE and DA3NESTED-GIANT-LARGE (ViT-G with SwiGLU, 40 layers, beside a
-ViT-L metric branch), through the same entry points.
+ViT-L metric branch), through the same entry points.  Then the classic DPT
+family on the same capture: dpt-beit-large-512 at 512 (a 288x512 input, 577
+tokens, BEiT-L with a relative-position bias that K2 adds to every layer's
+logits, carried from frame to frame), its int8 form, dpt-large and
+dpt-hybrid-midas at 384 (224x384, 337 tokens) and dpt-dinov2-giant-kitti at
+518 (ViT-G with SwiGLU, 40 layers, 778 tokens).
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -115,7 +120,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 30. the web control panel (`service.control.serve(port=0)` in a thread):
     POST /start spawns the port's CLI on the card (synthetic source, null
     sink), /status and /logs are polled until its stats line shows frames,
-    POST /stop ends it with exit 0 within the grace period.
+    POST /stop ends it with exit 0 within the grace period;
+31. dpt-beit-large-512 at 512, Half-SBS (fused tail), FRAMES 4K frames
+    through FrameEngine: 24 biased K2 and one K1 a frame (the biased launches
+    are counted apart, `attention_bias`), stage ms, peak memory, one traced
+    frame; the carry: ProgramCache runs `first` once a stream and output
+    size (`compute_rel_pos_biases` called once over frames that include a
+    live display-mode switch, once more for another capture size), the 24
+    biases [16, 577, 577] bf16 and their MB, and the ms of building them;
+    one small frame (first) and a second (step), card bf16 against CPU f32
+    at phase 6's thresholds;
+32. dpt-large at 384: CLASSIC_FRAMES frames, 24 K2 and one K1 a frame (no
+    biased launch), and its small-frame reference;
+33. dpt-hybrid-midas at 384: CLASSIC_FRAMES frames, 12 K2 and one K1, and
+    its reference;
+34. dpt-dinov2-giant-kitti at 518: CLASSIC_FRAMES frames, 40 K2 and one K1,
+    its reference, and the two giant names built on the host's CPU with
+    `quant="none"` (no QuantLinear) and `quant="int8"` (160), each run on a
+    small input;
+35. int8 dpt-beit-large-512: correlation with the bf16 model on one model
+    input, then CLASSIC_FRAMES frames: 24 biased K2, 144 K4 (query, key,
+    value, proj, fc1, fc2 of every layer) and one K1 a frame;
+36. `cli.run --model dpt-beit-large-512` on a settings file at depth
+    resolution 512, 4K synthetic source, null sink, FRAMES frames: exit 0,
+    24 biased K2 and one K1 a frame in the warm-up and the run;
+37. a real-shape dpt-beit-base-384 checkpoint in the HF naming (seeded,
+    F16) written by the port's writer: `build_bound(..., checkpoint=path)`
+    on the card holds exactly the CPU load's tensors, and `cli.run --model
+    dpt-beit-base-384 --checkpoint <file>` runs FRAMES 4K frames into the
+    null sink (12 biased K2 and one K1 a frame).
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -126,10 +159,13 @@ line is {"ok": true, "device": {...}}.  A JSON report with every number also
 goes to chiprun_out/chip_smoke.json, and the traces to
 chiprun_out/trace_flagship.json, trace_int8.json,
 trace_flagship_pageable.json, trace_vda.json, trace_da3.json and
-trace_da3_full_outputs.json.  Each kernels entry's `launches_by_path` holds
-each path's count from its own run (the flagship's, DA3-LARGE's and the
-remote Half-SBS run's; K1 eyes: generic high and remote Mono; int8: both
-int8 paths), and `launches` their sum.
+trace_da3_full_outputs.json and trace_beit.json.  Each kernels entry's
+`launches_by_path` holds each path's count from its own run (the
+flagship's, DA3-LARGE's, the remote Half-SBS run's and the classic DPT
+paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths), and
+`launches` their sum.  K2's biased entry point has an entry of its own,
+`attention_bias`, timed at BEiT-L's [1, 577, 16, 64] with its [16, 577, 577]
+bf16 bias beside SDPA with the same bias as a float `attn_mask`.
 """
 
 from __future__ import annotations
@@ -148,6 +184,7 @@ FRAME_SHAPE = (2160, 3840, 4)        # 4K BGRA capture, output height 2160
 EYE = (FRAME_SHAPE[0], FRAME_SHAPE[1] // 2)
 FULL = FRAME_SHAPE[:2]               # the generic tail's eyes: full width
 ATTN_SHAPE = (1, 778, 16, 64)        # ViT-L/14 at 294x518: 21*37 + 1 tokens
+BIAS_ATTN_SHAPE = (1, 577, 16, 64)   # BEiT-L/16 at 288x512: 18*32 + 1 tokens
 FRAMES = 30
 TIMED_RUNS = 25
 SEED = 0
@@ -499,16 +536,29 @@ class CyclingSink(CheckingNullSink):
         self.source.delivered.set()
 
 
+def zero_counts(counters) -> None:
+    for k in counters.values():
+        k.launches = 0
+
+
+def read_counts(counters) -> dict:
+    """Each kernel's launches, and K2's biased entry's apart (also counted
+    under "attention")."""
+    counts = {n: k.launches for n, k in counters.items()}
+    counts["attention_bias"] = counters["attention"].entry_launches.get(
+        "d2s_attention_bias_fwd", 0)
+    return counts
+
+
 def run_engine(FrameEngine, program, source, sink, counters, frames):
     """Counts to 0, frames through FrameEngine, counts read: (fps, counts, stats)."""
     engine = FrameEngine(source, program, sink, target_fps=0.0)
     source.engine = engine
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     stats = engine.run(duration=600.0)
     wall_s = time.perf_counter() - t0
-    counts = {name: k.launches for name, k in counters.items()}
+    counts = read_counts(counters)
     if engine.frames != frames or sink.count + engine.out_box.dropped != frames:
         raise AssertionError(f"{engine.frames} frames run, {sink.count} delivered, "
                              f"{engine.out_box.dropped} superseded; want {frames} run")
@@ -602,28 +652,28 @@ class CliRun:
         class RecordingEngine(engine_cls):
             def start(self) -> None:
                 run.engine = self
-                run.warm_counts = {n: k.launches for n, k in run.counters.items()}
+                run.warm_counts = read_counts(run.counters)
                 self.started_at = time.perf_counter()
                 super().start()
 
         cli.make_components, engine_mod.FrameEngine = recording_make_components, RecordingEngine
-        for k in self.counters.values():
-            k.launches = 0
+        zero_counts(self.counters)
         try:
             rc = cli.run(argv)
         finally:
             cli.make_components, engine_mod.FrameEngine = make_components, engine_cls
         self.wall_s = time.perf_counter() - self.engine.started_at
-        self.counts = {n: k.launches for n, k in self.counters.items()}
+        self.counts = read_counts(self.counters)
         return rc
 
-    def check_launches(self, name, layers, warm_frames):
-        """24 K2 and one K1 per frame run, none of the others, in the warm-up
-        (`warm_frames` frames) and in the run."""
+    def check_launches(self, name, layers, warm_frames, biased=False):
+        """`layers` K2 (all of them biased where `biased`) and one K1 per frame
+        run, none of the others, in the warm-up (`warm_frames` frames) and in
+        the run."""
         eng = self.engine
         run_counts = {n: self.counts[n] - self.warm_counts[n] for n in self.counts}
         want = {n: 0 for n in self.counts}
-        want.update(attention=layers, dibr_pair=1)
+        want.update(attention=layers, dibr_pair=1, attention_bias=layers if biased else 0)
         log(f"[cli] {name}: launches in the warm-up " + ", ".join(
             f"{n} {c} (want {want[n] * warm_frames})" for n, c in self.warm_counts.items())
             + f"; in the run of {eng.frames} frames " + ", ".join(
@@ -639,15 +689,16 @@ CLI_WARM_FRAMES = 3
 CLI_SECONDS = 10.0
 
 
-def cli_settings(out_dir):
-    """The flagship settings file, written by the port's save_settings."""
+def cli_settings(out_dir, model=FLAGSHIP_MODEL, res=518, name="cli_settings.yaml"):
+    """A settings file (the flagship's unless told otherwise), written by the
+    port's save_settings."""
     from desktop2stereo_tpu_torch.core.config import Settings, load_settings, save_settings
 
-    path = out_dir / "cli_settings.yaml"
+    path = out_dir / name
     if path.exists():
         path.unlink()
     # Set FPS high enough that the capture never waits
-    settings = Settings(model=FLAGSHIP_MODEL, depth_resolution=518, output_resolution=2160,
+    settings = Settings(model=model, depth_resolution=res, output_resolution=2160,
                         display_mode="Half-SBS", fps=1000.0)
     save_settings(settings, path)
     if load_settings(path) != settings:
@@ -1813,6 +1864,331 @@ def da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
     return out
 
 
+BEIT_MODEL = "dpt-beit-large-512"
+BEIT_RES, BEIT_INPUT = 512, (288, 512)          # 18 x 32 patches + cls: 577 tokens
+DPT_LARGE_MODEL = "dpt-large"
+HYBRID_MODEL = "dpt-hybrid-midas"
+CLASSIC_RES, CLASSIC_INPUT = 384, (224, 384)    # 14 x 24 + 1: 337 tokens
+DPT_DINOV2_MODEL = "dpt-dinov2-giant-kitti"
+DPT_DINOV2_RES, DPT_DINOV2_INPUT = 518, (294, 518)  # 21 x 37 + 1: 778 tokens
+BEIT_CKPT_MODEL = "dpt-beit-base-384"
+CLASSIC_FRAMES = 10  # the classic paths other than the BEiT flagship
+
+
+def beit_hf_arrays(np, spec, seed: int):
+    """A real-shape DPT-BEiT checkpoint in the HF naming (DPTForDepthEstimation
+    with a BeitBackbone), drawn from a seed, as F16 arrays: fan-in scaled
+    kernels, unit-normal relative-position tables, LayerScale near 1."""
+    from desktop2stereo_tpu_torch.models.beit import BEIT_PRESETS
+
+    rng = np.random.default_rng(seed)
+    D, layers, heads, mlp, _, window = BEIT_PRESETS[spec.name]
+    neck, fusion, p = spec.neck_channels, spec.fusion_channels, spec.patch_size
+    out = {}
+
+    def arr(name, shape, std=0.02, mean=0.0):
+        out[name] = (mean + std * rng.standard_normal(shape, dtype=np.float32)).astype(np.float16)
+
+    def linear(name, fin, fout, bias=True):
+        arr(name + ".weight", (fout, fin), fin ** -0.5)
+        if bias:
+            arr(name + ".bias", (fout,))
+
+    def conv(name, cin, cout, k, bias=True):
+        arr(name + ".weight", (cout, cin, k, k), (cin * k * k) ** -0.5)
+        if bias:
+            arr(name + ".bias", (cout,))
+
+    def norm(name, c):
+        arr(name + ".weight", (c,), 0.1, 1.0)
+        arr(name + ".bias", (c,))
+
+    arr("backbone.embeddings.cls_token", (1, 1, D))
+    conv("backbone.embeddings.patch_embeddings.projection", 3, D, p)
+    for i in range(layers):
+        lp = f"backbone.encoder.layer.{i}."
+        ap = lp + "attention.attention."
+        norm(lp + "layernorm_before", D)
+        norm(lp + "layernorm_after", D)
+        linear(ap + "query", D, D)
+        linear(ap + "key", D, D, bias=False)
+        linear(ap + "value", D, D)
+        arr(ap + "relative_position_bias.relative_position_bias_table",
+            ((2 * window - 1) ** 2 + 3, heads), 1.0)
+        linear(lp + "attention.output.dense", D, D)
+        linear(lp + "intermediate.dense", D, mlp)
+        linear(lp + "output.dense", mlp, D)
+        arr(lp + "lambda_1", (D,), 0.1, 1.0)
+        arr(lp + "lambda_2", (D,), 0.1, 1.0)
+    for i, (c, f) in enumerate(zip(neck, (4, 2, 1, -2))):
+        linear(f"neck.reassemble_stage.readout_projects.{i}.0", 2 * D, D)
+        rp = f"neck.reassemble_stage.layers.{i}."
+        conv(rp + "projection", D, c, 1)
+        if f > 1:
+            arr(rp + "resize.weight", (c, c, f, f), c ** -0.5)
+            arr(rp + "resize.bias", (c,))
+        elif f < 0:
+            conv(rp + "resize", c, c, 3)
+        conv(f"neck.convs.{i}", c, fusion, 3, bias=False)
+    for j in range(4):
+        fp = f"neck.fusion_stage.layers.{j}."
+        conv(fp + "projection", fusion, fusion, 1)
+        for r in (1, 2):
+            for c in (1, 2):
+                conv(fp + f"residual_layer{r}.convolution{c}", fusion, fusion, 3)
+    conv("head.head.0", fusion, fusion // 2, 3)
+    conv("head.head.2", fusion // 2, 32, 3)
+    conv("head.head.4", 32, 1, 1)
+    return out
+
+
+def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames,
+                       counters, policy, dev, card, out_dir):
+    """31-37: the classic DPT family at 4K Half-SBS (the fused tail):
+    dpt-beit-large-512 (biased K2, the carried biases), dpt-large,
+    dpt-hybrid-midas, dpt-dinov2-giant-kitti, int8 dpt-beit-large-512, each
+    with exact launches and (but int8) a small-frame reference; the CLI on
+    the BEiT flagship; a real-shape dpt-beit-base-384 checkpoint."""
+    from desktop2stereo_tpu_torch.models import beit as D_BEIT
+    from desktop2stereo_tpu_torch.ops.quant import QuantLinear
+
+    out = {}
+    shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    small = synthetic_frames(np, 2, 216, 384, SEED + 1)
+
+    def build(name, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net, net_spec = build_bound(name, device=dev, dtype=policy.compute_dtype, seed=SEED, **kw)
+        return net, net_spec, time.perf_counter() - t0
+
+    def path(key, name, res, want_input, n_frames, biased=False, quant="none", **kw):
+        """Build, check the model input, drive n_frames 4K frames with exact
+        launches; returns (net, spec, cfg, the path's report)."""
+        net, spec, build_s = build(name, quant=quant)
+        layers = len(net.backbone.layer if hasattr(net, "backbone") else net.layer)
+        want = {"attention": layers, "dibr_pair": 1, **kw}
+        if biased:
+            want["attention_bias"] = layers
+        cfg = drive(key, net, "Half-SBS", "high", shape, want, net_spec=spec,
+                    n_frames=n_frames, res=res)
+        program = driven.pop(key)
+        mi = tuple(programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]))
+        if mi != want_input:
+            raise AssertionError(f"{key}: model input {mi}, want {want_input}")
+        model_in, raw, finite = finite_share(torch, net, program, frames[0], dev)
+        rep = dict(build_s=build_s, layers=layers, model_input=list(model_in.shape),
+                   depth_shape=list(raw.shape), finite_share=finite,
+                   params=sum(p.numel() for p in net.parameters()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        tokens = (mi[0] // spec.patch_size) * (mi[1] // spec.patch_size) + 1
+        log(f"[{key}] {name}{' int8' if quant != 'none' else ''} @{res}: model input "
+            f"{list(model_in.shape)} ({tokens} tokens), depth at the head's resolution "
+            f"{list(raw.shape)}, finite on {finite:.6f}; {layers} layers, {rep['params']} "
+            f"parameters, built in {build_s:.1f} s; peak device memory "
+            f"{rep['peak_mem_gb']:.2f} GB; {card}")
+        return net, spec, cfg, rep, model_in
+
+    def reference(name, card_net, cfg, n_frames=1):
+        """Small frames through the card's program (bf16) and the CPU's
+        (f32, plain versions), each held to phase 6's thresholds."""
+        cpu_net, spec = build_bound(name, device="cpu", dtype=torch.float32, seed=SEED)
+        card_prog = programs.ProgramCache(cfg, card_net, spec, compute_dtype=policy.compute_dtype)
+        cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
+        refs = [reference_check(torch, f"{name} @{cfg.depth_resolution} frame {i}", card_prog,
+                                cpu_prog, small[i]) for i in range(n_frames)]
+        return refs, cpu_net
+
+    # -- 31. dpt-beit-large-512 @512: biased K2, the carried biases ----------
+    net, spec, cfg, rep, model_in = path("beit", BEIT_MODEL, BEIT_RES, BEIT_INPUT, FRAMES,
+                                         biased=True)
+    calls = []
+    make_biases = D_BEIT.compute_rel_pos_biases
+
+    def counted(*args):
+        calls.append(args[1:])
+        return make_biases(*args)
+
+    D_BEIT.compute_rel_pos_biases = counted
+    try:
+        prog = programs.ProgramCache(cfg, net, spec, compute_dtype=policy.compute_dtype)
+        for i in range(4):  # first, then steps through a live display-mode switch
+            if i == 2:
+                prog.set_display_mode("Half-TAB")
+            prog(frames[i % len(frames)])
+        (key,) = prog._states
+        carry = prog._states[key].model
+        calls_one = len(calls)
+        prog(frames[0][:, : FRAME_SHAPE[1] * 3 // 4])  # 4:3: another output size and carry
+        torch.cuda.synchronize()
+    finally:
+        D_BEIT.compute_rel_pos_biases = make_biases
+    carry_mb = sum(t.numel() * t.element_size() for t in carry) / 1e6
+    other = next(v.model for k, v in prog._states.items() if k != key)
+    ok = (calls_one == 1 and len(calls) == 2 and len(carry) == rep["layers"]
+          and all(t.shape == (16, 577, 577) and t.dtype == policy.compute_dtype
+                  and t.is_contiguous() for t in carry)
+          and prog._states[key].model is carry and other[0].shape != carry[0].shape)
+    with torch.inference_mode():  # the once-per-shape cost of building the carry
+        times = []
+        for _ in range(6):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            make_biases(net.backbone, 18, 32)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+    rep.update(carry_mb=carry_mb, carry_tensors=len(carry), bias_builds=len(calls),
+               carry_build_ms=statistics.median(times[1:]))
+    log(f"[beit] carry: compute_rel_pos_biases ran {calls_one} time(s) over 4 frames of one "
+        f"stream (first, step, a live switch to Half-TAB, step) and {len(calls)} with a 4:3 "
+        f"capture after them (grids {[c[:2] for c in calls]}); {len(carry)} biases "
+        f"{list(carry[0].shape)} {str(carry[0].dtype)[6:]}, {carry_mb:.1f} MB, built in "
+        f"{rep['carry_build_ms']:.3f} ms (CUDA events, median of 5) {'ok' if ok else 'FAIL'}; "
+        f"{card}")
+    if not ok:
+        raise AssertionError("beit: the biases were not built once per stream and size")
+    del prog, carry, other
+    rep["trace"] = trace("beit", net, spec, cfg, "engine",
+                         {"K2 attention": rep["layers"], "K1 dibr_pair": 1})
+    rep["reference"], _ = reference(BEIT_MODEL, net, cfg, n_frames=2)
+    out["beit"] = rep
+
+    # -- 35. int8 dpt-beit-large-512 ---------------------------------------------
+    net_q, _, _, rep_q, _ = path("beit_int8", BEIT_MODEL, BEIT_RES, BEIT_INPUT, CLASSIC_FRAMES,
+                                 biased=True, quant="int8", quant_matmul=6 * 24)
+    with torch.inference_mode():
+        raw_f = net(model_in)[0].float()
+        raw_q = net_q(model_in)[0].float()
+    both = torch.stack([raw_f.flatten(), raw_q.flatten()])
+    corr = torch.corrcoef(both)[0, 1].item()
+    n_quant = sum(isinstance(m, QuantLinear) for m in net_q.modules())
+    ok = bool(torch.isfinite(both).all()) and corr >= INT8_MIN_CORR and n_quant == 6 * 24
+    log(f"[beit_int8] int8 {BEIT_MODEL} ({n_quant} int8 products) against bf16 on one "
+        f"{list(model_in.shape)} model input: correlation {corr:.5f} (min {INT8_MIN_CORR}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8 dpt-beit does not track the bf16 model")
+    rep_q.update(corr=corr)
+    out["beit_int8"] = rep_q
+    del net_q, raw_f, raw_q, both, net
+
+    # -- 32./33. dpt-large and dpt-hybrid-midas @384 ------------------------------
+    for key, name in (("dpt_large", DPT_LARGE_MODEL), ("dpt_hybrid", HYBRID_MODEL)):
+        net, spec, cfg, rep, _ = path(key, name, CLASSIC_RES, CLASSIC_INPUT, CLASSIC_FRAMES)
+        rep["reference"], _ = reference(name, net, cfg)
+        out[key] = rep
+        del net
+
+    # -- 34. dpt-dinov2-giant-kitti @518, and the giant names on the CPU --------
+    net, spec, cfg, rep, _ = path("dpt_dinov2", DPT_DINOV2_MODEL, DPT_DINOV2_RES,
+                                  DPT_DINOV2_INPUT, CLASSIC_FRAMES)
+    rep["reference"], cpu_net = reference(DPT_DINOV2_MODEL, net, cfg)
+    del net
+    torch.cuda.empty_cache()
+    sweep = {}
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, 56, 84, 3), dtype=np.float32))
+    for name in ("dpt-dinov2-giant-kitti", "dpt-dinov2-giant-nyu"):
+        for quant in ("none", "int8"):
+            t0 = time.perf_counter()
+            if (name, quant) == (DPT_DINOV2_MODEL, "none"):
+                m = cpu_net  # the reference's CPU model
+            else:
+                m, _ = build_bound(name, device="cpu", seed=SEED, quant=quant)
+            with torch.inference_mode():
+                d = m(x)
+            n_quant = sum(isinstance(mm, QuantLinear) for mm in m.modules())
+            ok = (tuple(d.shape) == (1, 64, 96) and bool(torch.isfinite(d).all())
+                  and n_quant == (0 if quant == "none" else 4 * 40))
+            sweep[f"{name} {quant}"] = dict(s=time.perf_counter() - t0, int8_products=n_quant)
+            log(f"[dpt_dinov2] build_bound({name!r}, device='cpu', quant={quant!r}): depth "
+                f"{list(d.shape)} finite on a 56x84 input, {n_quant} int8 products "
+                f"{'ok' if ok else 'FAIL'} ({sweep[f'{name} {quant}']['s']:.1f} s on the host)")
+            if not ok:
+                raise AssertionError(f"{name} quant={quant}: build or output off")
+            del m
+    cpu_net = None
+    rep["cpu_builds"] = sweep
+    out["dpt_dinov2"] = rep
+
+    # -- 36. the CLI with --model dpt-beit-large-512 -------------------------------
+    run = CliRun(counters)
+    rc = run(["--settings", str(cli_settings(out_dir, BEIT_MODEL, BEIT_RES, "cli_beit.yaml")),
+              "--source", "synthetic", "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}",
+              "--sink", "null", "--frames", str(FRAMES),
+              "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
+    _, program, sink, _ = run.parts
+    eng = run.engine
+    ok = (rc == 0 and sink.frames >= 1 and sink.last_shape == shape
+          and program.cfg.model_name == BEIT_MODEL and program.cfg.depth_resolution == BEIT_RES)
+    log(f"[cli] python -m desktop2stereo_tpu_torch.cli --settings (dpt-beit-large-512 @512, "
+        f"Half-SBS) --source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} --sink null "
+        f"--frames {FRAMES}: exit {rc}; {eng.frames} frames run, {sink.frames} delivered "
+        f"{sink.last_shape} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli with --model dpt-beit-large-512: exit code or output off")
+    out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames,
+                      launches=run.check_launches("beit", 24, CLI_WARM_FRAMES, biased=True))
+    del run, program, sink, eng
+
+    # -- 37. a real-shape dpt-beit-base-384 checkpoint ---------------------------------
+    import tempfile
+
+    from desktop2stereo_tpu_torch.core.registry import get_spec
+    from desktop2stereo_tpu_torch.models import safetensors_io
+
+    ckpt_spec = get_spec(BEIT_CKPT_MODEL)
+    with tempfile.TemporaryDirectory(prefix="d2s_smoke_beit_") as tmp:
+        path_ = Path(tmp) / "model.safetensors"
+        arrays = beit_hf_arrays(np, ckpt_spec, SEED + 9)
+        safetensors_io.save_file(arrays, path_)
+        t0 = time.perf_counter()
+        on_card, _ = build_bound(BEIT_CKPT_MODEL, device=dev, dtype=torch.float32,
+                                 checkpoint=str(path_))
+        load_s = time.perf_counter() - t0
+        on_cpu, _ = build_bound(BEIT_CKPT_MODEL, device="cpu", checkpoint=str(path_))
+        card_sd = {k: v.cpu() for k, v in on_card.state_dict().items()}
+        cpu_sd = on_cpu.state_dict()
+        table = "backbone.layer.3.relative_position_bias.relative_position_bias_table"
+        ok = (set(card_sd) == set(cpu_sd) and all(torch.equal(card_sd[k], cpu_sd[k])
+                                                  for k in cpu_sd)
+              and torch.equal(cpu_sd[table], torch.from_numpy(arrays[
+                  "backbone.encoder.layer.3.attention.attention.relative_position_bias."
+                  "relative_position_bias_table"].astype(np.float32))))
+        params = int(sum(a.size for a in arrays.values()))
+        log(f"[checkpoint] {BEIT_CKPT_MODEL}, {params} parameters as F16 "
+            f"({path_.stat().st_size / 1e6:.1f} MB, HF naming): build_bound on the card "
+            f"{load_s:.2f} s; {len(card_sd)} tensors equal to the CPU load, a bias table equal "
+            f"to the written one {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("beit checkpoint: the card's load differs from the CPU's")
+        del on_card, on_cpu, card_sd, cpu_sd
+        run = CliRun(counters)
+        rc = run(["--settings", str(cli_settings(out_dir)), "--model", BEIT_CKPT_MODEL,
+                  "--depth-res", str(CLASSIC_RES), "--checkpoint", str(path_),
+                  "--source", "synthetic", "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}",
+                  "--sink", "null", "--frames", str(FRAMES),
+                  "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
+    _, _, sink, _ = run.parts
+    eng = run.engine
+    ok = rc == 0 and sink.frames >= 1 and sink.last_shape == shape
+    log(f"[checkpoint] python -m desktop2stereo_tpu_torch.cli --model {BEIT_CKPT_MODEL} "
+        f"--depth-res {CLASSIC_RES} --checkpoint <file> --source synthetic --size "
+        f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} --sink null --frames {FRAMES}: exit {rc}; "
+        f"{eng.frames} frames run, {sink.frames} delivered {sink.last_shape} "
+        f"{'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli with the beit checkpoint: exit code or output off")
+    out["checkpoint"] = dict(params=params, load_s=load_s, rc=rc, frames_run=eng.frames,
+                             launches=run.check_launches("beit checkpoint", 12,
+                                                         CLI_WARM_FRAMES, biased=True))
+    out["paths"] = {k: paths[k] for k in ("beit", "beit_int8", "dpt_large", "dpt_hybrid",
+                                          "dpt_dinov2")}
+    return out
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -1840,7 +2216,8 @@ def main() -> int:
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
 
     report = {}
-    # launch counters by kernel (K1's two entry points share one)
+    # launch counters by kernel (K1's two entry points share one; read_counts
+    # adds K2's biased entry as "attention_bias")
     counters = {"attention": K2.KERNEL, "dibr_pair": K1.KERNEL, "warp": K3.KERNEL,
                 "dibr_fill": K5.KERNEL, "quant_matmul": K4.KERNEL}
 
@@ -1860,7 +2237,7 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    libs = list(counters.values())
+    libs = [K2.KERNEL, K1.KERNEL, K3.KERNEL, K5.KERNEL, K4.KERNEL]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.lib, libs))  # builds (if missing) and loads
     build_s = time.perf_counter() - t0
@@ -1931,6 +2308,37 @@ def main() -> int:
             f"max abs err {err:.3e} (tol {ATTN_MAX_ABS:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("attention kernel disagrees with its plain version")
+
+    # the biased entry: BEiT-L's shape as BEiT gives it (three contiguous
+    # products: query, key, value) and as qkv views, and ragged N on either
+    # side of the tiles; the bias in bf16 (as the model carries it) and in
+    # f32, scaled so that it moves the softmax
+    worst["attention_bias"] = 0.0
+    for shape, views in ((BIAS_ATTN_SHAPE, False), (BIAS_ATTN_SHAPE, True),
+                         ((2, 1, 4, 64), True), ((2, 63, 4, 64), True),
+                         ((2, 130, 4, 64), True)):
+        B, N, H, D = shape
+        if views:
+            qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
+            q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+        for bias_dtype in (torch.bfloat16, torch.float32):
+            bias = (2.0 * torch.randn(H, N, N, generator=gen, device=dev)).to(bias_dtype)
+            got = K2.attention(q, k, v, bias).float()
+            want = K2.attention_ref(q.float(), k.float(), v.float(), bias.float())
+            moved = (want - K2.attention_ref(q.float(), k.float(), v.float())).abs().max().item()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            worst["attention_bias"] = max(worst["attention_bias"], err)
+            ok = err <= ATTN_MAX_ABS and got.shape == want.shape and (N == 1 or moved > 0.1)
+            log(f"[parity] attention {list(shape)} {'qkv views' if views else 'contiguous'} + "
+                f"{str(bias_dtype)[6:]} bias "
+                f"[{H},{N},{N}]: max abs err {err:.3e} (tol {ATTN_MAX_ABS:.0e}); the bias moves "
+                f"the plain output by up to {moved:.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("biased attention kernel disagrees with its plain version")
 
     def fast_px(dep):
         """The fast compositor's reflected warp position, left eye."""
@@ -2051,6 +2459,24 @@ def main() -> int:
                                bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
                                               4 * B * H * N * N * D, "bf16"))
     del qkv, q, k, v, qh, kh, vh
+
+    # the biased entry at BEiT-L's shape; the yardstick is SDPA with the same
+    # bias as a float mask, added to the scaled logits as the kernel adds it
+    B, N, H, D = BIAS_ATTN_SHAPE
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
+    qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    bias = (2.0 * torch.randn(H, N, N, generator=gen, device=dev)).to(torch.bfloat16)
+    mask = bias[None]
+    t = time_both(torch, {
+        "plain": lambda: K2.attention_ref(q, k, v, bias),
+        "kernel": lambda: K2.attention(q, k, v, bias),
+        "library": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)})
+    timing["attention_bias"] = dict(
+        t, shape=f"{list(BIAS_ATTN_SHAPE)} bf16 qkv views + bf16 bias [{H},{N},{N}]",
+        bound=bound_ms(policy.name, 4 * B * N * H * D * 2 + H * N * N * 2,
+                       4 * B * H * N * N * D, "bf16"))
+    del qkv, q, k, v, qh, kh, vh, bias, mask
 
     rng = np.random.default_rng(2)
     img = torch.from_numpy(rng.random((*FULL, 3), dtype=np.float32) * 255).to(dev)
@@ -2186,13 +2612,12 @@ def main() -> int:
     n_cycle = 2 * len(DISPLAY_MODES)
     source = LockstepSource(frames, n_cycle)
     sink = CyclingSink(cycle, source, K1.KERNEL, DISPLAY_MODES, shapes)
-    for kern in counters.values():
-        kern.launches = 0
+    zero_counts(counters)
     engine = FrameEngine(source, cycle, sink, target_fps=0.0)
     t0 = time.perf_counter()
     engine.run(duration=600.0)
     cycle_s = time.perf_counter() - t0
-    cycle_counts = {n: kern.launches for n, kern in counters.items()}
+    cycle_counts = read_counts(counters)
     want_k1 = n_cycle - 2  # Depth, twice, runs no DIBR
     log(f"[cycle] {sink.count} frames through all {len(DISPLAY_MODES)} modes twice in "
         f"{cycle_s:.2f} s, each output shape checked; launches "
@@ -2208,11 +2633,10 @@ def main() -> int:
     rng = np.random.default_rng(4)
     rgb = torch.from_numpy(rng.random((*FULL, 3), dtype=np.float32) * 255).to(dev)
     dep = torch.from_numpy(rng.random(FULL, dtype=np.float32)).to(dev)
-    for kern in counters.values():
-        kern.launches = 0
+    zero_counts(counters)
     eyes = [S.dibr_render(rgb, dep, e * IPD / 2, STRENGTH, 0.0) for e in (-1, 1)]
     torch.cuda.synchronize()
-    render_counts = {n: kern.launches for n, kern in counters.items()}
+    render_counts = read_counts(counters)
     ok = (render_counts["dibr_fill"] == 2 and sum(render_counts.values()) == 2
           and all(bool(torch.isfinite(e).all()) and e.min().item() >= 0.0
                   and e.max().item() <= 255.0 and e.shape == rgb.shape for e in eyes))
@@ -2385,6 +2809,11 @@ def main() -> int:
             f"{r['ingest_fps']:.2f} fps; the XR client {r['client']['fps']:.2f} frames/s; {card}")
     report["control"] = control_phase(card, out_dir)
 
+    # -- 31-37. the classic DPT family ------------------------------------------------
+    report["classic_dpt"] = classic_dpt_phases(np, torch, programs, build_bound, drive, driven,
+                                               trace, paths, frames, counters, policy, dev,
+                                               card, out_dir)
+
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
         each read from its own run with the counts set to 0 before it)."""
@@ -2404,23 +2833,28 @@ def main() -> int:
     def remote_launches(kernel, name):  # a remote CLI run's count, after its warm-up
         return {f"remote_{name}": report["remote"][name]["launches"]["run"][kernel]}
 
-    # each entry's launches: the slice's main path, and the DA3 path's beside it
+    # each entry's launches: the slice's main path, and the DA3 and classic DPT
+    # paths' beside it
+    classic = ("beit", "dpt_large", "dpt_hybrid", "dpt_dinov2")
     kernels = [
         entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_half", {**launches("dibr_pair", "main", "da3"),
+              "dibr_pair_half", {**launches("dibr_pair", "main", "da3", *classic),
                                  **remote_launches("dibr_pair", "xr_raw")}),
         entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
               "dibr_pair_eyes", {**launches("dibr_pair", "generic_high"),
                                  **remote_launches("dibr_pair", "xr_mono")}),
         entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention", {**launches("attention", "main", "da3"),
+              "attention", {**launches("attention", "main", "da3", "dpt_large", "dpt_hybrid",
+                                       "dpt_dinov2"),
                             **remote_launches("attention", "xr_raw")}),
+        entry("attention_bias", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_bias", launches("attention_bias", "beit", "beit_int8")),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
               launches("warp", "generic_fast")),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
               {"dibr_render": render_counts["dibr_fill"]}),
         entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
-              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8")),
+              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8", "beit_int8")),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,

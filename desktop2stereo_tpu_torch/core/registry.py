@@ -1,10 +1,11 @@
-"""Model registry for the port: the Depth-Anything, Video-Depth-Anything and
-Depth-Anything-3 families.
+"""Model registry for the port: the Depth-Anything, Video-Depth-Anything,
+Depth-Anything-3 and classic DPT families (dpt-large, DPT-DINOv2,
+dpt-hybrid-midas, DPT-BEiT).
 
 The same `ModelSpec` facts as `desktop2stereo_tpu/core/registry.py` (family,
 ViT variant, patch size, normalization, metric-ness, HF repo, resolution
 menu), restricted to the families the port builds today.  The other families
-are ROADMAP A5; `get_spec` raises for them.
+(ZoeDepth, DepthPro, InfiniDepth) are ROADMAP A5; `get_spec` raises for them.
 """
 
 from __future__ import annotations
@@ -75,7 +76,10 @@ class ModelSpec:
 # Per-family depth-resolution menus (the JAX registry's family menu table)
 _DA_MENU = (196, 238, 294, 336, 392, 448, 518)   # patch-14 DA/VDA/Distill
 _DA3_MENU = (182, 224, 280, 322, 378, 434, 504)  # patch-14 DA3 spread
-_FAMILY_MENUS = {"depth_anything": _DA_MENU, "vda": _DA_MENU, "da3": _DA3_MENU}
+_P16_MENU = (256, 320, 384, 448, 512)            # classic DPT-era models
+_FAMILY_MENUS = {"depth_anything": _DA_MENU, "dpt_dinov2": _DA_MENU, "vda": _DA_MENU,
+                 "da3": _DA3_MENU, "dpt": _P16_MENU, "dpt_hybrid": _P16_MENU,
+                 "dpt_beit": _P16_MENU}
 
 _SIZE = {"small": "vits", "base": "vitb", "large": "vitl", "giant": "vitg"}
 
@@ -83,10 +87,12 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {}
 
 
 def _register(name: str, variant: str, repo: str, metric: bool = False,
-              max_depth: float = 1.0, family: str = "depth_anything") -> None:
+              max_depth: float = 1.0, family: str = "depth_anything",
+              patch_size: int = 14, norm_family: str = "imagenet") -> None:
     MODEL_REGISTRY[name] = ModelSpec(
-        name=name, family=family, variant=variant, hf_repo=repo,
-        metric=metric, max_depth=max_depth, resolutions=_FAMILY_MENUS[family])
+        name=name, family=family, variant=variant, hf_repo=repo, patch_size=patch_size,
+        metric=metric, max_depth=max_depth, norm_family=norm_family,
+        resolutions=_FAMILY_MENUS[family])
 
 
 for _size in ("Small", "Base", "Large"):
@@ -133,6 +139,27 @@ _register("DA3MONO-LARGE", "vitl", "depth-anything/DA3MONO-LARGE", metric=True, 
 _register("DA3NESTED-GIANT-LARGE", "vitg", "depth-anything/DA3NESTED-GIANT-LARGE-1.1",
           metric=True, family="da3")
 
+# DPT-DINOv2 (KITTI / NYU): a DINOv2 trunk with the classic readout DPT
+# decoder; metric, mean = std = 0.5
+for _size in ("small", "base", "large", "giant"):
+    for _ds in ("kitti", "nyu"):
+        _register(f"dpt-dinov2-{_size}-{_ds}", _SIZE[_size], f"facebook/dpt-dinov2-{_size}-{_ds}",
+                  metric=True, family="dpt_dinov2", norm_family="half")
+
+# the classic patch-16 DPT family: plain ViT (dpt-large, and the reference
+# author's retrained weights of the same architecture), the BiT + ViT hybrid
+# and the BEiT trunk with a relative-position bias
+_register("dpt-hybrid-midas", "vitb", "lc700x/dpt-hybrid-midas-hf", family="dpt_hybrid",
+          patch_size=16, norm_family="half")
+_register("dpt-large", "vitl", "Intel/dpt-large", family="dpt", patch_size=16,
+          norm_family="half")
+_register("dpt-large-redesign", "vitl", "lc700x/dpt-large-redesign-hf", family="dpt",
+          patch_size=16, norm_family="half")
+_register("dpt-beit-base-384", "vitb", "Intel/dpt-beit-base-384", family="dpt_beit",
+          patch_size=16, norm_family="half")
+_register("dpt-beit-large-512", "vitl", "Intel/dpt-beit-large-512", family="dpt_beit",
+          patch_size=16, norm_family="half")
+
 _register("depth-ai", "vitl", "lc700x/depth-ai-hf", metric=True)
 
 
@@ -159,8 +186,9 @@ def get_spec(name: str) -> ModelSpec:
     except KeyError:
         raise KeyError(
             f"unknown model {name!r} for the torch port (the depth_anything, "
-            f"vda and da3 families are ported; ROADMAP A5 covers the other "
-            f"families); registered: {sorted(MODEL_REGISTRY)}") from None
+            f"vda, da3, dpt, dpt_dinov2, dpt_hybrid and dpt_beit families are "
+            f"ported; ROADMAP A5 covers the other families); registered: "
+            f"{sorted(MODEL_REGISTRY)}") from None
 
 
 def effective_compute_dtype(spec: ModelSpec, policy_dtype: torch.dtype,

@@ -30,6 +30,19 @@
 //   - hands the stage back to the producer.
 // At the end it normalises by 1/l and writes bf16 rows.
 //
+// Additive bias (BEiT's relative-position bias): a second entry point takes
+// a contiguous [H, N, N] bias, bf16 or f32, shared by every batch element,
+// and adds it to the scaled logits before the softmax, as the plain version
+// does (logits * 1/sqrt(hd) + bias, in f32).  Each thread reads the bias
+// element of every accumulator register it owns straight from global memory
+// (in the bias's own dtype, widened to f32) and folds scale and log2(e) into
+// the logits in place, s' = s * log2(e)/sqrt(hd) + bias * log2(e), so the
+// softmax below runs on s' with a scale of 1: the bias is scaled by log2(e)
+// like the logits, since exp2 stands in for exp.  Keys >= N read no bias and
+// are masked as before; query rows >= N read row N-1 (their output is
+// dropped).  The unbiased entry is the template's other instance, with no
+// bias code in its loop.  The bias costs one read of H*N*N elements a call.
+//
 // Waves at the flagship [1, 778, 16, 64]: 13 x 16 = 208 blocks of one
 // consumer warpgroup, 73 KB of shared memory each.  Two or three fit an SM,
 // so all 208 run in one wave, and one block's softmax overlaps another's
@@ -46,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -123,11 +138,20 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ float bias_at(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float bias_at(const float* p) { return __ldg(p); }
+
+// BiasT: void (no bias), __nv_bfloat16 or float ([heads, n, n], contiguous).
+template <typename BiasT>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                     int n, int heads, int perms, float scale_log2) {
+                     const BiasT* __restrict__ bias, int n, int heads, int perms,
+                     float scale_log2) {
+  constexpr bool kBias = !std::is_void<BiasT>::value;
+  // the softmax's scale on the logits: folded into them when there is a bias
+  const float sl = kBias ? 1.0f : scale_log2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align_1024(smem_raw);        // [BQ][64] bf16, swizzled
   uint8_t* k_s = q_s + Q_BYTES;               // [STAGES][BKV][64]
@@ -179,7 +203,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 64; ++i) s_acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) o_acc[i] = 0.0f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max of the raw logits
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max of the logits (s, or s')
   float l_run[2] = {0.0f, 0.0f};            // this thread's share of the running sum
 
   const uint32_t q_addr = smem_u32(q_s);
@@ -200,6 +224,23 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s_acc);
+
+    if constexpr (kBias) {  // s' = s * scale * log2(e) + bias * log2(e)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = min(q0 + (warp % 4) * 16 + lane / 4 + 8 * r, n - 1);
+        const BiasT* brow = bias + (static_cast<long long>(h) * n + row) * n;
+#pragma unroll
+        for (int i = 0; i < BKV / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * BKV + 8 * i + 2 * quad + e;
+            const float bv = col < n ? bias_at(brow + col) : 0.0f;
+            s_acc[4 * i + 2 * r + e] =
+                fmaf(s_acc[4 * i + 2 * r + e], scale_log2, bv * 1.4426950408889634f);
+          }
+      }
+    }
 
     if ((j + 1) * BKV > n) {  // the ragged last tile: keys >= n take no weight
 #pragma unroll
@@ -225,9 +266,9 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       // finite: every tile holds at least one key < n
-      alpha[r] = exp2f((m_run[r] - mx[r]) * scale_log2);
+      alpha[r] = exp2f((m_run[r] - mx[r]) * sl);
       m_run[r] = mx[r];
-      neg[r] = -mx[r] * scale_log2;
+      neg[r] = -mx[r] * sl;
     }
     float sum[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -236,7 +277,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int r = 0; r < 2; ++r)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(fmaf(s_acc[4 * i + 2 * r + e], scale_log2, neg[r]));
+          const float p = exp2f(fmaf(s_acc[4 * i + 2 * r + e], sl, neg[r]));
           s_acc[4 * i + 2 * r + e] = p;
           sum[r] += p;
         }
@@ -327,6 +368,27 @@ int encode_qkv(CUtensorMap* map, const void* base, int batch, int n, int heads, 
   return code == 0 ? perm : -1;
 }
 
+// Encodes the three maps and launches the kernel instance for BiasT.
+template <typename BiasT>
+int launch(const void* q, const void* k, const void* v, void* o, const void* bias, int batch,
+           int n, int heads, const long long* qs, const long long* ks, const long long* vs,
+           float scale, void* stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_fwd_kernel<BiasT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap qmap, kmap, vmap;
+  const int pq = encode_qkv(&qmap, q, batch, n, heads, qs[0], qs[1], qs[2], BQ);
+  const int pk = encode_qkv(&kmap, k, batch, n, heads, ks[0], ks[1], ks[2], BKV);
+  const int pv = encode_qkv(&vmap, v, batch, n, heads, vs[0], vs[1], vs[2], BKV);
+  if (pq < 0 || pk < 0 || pv < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + BQ - 1) / BQ, batch * heads);
+  attention_fwd_kernel<BiasT><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<const BiasT*>(bias), n,
+      heads, pq | (pk << 6) | (pv << 12), scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,19 +403,24 @@ int d2s_attention_fwd(const void* q, const void* k, const void* v, void* o, int 
                       int heads, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
                       long long k_sn, long long k_sh, long long v_sb, long long v_sn,
                       long long v_sh, float scale, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  CUtensorMap qmap, kmap, vmap;
-  const int pq = encode_qkv(&qmap, q, batch, n, heads, q_sb, q_sn, q_sh, BQ);
-  const int pk = encode_qkv(&kmap, k, batch, n, heads, k_sb, k_sn, k_sh, BKV);
-  const int pv = encode_qkv(&vmap, v, batch, n, heads, v_sb, v_sn, v_sh, BKV);
-  if (pq < 0 || pk < 0 || pv < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + BQ - 1) / BQ, batch * heads);
-  attention_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), n, heads, pq | (pk << 6) | (pv << 12),
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  const long long qs[3] = {q_sb, q_sn, q_sh}, ks[3] = {k_sb, k_sn, k_sh},
+                  vs[3] = {v_sb, v_sn, v_sh};
+  return launch<void>(q, k, v, o, nullptr, batch, n, heads, qs, ks, vs, scale, stream);
+}
+
+// As d2s_attention_fwd, plus a contiguous [heads, n, n] bias added to the
+// scaled logits: bf16 when bias_f32 is 0, else f32.
+int d2s_attention_bias_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                           int n, int heads, long long q_sb, long long q_sn, long long q_sh,
+                           long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+                           long long v_sn, long long v_sh, float scale, const void* bias,
+                           int bias_f32, void* stream) {
+  const long long qs[3] = {q_sb, q_sn, q_sh}, ks[3] = {k_sb, k_sn, k_sh},
+                  vs[3] = {v_sb, v_sn, v_sh};
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return bias_f32 ? launch<float>(q, k, v, o, bias, batch, n, heads, qs, ks, vs, scale, stream)
+                  : launch<__nv_bfloat16>(q, k, v, o, bias, batch, n, heads, qs, ks, vs, scale,
+                                          stream);
 }
 
 }  // extern "C"

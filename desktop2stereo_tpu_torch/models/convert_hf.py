@@ -99,19 +99,9 @@ def convert_dinov2_backbone(sd: Mapping[str, np.ndarray], num_layers: int,
     return params
 
 
-def convert_dpt_neck(sd: Mapping[str, np.ndarray], prefix: str = "neck.") -> Params:
+def _convert_fusion_stage(sd: Mapping[str, np.ndarray], prefix: str = "neck.") -> Params:
+    """HF DPT fusion_stage → fusion_{0..3}."""
     params: Params = {}
-    for i in range(4):
-        rp = f"{prefix}reassemble_stage.layers.{i}."
-        layer: Params = {"projection": _conv(sd, rp + "projection")}
-        if rp + "resize.weight" in sd:
-            if i == 3:  # stage 3 downsamples with a stride-2 Conv2d (out,in,3,3)
-                layer["resize"] = _conv(sd, rp + "resize")
-            else:       # ConvTranspose2d (in,out,f,f) kept as it is
-                layer["resize"] = {"kernel": sd[rp + "resize.weight"],
-                                   "bias": sd[rp + "resize.bias"]}
-        params[f"reassemble_{i}"] = layer
-        params[f"conv_{i}"] = _conv(sd, f"{prefix}convs.{i}", bias=False)
     for j in range(4):
         fp = f"{prefix}fusion_stage.layers.{j}."
         layer = {"projection": _conv(sd, fp + "projection"),
@@ -123,6 +113,23 @@ def convert_dpt_neck(sd: Mapping[str, np.ndarray], prefix: str = "neck.") -> Par
             layer["res1"] = {"conv1": _conv(sd, fp + "residual_layer1.convolution1"),
                              "conv2": _conv(sd, fp + "residual_layer1.convolution2")}
         params[f"fusion_{j}"] = layer
+    return params
+
+
+def convert_dpt_neck(sd: Mapping[str, np.ndarray], prefix: str = "neck.") -> Params:
+    """HF DPT neck → reassemble_{0..3}, conv_{0..3} and fusion_{0..3}."""
+    params = _convert_fusion_stage(sd, prefix)
+    for i in range(4):
+        rp = f"{prefix}reassemble_stage.layers.{i}."
+        layer: Params = {"projection": _conv(sd, rp + "projection")}
+        if rp + "resize.weight" in sd:
+            if i == 3:  # stage 3 downsamples with a stride-2 Conv2d (out,in,3,3)
+                layer["resize"] = _conv(sd, rp + "resize")
+            else:       # ConvTranspose2d (in,out,f,f) kept as it is
+                layer["resize"] = {"kernel": sd[rp + "resize.weight"],
+                                   "bias": sd[rp + "resize.bias"]}
+        params[f"reassemble_{i}"] = layer
+        params[f"conv_{i}"] = _conv(sd, f"{prefix}convs.{i}", bias=False)
     return params
 
 
@@ -362,3 +369,155 @@ def convert_da3_nested(state_dict: Any, spec: ModelSpec) -> Params:
 
     metric_spec = dataclasses.replace(spec, name="DA3METRIC-LARGE", variant="vitl")
     return {"da3": branch("da3", spec), "da3_metric": branch("da3_metric", metric_spec)}
+
+
+# ---- the classic DPT family: dpt-large, DPT-DINOv2, DPT-BEiT, dpt-hybrid ----------
+
+def _fused_qkv(sd: Mapping[str, np.ndarray], ap: str) -> Params:
+    """HF query/key/value Linears under `ap` → one fused qkv Dense."""
+    return {"kernel": np.ascontiguousarray(np.concatenate(
+                [sd[ap + n + ".weight"] for n in ("query", "key", "value")], axis=0).T),
+            "bias": np.concatenate([sd[ap + n + ".bias"] for n in ("query", "key", "value")])}
+
+
+def _convert_vit_layer(sd: Mapping[str, np.ndarray], lp: str) -> Params:
+    """HF ViTLayer (dpt.encoder.layer.{i}.) → ViTLayer params."""
+    return {"norm1": _layernorm(sd, lp + "layernorm_before"),
+            "norm2": _layernorm(sd, lp + "layernorm_after"),
+            "qkv": _fused_qkv(sd, lp + "attention.attention."),
+            "proj": _linear(sd, lp + "attention.output.dense"),
+            "fc1": _linear(sd, lp + "intermediate.dense"),
+            "fc2": _linear(sd, lp + "output.dense")}
+
+
+def convert_classic_dpt_decoder(sd: Mapping[str, np.ndarray]) -> Params:
+    """HF DPTNeck (readout-project) + DPTDepthEstimationHead →
+    ClassicDPTDecoder params (dpt-large, DPT-DINOv2, DPT-BEiT)."""
+    dec = convert_dpt_neck(sd)
+    for i in range(4):
+        dec[f"readout_{i}"] = _linear(sd, f"neck.reassemble_stage.readout_projects.{i}.0")
+    for n, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+        dec[n] = _conv(sd, f"head.head.{idx}")
+    return dec
+
+
+def convert_dpt_vit(state_dict: Any, spec: ModelSpec) -> Params:
+    """HF DPTForDepthEstimation (plain ViT, e.g. Intel/dpt-large) → DPTViT
+    params."""
+    from desktop2stereo_tpu_torch.models.dpt_vit import DPT_VIT_PRESETS
+
+    sd = to_numpy_state_dict(state_dict)
+    D, num_layers, _, _, _ = DPT_VIT_PRESETS[spec.variant]
+    ep = "dpt.embeddings."
+    pw = sd[ep + "patch_embeddings.projection.weight"]  # (D,3,p,p)
+    params: Params = {
+        "cls_token": sd[ep + "cls_token"],
+        "position_embeddings": sd[ep + "position_embeddings"],
+        "patch_kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, D)),
+        "patch_bias": sd[ep + "patch_embeddings.projection.bias"],
+    }
+    for i in range(num_layers):
+        params[f"layer_{i}"] = _convert_vit_layer(sd, f"dpt.encoder.layer.{i}.")
+    params["decoder"] = convert_classic_dpt_decoder(sd)
+    return params
+
+
+def _convert_beit_backbone(sd: Mapping[str, np.ndarray], D: int, num_layers: int,
+                           prefix: str = "backbone.") -> Params:
+    pw = sd[prefix + "embeddings.patch_embeddings.projection.weight"]
+    backbone: Params = {
+        "cls_token": sd[prefix + "embeddings.cls_token"],
+        "patch_kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, D)),
+        "patch_bias": sd[prefix + "embeddings.patch_embeddings.projection.bias"],
+    }
+    for i in range(num_layers):
+        lp = f"{prefix}encoder.layer.{i}."
+        ap = lp + "attention.attention."
+        backbone[f"layer_{i}"] = {
+            "norm1": _layernorm(sd, lp + "layernorm_before"),
+            "norm2": _layernorm(sd, lp + "layernorm_after"),
+            "query": _linear(sd, ap + "query"),
+            "key": {"kernel": np.ascontiguousarray(sd[ap + "key.weight"].T)},  # no bias
+            "value": _linear(sd, ap + "value"),
+            "relative_position_bias": {"relative_position_bias_table": sd[
+                ap + "relative_position_bias.relative_position_bias_table"]},
+            "proj": _linear(sd, lp + "attention.output.dense"),
+            "fc1": _linear(sd, lp + "intermediate.dense"),
+            "fc2": _linear(sd, lp + "output.dense"),
+            "lambda_1": sd[lp + "lambda_1"],
+            "lambda_2": sd[lp + "lambda_2"],
+        }
+    return backbone
+
+
+def convert_dpt_dinov2(state_dict: Any, spec: ModelSpec) -> Params:
+    """HF DPTForDepthEstimation + Dinov2Backbone (facebook/dpt-dinov2-*) →
+    DPTDinov2 params: the DINOv2 trunk as Depth-Anything's (prefix
+    "backbone."; ViT-G's SwiGLU MLP as `weights_in` / `weights_out`, which
+    the JAX converter leaves out), the classic decoder."""
+    sd = to_numpy_state_dict(state_dict)
+    _, num_layers, _, _ = spec.dims
+    return {"backbone": convert_dinov2_backbone(sd, num_layers,
+                                                use_swiglu=spec.variant == "vitg",
+                                                prefix="backbone."),
+            "decoder": convert_classic_dpt_decoder(sd)}
+
+
+def convert_dpt_beit(state_dict: Any, spec: ModelSpec) -> Params:
+    """HF DPTForDepthEstimation + BeitBackbone (Intel/dpt-beit-*) → DPTBEiT
+    params."""
+    from desktop2stereo_tpu_torch.models.beit import BEIT_PRESETS
+
+    sd = to_numpy_state_dict(state_dict)
+    D, num_layers = BEIT_PRESETS[spec.name][:2]
+    return {"backbone": _convert_beit_backbone(sd, D, num_layers),
+            "decoder": convert_classic_dpt_decoder(sd)}
+
+
+def convert_dpt_hybrid(state_dict: Any, spec: ModelSpec, depths=(3, 4, 9),
+                       num_layers: int = 12) -> Params:
+    """HF DPTForDepthEstimation(is_hybrid=True) → DPTHybrid params."""
+    sd = to_numpy_state_dict(state_dict)
+
+    def ws(prefix):  # a weight-standardized conv: kernel only
+        return {"kernel": np.ascontiguousarray(sd[prefix + ".weight"].transpose(2, 3, 1, 0))}
+
+    def gn(prefix):  # GroupNormAct's GroupNorm: weight/bias → scale/bias
+        return {"norm": _layernorm(sd, prefix)}
+
+    bp = "dpt.embeddings.backbone.bit."
+    bit: Params = {"stem": {"conv": ws(bp + "embedder.convolution"),
+                            "norm": gn(bp + "embedder.norm")}}
+    for s, depth in enumerate(depths):
+        for l in range(depth):
+            lp = f"{bp}encoder.stages.{s}.layers.{l}."
+            layer: Params = {}
+            for ci in (1, 2, 3):
+                layer[f"conv{ci}"] = ws(lp + f"conv{ci}")
+                layer[f"norm{ci}"] = gn(lp + f"norm{ci}")
+            if lp + "downsample.conv.weight" in sd:
+                layer["downsample_conv"] = ws(lp + "downsample.conv")
+                layer["downsample_norm"] = gn(lp + "downsample.norm")
+            bit[f"stage{s}_layer{l}"] = layer
+
+    params: Params = {
+        "bit": bit,
+        "projection": _conv(sd, "dpt.embeddings.projection"),
+        "cls_token": sd["dpt.embeddings.cls_token"],
+        "position_embeddings": sd["dpt.embeddings.position_embeddings"],
+    }
+    for i in range(num_layers):
+        params[f"layer_{i}"] = _convert_vit_layer(sd, f"dpt.encoder.layer.{i}.")
+    for si in (2, 3):
+        params[f"readout_{si}"] = _linear(sd, f"neck.reassemble_stage.readout_projects.{si}.0")
+        rp = f"neck.reassemble_stage.layers.{si}."
+        layer = {"projection": _conv(sd, rp + "projection")}
+        if rp + "resize.weight" in sd:  # stage 3's stride-2 conv
+            layer["resize"] = _conv(sd, rp + "resize")
+        params[f"reassemble_{si}"] = layer
+    for i in range(4):
+        params[f"conv_{i}"] = _conv(sd, f"neck.convs.{i}", bias=False)
+    params.update(_convert_fusion_stage(sd))
+    for n, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+        params[n] = _conv(sd, f"head.head.{idx}")
+    return params

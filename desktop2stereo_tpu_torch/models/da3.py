@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from desktop2stereo_tpu_torch.core.registry import (
     VIT_VARIANTS, ModelSpec, da3_mode, is_da3_nested)
-from desktop2stereo_tpu_torch.models.dinov2 import LN_EPS, PRETRAIN_GRID, _dense
+from desktop2stereo_tpu_torch.models.dinov2 import (
+    LN_EPS, PRETRAIN_GRID, _dense, swiglu, swiglu_hidden)
 from desktop2stereo_tpu_torch.models.dpt import (
     HEAD_CHANNELS, Conv, ConvTransposeSameStride, FeatureFusionLayer)
 from desktop2stereo_tpu_torch.ops.activations import gelu
@@ -208,15 +209,14 @@ class DA3Attention(nn.Module):
 
 
 class DA3Mlp(nn.Module):
-    """GELU fc1/fc2, or ViT-G's SwiGLU: w12 to twice the hidden width
-    (int(mlp·2/3) rounded up to a multiple of 8), silu(x1)·x2, w3."""
+    """GELU fc1/fc2, or ViT-G's SwiGLU (dinov2's) in DA3's naming, w12 / w3."""
 
     def __init__(self, hidden_size: int, mlp_dim: int, use_swiglu: bool = False,
                  quant: bool = False) -> None:
         super().__init__()
         self.use_swiglu = use_swiglu
         if use_swiglu:
-            hidden = (int(mlp_dim * 2 / 3) + 7) // 8 * 8
+            hidden = swiglu_hidden(mlp_dim)
             self.w12 = _dense(hidden_size, 2 * hidden, quant)
             self.w3 = _dense(hidden, hidden_size, quant)
         else:
@@ -225,8 +225,7 @@ class DA3Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_swiglu:
-            x1, x2 = self.w12(x).chunk(2, dim=-1)
-            return self.w3(F.silu(x1) * x2)
+            return swiglu(x, self.w12, self.w3)
         return self.fc2(gelu(self.fc1(x)))
 
 

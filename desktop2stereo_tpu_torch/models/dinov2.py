@@ -2,11 +2,12 @@
 
 Port of `desktop2stereo_tpu/models/dinov2.py`: patch-14 embedding as reshape +
 one matmul, cls token + bicubically interpolated position embeddings,
-pre-norm blocks with LayerScale, exact-GELU MLP (tanh form in bf16), fused
+pre-norm blocks with LayerScale, exact-GELU MLP (tanh form in bf16) or
+ViT-G's SwiGLU (`weights_in` / `weights_out`, HF Dinov2SwiGLUFFN), fused
 qkv, and the final LayerNorm on each selected hidden state.  NHWC pixels in,
 [B, N, D] tokens throughout.  Attention goes through `multi_head_attention`,
 which runs the CUDA kernel on every layer when the tensors are on the GPU;
-with `quant=True` the qkv, proj, fc1 and fc2 products are int8 (K4).
+with `quant=True` the qkv, proj and MLP products are int8 (K4).
 
 Module and parameter names follow the JAX parameter tree so `from_flax`
 maps it mechanically (see models/from_flax.py).
@@ -29,6 +30,16 @@ LN_EPS = 1e-6
 PRETRAIN_GRID = 37  # 518 / 14: the position table holds 37² + 1 entries
 
 
+def patch_vectors(pixels: torch.Tensor, p: int) -> torch.Tensor:
+    """[B,H,W,C] → [B, gh·gw, p·p·C], each p×p patch as one vector in
+    (p_h, p_w, C) order; a stride-p conv drops the remainder rows and
+    columns, and so does this."""
+    B, H, W, C = pixels.shape
+    gh, gw = H // p, W // p
+    x = pixels[:, : gh * p, : gw * p].reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, p * p * C)
+
+
 class PatchEmbed(nn.Module):
     """Conv2d(3, D, k=p, s=p) as patch vectors (order p_h, p_w, C) @ weightᵀ."""
 
@@ -39,13 +50,7 @@ class PatchEmbed(nn.Module):
         self.bias = nn.Parameter(torch.zeros(hidden_size))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = pixels.shape
-        p = self.patch_size
-        gh, gw = H // p, W // p
-        x = pixels[:, : gh * p, : gw * p]  # a stride-p conv drops the remainder
-        x = x.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, gh * gw, p * p * C)
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(patch_vectors(pixels, self.patch_size), self.weight, self.bias)
 
 
 class Dinov2Embeddings(nn.Module):
@@ -84,11 +89,11 @@ class Dinov2Embeddings(nn.Module):
         return torch.cat([cls, tokens], dim=1) + pos_full.to(tokens.dtype)
 
 
-def _dense(in_features: int, out_features: int, quant: bool) -> nn.Module:
+def _dense(in_features: int, out_features: int, quant: bool, bias: bool = True) -> nn.Module:
     """nn.Linear, or the int8 QuantLinear when the encoder runs quantized."""
     if quant:
-        return QuantLinear(in_features, out_features)
-    return nn.Linear(in_features, out_features)
+        return QuantLinear(in_features, out_features, bias=bias)
+    return nn.Linear(in_features, out_features, bias=bias)
 
 
 class Mlp(nn.Module):
@@ -99,6 +104,30 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
+
+
+def swiglu_hidden(mlp_dim: int) -> int:
+    """ViT-G's SwiGLU hidden width: int(mlp · 2/3) rounded up to a multiple of 8."""
+    return (int(mlp_dim * 2 / 3) + 7) // 8 * 8
+
+
+def swiglu(x: torch.Tensor, w_in: nn.Module, w_out: nn.Module) -> torch.Tensor:
+    """w_in to twice the hidden width → silu(x1) · x2 → w_out."""
+    x1, x2 = w_in(x).chunk(2, dim=-1)
+    return w_out(F.silu(x1) * x2)
+
+
+class SwiGLU(nn.Module):
+    """dinov2-giant FFN in HF's naming (`weights_in` / `weights_out`)."""
+
+    def __init__(self, hidden_size: int, mlp_dim: int, quant: bool = False) -> None:
+        super().__init__()
+        hidden = swiglu_hidden(mlp_dim)
+        self.weights_in = _dense(hidden_size, 2 * hidden, quant)
+        self.weights_out = _dense(hidden, hidden_size, quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x, self.weights_in, self.weights_out)
 
 
 class Attention(nn.Module):
@@ -120,13 +149,13 @@ class Attention(nn.Module):
 
 class Dinov2Layer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
-                 quant: bool = False) -> None:
+                 quant: bool = False, use_swiglu: bool = False) -> None:
         super().__init__()
         self.norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.attention = Attention(hidden_size, num_heads, quant)
         self.layer_scale1 = nn.Parameter(torch.ones(hidden_size))
         self.norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.mlp = Mlp(hidden_size, mlp_dim, quant)
+        self.mlp = (SwiGLU if use_swiglu else Mlp)(hidden_size, mlp_dim, quant)
         self.layer_scale2 = nn.Parameter(torch.ones(hidden_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -138,17 +167,20 @@ class Dinov2Encoder(nn.Module):
     """ViT trunk returning the LayerNorm'd hidden states of `out_layers`
     (0-indexed).  Layers after the last selected one feed nothing and are
     not built, as in the JAX module.  `quant` makes the four dense products
-    of every layer int8 (`QuantLinear`, kernel K4)."""
+    of every layer int8 (`QuantLinear`, kernel K4); `use_swiglu` is ViT-G's
+    MLP."""
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14,
-                 quant: bool = False, interpolate_offset: float = 0.0) -> None:
+                 quant: bool = False, interpolate_offset: float = 0.0,
+                 use_swiglu: bool = False) -> None:
         super().__init__()
         self.out_layers = tuple(sorted(out_layers))
         self.embeddings = Dinov2Embeddings(hidden_size, patch_size, interpolate_offset)
         n_run = min(num_layers, max(self.out_layers) + 1)
         self.layer = nn.ModuleList(
-            Dinov2Layer(hidden_size, num_heads, mlp_dim, quant) for _ in range(n_run))
+            Dinov2Layer(hidden_size, num_heads, mlp_dim, quant, use_swiglu)
+            for _ in range(n_run))
         self.layernorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
     def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -2,7 +2,7 @@
 from a seed.
 
 Port of `desktop2stereo_tpu/models/factory.py:build_bound` for the
-depth_anything, vda and da3 families.  Weights come, in the JAX factory's order,
+depth_anything, vda, da3, dpt, dpt_dinov2, dpt_hybrid and dpt_beit families.  Weights come, in the JAX factory's order,
 from an explicit checkpoint path, then from a local cache
 (`find_checkpoint`), then from a seeded draw (printing the JAX factory's
 "no checkpoint found" line).  A checkpoint (safetensors, one file or
@@ -11,9 +11,14 @@ JAX converters' copy) and `models/from_flax.py`, so it reaches the port
 through the same names as the JAX package.  The seeded draw uses a
 `torch.Generator` with flax's default initializers (truncated-normal lecun
 kernels, zero biases, unit norms and LayerScale, zero cls/position tables,
-a unit-normal DA3 camera token).  `quant="int8"` quantizes the encoder's
-dense weights at load (`ops/quant.py:quantize_state_dict`), as the JAX
-factory's `quantize_tree` step does; DA3NESTED refuses it, as JAX does.
+a unit-normal DA3 camera token and unit-normal BEiT relative-position
+tables).  `quant="int8"` quantizes the encoder's dense weights at load
+(`ops/quant.py:quantize_state_dict`) within each family's scope, as the JAX
+builders' `quantize_tree` step does (the ViT layers themselves for dpt and
+dpt_hybrid, `backbone` for the others); DA3NESTED refuses it, as JAX does.
+`quant="none"` is float for every family: the JAX `build_model` hands
+`build_dpt_dinov2` the string, so its DPT-DINOv2 models run int8 even then
+(ROADMAP C5); the port does not follow it there.
 """
 
 from __future__ import annotations
@@ -29,11 +34,15 @@ import torch.nn as nn
 from desktop2stereo_tpu_torch.core.registry import ModelSpec, get_spec, is_da3_nested
 from desktop2stereo_tpu_torch.core.runtime import COMPUTE_DTYPE, cuda_policy
 from desktop2stereo_tpu_torch.models import da3
+from desktop2stereo_tpu_torch.models.beit import BeitEncoder, BeitRelativePositionBias, DPTBEiT
 from desktop2stereo_tpu_torch.models.convert_hf import (
-    convert_da3, convert_da3_nested, convert_depth_anything, convert_vda)
+    convert_da3, convert_da3_nested, convert_depth_anything, convert_dpt_beit,
+    convert_dpt_dinov2, convert_dpt_hybrid, convert_dpt_vit, convert_vda)
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
 from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
+from desktop2stereo_tpu_torch.models.dpt_hybrid import DPTHybrid
+from desktop2stereo_tpu_torch.models.dpt_vit import DPTDinov2, DPTViT
 from desktop2stereo_tpu_torch.models.from_flax import from_flax
 from desktop2stereo_tpu_torch.models.safetensors_io import INDEX_NAME
 from desktop2stereo_tpu_torch.models.vda import VideoDepthAnything
@@ -61,7 +70,16 @@ def _convert_da3(ckpt, spec: ModelSpec):
 # family → (`from_spec(spec, quant=False)` making the model, checkpoint converter)
 FAMILIES = {"depth_anything": (DepthAnything.from_spec, convert_depth_anything),
             "vda": (VideoDepthAnything.from_spec, convert_vda),
-            "da3": (da3.from_spec, _convert_da3)}
+            "da3": (da3.from_spec, _convert_da3),
+            "dpt": (DPTViT.from_spec, convert_dpt_vit),
+            "dpt_dinov2": (DPTDinov2.from_spec, convert_dpt_dinov2),
+            "dpt_hybrid": (DPTHybrid.from_spec, convert_dpt_hybrid),
+            "dpt_beit": (DPTBEiT.from_spec, convert_dpt_beit)}
+
+# the module names `quant="int8"` quantizes beneath (`quantize_state_dict`'s
+# scope): the ViT layers sit at the model's top level in dpt and dpt_hybrid,
+# as the JAX builders' `layer_{i}` scopes say; "backbone" elsewhere
+QUANT_SCOPES = {"dpt": ("layer",), "dpt_hybrid": ("layer",)}
 
 # std of N(0,1) truncated to ±2, the correction flax's truncated_normal
 # initializer divides by so the drawn variance is the requested one
@@ -80,7 +98,9 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     other kernel, so that a run on random weights goes through the temporal
     modules rather than around them.  A DA3 trunk's patch kernel is drawn
     as a kernel and its camera token from N(0, 1); a DA3Nested draws its
-    anyview branch from `seed` and its metric branch from `seed + 1`."""
+    anyview branch from `seed` and its metric branch from `seed + 1`.  The
+    DPTViT and BEiT patch kernels are drawn as kernels, and BEiT's
+    relative-position tables (zeros in flax) from N(0, 1)."""
     if isinstance(model, da3.DA3Nested):
         init_random(model.da3, seed)
         init_random(model.da3_metric, seed + 1)
@@ -103,6 +123,12 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             _lecun_(m.patch_kernel, m.patch_kernel.shape[0], gen)
             if hasattr(m, "camera_token"):
                 m.camera_token.normal_(generator=gen)
+        elif isinstance(m, (DPTViT, BeitEncoder)):
+            _lecun_(m.patch_kernel, m.patch_kernel.shape[0], gen)
+        elif isinstance(m, BeitRelativePositionBias):
+            # flax draws zeros; unit normal so that a run on random weights
+            # adds a bias that moves the attention
+            m.relative_position_bias_table.normal_(generator=gen)
     return model
 
 
@@ -153,8 +179,10 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
     `checkpoint` is a safetensors path (a file, an index json or one shard);
     without one, `find_checkpoint` looks in the local caches, and without a
     hit the weights are drawn from `seed`.  A `checkpoint` that does not
-    exist raises FileNotFoundError.  A vda model is stateful: it exposes
-    `first(pixels)` and `step(pixels, carry)` beside `forward`.
+    exist raises FileNotFoundError.  A vda or dpt_beit model is stateful: it
+    exposes `first(pixels)` and `step(pixels, carry)` beside `forward` (VDA
+    carries its temporal window, DPT-BEiT its layers' relative-position
+    biases).
 
     `device=None` is the CUDA device policy's (`cuda_policy()`, which raises
     without CUDA); a caller that wants the CPU says so.  `dtype=None` is the
@@ -188,7 +216,8 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
         model = init_random(make(spec), seed)
         print(f"[models] no checkpoint found for {name}; using random init")
     if quant == "int8":
-        state = quantize_state_dict(model.state_dict())
+        state = quantize_state_dict(model.state_dict(),
+                                    QUANT_SCOPES.get(spec.family, "backbone"))
         model = make(spec, quant=True)
         model.load_state_dict(state, strict=True)
     return model.to(device=device, dtype=dtype).eval(), spec

@@ -3,16 +3,18 @@
 The port names its modules after the flax tree, so the mapping is
 mechanical:
 
-- a path component `name_<i>` (flax's `layer_3`, `reassemble_0`, `conv_1`,
-  `fusion_2`) becomes `name.<i>` (an nn.ModuleList entry), unless a sibling
-  is called `name` itself (VDA's temporal module holds `norm`, a GroupNorm,
-  beside `norm_0` and `norm_1`): then it keeps its name;
+- a subtree `name_<i>` (flax's `layer_3`, `reassemble_0`, `conv_1`,
+  `fusion_2`) becomes `name.<i>` (an nn.ModuleList entry, or an
+  nn.ModuleDict's where the indices do not start at 0), unless a sibling is
+  called `name` itself (VDA's temporal module holds `norm`, a GroupNorm,
+  beside `norm_0` and `norm_1`): then it keeps its name; a leaf keeps its
+  name (BEiT's `lambda_1` and `lambda_2` parameters);
 - Dense kernels [in, out] become Linear weights [out, in];
 - Conv kernels HWIO become Conv2d weights OIHW;
-- the conv-transpose kernels of a reassemble stage (the DPT neck's, the VDA
-  head's, and the DA3 heads' `reassemble.resize_{0,1}`, whichever branch
-  holds them) are stored (C, O, f, f) on both sides and are kept as they
-  are;
+- the conv-transpose kernels of a reassemble stage (the DPT neck's, the
+  classic DPT decoder's, the VDA head's, and the DA3 heads'
+  `reassemble.resize_{0,1}`, whichever branch holds them) are stored
+  (C, O, f, f) on both sides and are kept as they are;
 - LayerNorm `scale` becomes `weight`; every other leaf keeps its name;
 - a quantized Dense (`kernel_q` [in, out] int8, `scale`, `bias`; see the JAX
   `ops/quant.py:quantize_tree`) becomes a QuantLinear: `weight_q` [out, in]
@@ -36,6 +38,7 @@ _INDEXED = re.compile(r"^(.*)_(\d+)$")
 # path endings of the (C, O, f, f) conv-transpose kernels
 _CONV_TRANSPOSE = tuple(end for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1
                         for end in (f"neck.reassemble.{i}.resize.kernel",
+                                    f"decoder.reassemble.{i}.resize.kernel",
                                     f"head.reassemble.{i}.resize.kernel",
                                     f"head.reassemble.resize.{i}.kernel"))
 
@@ -43,7 +46,7 @@ _CONV_TRANSPOSE = tuple(end for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in tree.items():
-        m = _INDEXED.match(k)
+        m = _INDEXED.match(k) if isinstance(v, Mapping) else None
         name = f"{m.group(1)}.{m.group(2)}" if m and m.group(1) not in tree else k
         path = f"{prefix}.{name}" if prefix else name
         if isinstance(v, Mapping):

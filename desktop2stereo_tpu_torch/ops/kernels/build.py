@@ -57,10 +57,11 @@ class CudaLibrary:
     """One kernel source → one lazily built, ctypes-loaded shared library.
 
     `signatures` maps each exported C function to its argument types; every
-    function returns an int (a cudaError_t).  `launches` counts kernel
-    launches made through `call`, except those recorded into a CUDA graph
-    capture; a wrapper adds to it where it launches, and callers reset it to
-    0 before a run they want to count.
+    function returns an int (a cudaError_t).  `entry_launches` counts kernel
+    launches made through `call` by entry point (K2's biased and unbiased
+    entries apart), except those recorded into a CUDA graph capture; a
+    wrapper adds to it where it launches.  `launches` is their sum, and
+    callers set it to 0 before a run they want to count.
     """
 
     def __init__(self, source: str, signatures: Dict[str, Sequence],
@@ -68,10 +69,20 @@ class CudaLibrary:
         self.source = CSRC_DIR / source
         self.signatures = dict(signatures)
         self.extra_flags = tuple(extra_flags)
-        self.launches = 0
+        self.entry_launches: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+
+    @property
+    def launches(self) -> int:
+        return sum(self.entry_launches.values())
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n != 0:
+            raise ValueError(f"launch counts can only be reset to 0, not {n}")
+        self.entry_launches.clear()
 
     def _flags(self) -> tuple:
         return ARCH_FLAGS + BASE_FLAGS + self.extra_flags
@@ -138,4 +149,4 @@ class CudaLibrary:
             raise RuntimeError(f"{self.source.name}:{name} failed: "
                                f"cudaError {code} ({msg})")
         if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
-            self.launches += 1
+            self.entry_launches[name] = self.entry_launches.get(name, 0) + 1

@@ -82,3 +82,49 @@ def test_kernel_input_checks_accept_qkv_views():
 def test_kernel_input_checks_accept_other_layouts(make):
     t = make()
     K.check_inputs(t, t, t)
+
+
+# ---- the additive bias (BEiT's relative-position bias) -----------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 130, 4, 64), (1, 37, 3, 32), (1, 1, 2, 64)])
+def test_biased_attention_ref_matches_xla(shape):
+    """`bias` [H, N, N] added to the scaled logits, broadcast over the
+    batch, as `xla_attention(..., bias)` adds it."""
+    q, k, v = _qkv(shape, seed=sum(shape) + 1)
+    _, N, H, _ = shape
+    bias = 2.0 * np.random.default_rng(3).standard_normal((H, N, N)).astype(np.float32)
+    got = attention_ref(*map(torch.from_numpy, (q, k, v, bias))).numpy()
+    want = np.asarray(xla_attention(*map(jnp.asarray, (q, k, v)), bias=jnp.asarray(bias)))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    unbiased = attention_ref(*map(torch.from_numpy, (q, k, v))).numpy()
+    assert N == 1 or np.abs(got - unbiased).max() > 1e-2  # the bias moves the output
+
+
+def test_cpu_dispatch_takes_the_plain_version_with_a_bias():
+    q, k, v = map(torch.from_numpy, _qkv((2, 20, 3, 64), seed=4))
+    bias = torch.randn(3, 20, 20, dtype=torch.bfloat16)
+    launches = K.KERNEL.launches
+    assert torch.equal(multi_head_attention(q, k, v, bias=bias), attention_ref(q, k, v, bias))
+    assert K.KERNEL.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_input_checks_accept_a_bias(dtype):
+    qkv = _bf16((1, 577, 3 * 1024))
+    q, k, v = (t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1))
+    K.check_inputs(q, k, v, torch.zeros(16, 577, 577, dtype=dtype))
+
+
+@pytest.mark.parametrize("bias,match", [
+    (lambda: torch.zeros(2, 8, 9, dtype=torch.bfloat16), r"\[H, N, N\]"),
+    (lambda: torch.zeros(1, 8, 8, dtype=torch.bfloat16), r"\[H, N, N\]"),
+    (lambda: torch.zeros(1, 2, 8, 8, dtype=torch.bfloat16), r"\[H, N, N\]"),
+    (lambda: torch.zeros(2, 8, 8, dtype=torch.float16), "bf16 or f32"),
+    (lambda: torch.zeros(2, 8, 8, dtype=torch.float64), "bf16 or f32"),
+    (lambda: torch.zeros(2, 8, 8, dtype=torch.bfloat16).transpose(1, 2), "contiguous"),
+    (lambda: torch.zeros(2 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 8), "aligned"),
+], ids=["ragged", "heads", "rank", "f16", "f64", "transposed", "misaligned"])
+def test_kernel_input_checks_refuse_a_bad_bias(bias, match):
+    q = _bf16((1, 8, 2, 64))
+    with pytest.raises(ValueError, match=match):
+        K.check_inputs(q, q, q, bias())

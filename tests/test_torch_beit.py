@@ -1,0 +1,234 @@
+"""The port's DPT-BEiT (`models/beit.py`) against the JAX package's, on the
+CPU in f32: the relative-position index and biases (on the pretraining
+window and interpolated off it), the converter, the model, its int8 form,
+and the streaming carry of the layers' biases through `ProgramCache`.
+
+Both sides take one synthetic checkpoint in the Hugging Face naming
+(`torch_classic_dpt.py`) through their own converters, with a tiny preset
+(pretraining window 4) registered in both packages' BEIT_PRESETS, as the
+JAX parity test registers its own.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import desktop2stereo_tpu.models.beit as J_beit
+import desktop2stereo_tpu.ops.quant as J_quant
+import desktop2stereo_tpu.pipeline.programs as J_programs
+from desktop2stereo_tpu.core.registry import ModelSpec as JSpec
+from desktop2stereo_tpu.models import convert_hf as J_convert
+import desktop2stereo_tpu_torch.models.beit as T_beit
+from desktop2stereo_tpu_torch.core.registry import ModelSpec as TSpec
+from desktop2stereo_tpu_torch.models import convert_hf as T_convert
+from desktop2stereo_tpu_torch.models.from_flax import from_flax
+from desktop2stereo_tpu_torch.ops.quant import QuantLinear, quantize_state_dict
+from desktop2stereo_tpu_torch.pipeline import programs as T_programs
+from torch_classic_dpt import (  # noqa: F401
+    CFG, F32_TOL, FUSION, INT8_TOL, NECK, _assert_frames_match, _frames, assert_trees_equal,
+    hf_beit_dpt, jax_kernels, pixels, port_depth, rel)
+from torch_threads import one_torch_thread  # noqa: F401
+
+PRESET = "beit-tiny-test"
+WINDOW, LAYERS, HEADS = 4, 4, 4
+SPEC = dict(name=PRESET, family="dpt_beit", variant="vitb", hf_repo="none", patch_size=16,
+            norm_family="half")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def tiny_preset():
+    preset = (64, LAYERS, HEADS, 128, (0, 1, 2, 3), WINDOW)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(J_beit.BEIT_PRESETS, PRESET, preset)
+        mp.setitem(T_beit.BEIT_PRESETS, PRESET, preset)
+        yield
+
+
+@pytest.fixture(scope="module")
+def beit(tiny_preset):
+    """(JAX params, port DPTBEiT) from one synthetic checkpoint."""
+    sd = hf_beit_dpt(seed=21)
+    model = T_beit.DPTBEiT(PRESET, NECK, FUSION).eval()
+    model.load_state_dict(from_flax(T_convert.convert_dpt_beit(sd, TSpec(**SPEC))), strict=True)
+    return {"params": J_convert.convert_dpt_beit(sd, JSpec(**SPEC))}, model
+
+
+def _jmodel(quant=False):
+    return J_beit.DPTBEiT(preset=PRESET, neck_channels=NECK, fusion_channels=FUSION,
+                          quant=quant)
+
+
+@pytest.mark.parametrize("grid", [(4, 4), (3, 6), (18, 32), (1, 1), (5, 2)])
+def test_relative_position_index_equals_jax(grid):
+    got = T_beit._relative_position_index(*grid)
+    want = J_beit._relative_position_index(*grid)
+    assert got.dtype == want.dtype and got.shape == ((grid[0] * grid[1] + 1) ** 2,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("grid", [(4, 4), (3, 6), (6, 6), (2, 5)],
+                         ids=["pretrain-window", "3x6", "6x6", "2x5"])
+def test_compute_rel_pos_biases_equals_jax(beit, grid):
+    params, model = beit
+    want = J_beit.compute_rel_pos_biases(params["params"]["backbone"], *grid, WINDOW,
+                                         LAYERS, HEADS)
+    with torch.no_grad():
+        got = T_beit.compute_rel_pos_biases(model.backbone, *grid)
+    n = grid[0] * grid[1] + 1
+    assert len(got) == len(want) == LAYERS
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (HEADS, n, n) and g.is_contiguous()
+        assert rel(g.numpy(), w) < F32_TOL
+
+
+def test_rel_pos_bias_keeps_the_table_dtype(beit):
+    table = beit[1].backbone.layer[0].relative_position_bias.relative_position_bias_table
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            for grid in ((4, 4), (3, 6)):
+                bias = T_beit.build_rel_pos_bias(table.to(dtype), *grid, WINDOW, HEADS)
+                assert bias.dtype == dtype and bias.is_contiguous()
+
+
+def test_converter_gives_the_jax_tree():
+    sd = hf_beit_dpt(seed=22)
+    tree = T_convert.convert_dpt_beit(sd, TSpec(**SPEC))
+    assert_trees_equal(tree, J_convert.convert_dpt_beit(sd, JSpec(**SPEC)))
+    assert set(tree["backbone"]["layer_0"]["key"]) == {"kernel"}  # k has no bias
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (48, 80)],
+                         ids=["pretrain-window", "6x6", "3x5"])
+def test_dpt_beit_matches_jax(beit, hw):
+    params, model = beit
+    x = pixels(23, *hw)
+    want = np.asarray(_jmodel().apply(params, jnp.asarray(x)))
+    got = port_depth(model, x)
+    assert got.shape == want.shape
+    assert rel(got, want) < F32_TOL
+
+
+def test_first_and_step_carry_the_biases_as_jax(beit):
+    """`first` builds every layer's bias once and returns them as the carry;
+    `step` takes them and hands the same tensors back; both equal JAX's
+    stream functions and the plain forward."""
+    params, model = beit
+    first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
+    x0, x1 = pixels(24, 48, 96), pixels(25, 48, 96)
+    jd0, jcarry = first(params, jnp.asarray(x0))
+    jd1, _ = step(params, jnp.asarray(x1), jcarry)
+    with torch.no_grad():
+        td0, carry = model.first(torch.from_numpy(x0))
+        td1, carry1 = model.step(torch.from_numpy(x1), carry)
+        plain = model(torch.from_numpy(x1))
+    assert rel(td0.numpy(), jd0) < F32_TOL and rel(td1.numpy(), jd1) < F32_TOL
+    assert torch.equal(td1, plain)
+    assert len(carry) == len(jcarry) == LAYERS and carry1 is carry
+    for c, jc in zip(carry, jcarry):
+        assert c.shape == (HEADS, 19, 19) and rel(c.numpy(), jc) < F32_TOL
+
+
+def test_int8_matches_jax(beit):
+    """query, key (no bias), value, proj, fc1 and fc2 of every layer int8:
+    the port's quantisation equals the JAX tree's, weight and scale, and
+    the int8 models agree."""
+    params, model = beit
+    qtree = jax.tree.map(np.asarray, J_quant.quantize_tree(params))
+    state = quantize_state_dict(model.state_dict())
+    want = from_flax(qtree)
+    assert set(state) == set(want)
+    quantized = [k[: -len(".weight_q")] for k in want if k.endswith(".weight_q")]
+    assert len(quantized) == 6 * LAYERS
+    for k in quantized:
+        assert torch.equal(state[k + ".weight_q"], want[k + ".weight_q"]), k
+        assert torch.equal(state[k + ".scale"], want[k + ".scale"]), k
+    assert "backbone.layer.0.key.bias" not in state
+    qmodel = T_beit.DPTBEiT(PRESET, NECK, FUSION, quant=True).eval()
+    qmodel.load_state_dict(state, strict=True)
+    assert sum(isinstance(m, QuantLinear) for m in qmodel.modules()) == 6 * LAYERS
+    x = pixels(26, 48, 80)
+    jm = _jmodel(quant=True)
+    want_d = np.asarray(jax.jit(lambda p, a: jm.apply(p, a))(qtree, jnp.asarray(x)))
+    assert rel(port_depth(qmodel, x), want_d) < INT8_TOL
+
+
+# ---- the frame program -------------------------------------------------------------------------
+
+class _CountBiases:
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+def test_program_cache_streams_the_biases_like_jax(beit, jax_kernels, monkeypatch):  # noqa: F811
+    """first → step → step on 180x320 frames (a 48x96 input, grid 3x6, off
+    the window), switched live from Half-SBS to Half-TAB after the first;
+    then a 180x240 capture (another output size): a carry of its own.  The
+    frames against JAX's ProgramCache; the biases built once per stream and
+    size, the carry surviving the switch and equal to JAX's."""
+    params, model = beit
+    counter = _CountBiases(T_beit.compute_rel_pos_biases)
+    monkeypatch.setattr(T_beit, "compute_rel_pos_biases", counter)
+    first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
+    cfg = dict(CFG, model_name=PRESET, display_mode="Half-SBS")
+    jprog = J_programs.ProgramCache(J_programs.ProgramConfig(**cfg),
+                                    J_programs.BoundModel(params=params, first=first, step=step),
+                                    JSpec(**SPEC), compute_dtype=jnp.float32)
+    tprog = T_programs.ProgramCache(T_programs.ProgramConfig(**cfg), model, TSpec(**SPEC),
+                                    compute_dtype=torch.float32)
+    key = (0, 180, 320)
+    kept = None
+    frames = _frames(3)
+    for i, frame in enumerate(frames + [frames[2][:, :240]]):
+        if i == 1:
+            jprog.set_display_mode("Half-TAB")
+            tprog.set_display_mode("Half-TAB")
+        j_sbs, j_depth = (np.asarray(a) for a in jprog(jnp.asarray(frame)))
+        t_sbs, t_depth = (a.numpy() for a in tprog(frame))
+        _assert_frames_match(j_sbs, j_depth, t_sbs, t_depth)
+        if i < 3:
+            carry = tprog._states[key].model
+            assert kept is None or all(a is b for a, b in zip(carry, kept))
+            kept = carry
+            for c, jc in zip(carry, jprog._states[key].model):
+                assert rel(c.numpy(), jc) < F32_TOL
+            assert counter.calls == 1
+    assert counter.calls == 2 and set(tprog._states) == {key, (0, 180, 240)}
+    mh, mw = T_programs.ema_shape(tprog.cfg, tprog.spec, 180, 240)
+    n = (mh // 16) * (mw // 16) + 1
+    assert tprog._states[(0, 180, 240)].model[0].shape == (HEADS, n, n) and n != 19
+    assert tprog._states[key].model is kept
+
+
+def test_warmup_keeps_no_carry(beit):
+    tprog = T_programs.ProgramCache(
+        T_programs.ProgramConfig(**dict(CFG, model_name=PRESET, display_mode="Half-SBS")),
+        beit[1], TSpec(**SPEC), compute_dtype=torch.float32)
+    report = tprog.warmup((180, 320, 4))
+    assert set(report) == {"pre_s", "model_s", "tail_s"} and not tprog._states
+
+
+def test_build_bound_runs_dpt_beit_base_float_and_int8(monkeypatch):
+    """dpt-beit-base-384 at its real widths, seeded, on the CPU: stateful
+    (first, then step with the carried biases), its unit-normal tables
+    drawn from the seed, int8 on 6 products a layer."""
+    import desktop2stereo_tpu_torch.models.factory as factory
+
+    monkeypatch.setattr(factory, "DEFAULT_WEIGHTS_DIRS", ())
+    monkeypatch.setenv("HF_HOME", "/nonexistent")
+    x = torch.from_numpy(pixels(36, 64, 96))
+    for quant, want in (("none", 0), ("int8", 72)):
+        model, _ = factory.build_bound("dpt-beit-base-384", device="cpu", quant=quant)
+        assert sum(isinstance(m, QuantLinear) for m in model.modules()) == want
+        table = model.backbone.layer[0].relative_position_bias.relative_position_bias_table
+        assert 0.9 < table.std().item() < 1.1
+        with torch.no_grad():
+            d0, carry = model.first(x)
+            d1, carry1 = model.step(x, carry)
+        assert carry1 is carry and len(carry) == 12 and carry[0].shape == (12, 25, 25)
+        assert d0.shape == (1, 64, 96) and torch.equal(d0, d1)

@@ -491,3 +491,88 @@ def test_tiny_da3_on_the_card_like_the_cpu(dev):
                    - normalize_depth(torch.where(non_sky, dr, 0.0), metric=True)).abs()[non_sky]
             assert err.mean().item() <= 0.03
             assert ((sc < da3.SKY_THRESHOLD) != non_sky).float().mean().item() <= 0.03
+
+
+# ---- K2 with an additive bias (DPT-BEiT's relative-position bias) --------------------------
+
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 130, 577])
+def test_biased_attention_kernel_matches_plain(dev, N, bias_dtype):
+    """The biased entry at BEiT-L/16's 577 tokens (a 288x512 input) and on
+    either side of the 64-row query and 128-key tiles: rows and columns of
+    the bias past N are never read, and the bias moves the output."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + N)
+    q, k, v = _qkv_layout("qkv views", 2, N, 4, gen, dev)
+    bias = (2.0 * torch.randn(4, N, N, generator=gen, device=dev)).to(bias_dtype)
+    before = dict(K2.KERNEL.entry_launches)
+    got = K2.attention(q, k, v, bias)
+    assert (K2.KERNEL.entry_launches.get("d2s_attention_bias_fwd", 0)
+            == before.get("d2s_attention_bias_fwd", 0) + 1)
+    want = K2.attention_ref(q.float(), k.float(), v.float(), bias.float())
+    torch.cuda.synchronize()
+    assert got.shape == (2, N, 4, 64) and got.is_contiguous() and got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    if N > 1:
+        plain = K2.attention_ref(q.float(), k.float(), v.float())
+        assert (plain - want).abs().max().item() > 0.1
+
+
+def test_biased_attention_kernel_on_separate_projections(dev):
+    """BEiT's own layout: q, k and v are three contiguous products (query,
+    key and value), not views of one qkv, at BEiT-L's [1, 577, 16, 64] with
+    its bf16 bias."""
+    gen = torch.Generator(device=dev).manual_seed(577)
+    q, k, v = _qkv_layout("contiguous", 1, 577, 16, gen, dev)
+    bias = (2.0 * torch.randn(16, 577, 577, generator=gen, device=dev)).bfloat16()
+    got = K2.attention(q, k, v, bias)
+    want = K2.attention_ref(q.float(), k.float(), v.float(), bias.float())
+    torch.cuda.synchronize()
+    assert got.shape == (1, 577, 16, 64) and got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    plain = K2.attention_ref(q.float(), k.float(), v.float())
+    assert (plain - want).abs().max().item() > 0.1
+
+
+def test_biased_attention_kernel_refuses_a_bad_bias(dev):
+    q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
+    for bias, match in ((torch.zeros(2, 8, 9, device=dev), r"\[H, N, N\]"),
+                        (torch.zeros(2, 8, 8, device=dev, dtype=torch.float16), "bf16 or f32"),
+                        (torch.zeros(2, 8, 8, device="cpu"), "CUDA device")):
+        with pytest.raises(ValueError, match=match):
+            K2.attention(q, q, q, bias)
+
+
+def test_dpt_beit_streams_on_the_card_like_the_cpu(dev):
+    """dpt-beit-base-384 from one seed through ProgramCache, three frames
+    (first, then step twice with the carried biases): the card in bf16 (12
+    biased K2 and one K1 a frame) against the CPU in f32, each frame held to
+    chip_smoke.py's reference thresholds; the carry is the 12 layers' bf16
+    biases, built once."""
+    from desktop2stereo_tpu_torch.models.factory import build_bound
+    from desktop2stereo_tpu_torch.pipeline import programs as P
+
+    name = "dpt-beit-base-384"
+    card, spec = build_bound(name, device=dev, seed=0)
+    cpu, _ = build_bound(name, device="cpu", seed=0)
+    cfg = P.ProgramConfig(model_name=name, depth_resolution=256, output_height=216,
+                          display_mode="Half-SBS", ipd=0.064, depth_strength=2.0,
+                          convergence=0.0, foreground_scale=0.0, aa_strength=2.0,
+                          ema_alpha=0.9, temporal_smooth=True, quality="high",
+                          emit_depth="model")
+    card_prog = P.ProgramCache(cfg, card, spec, compute_dtype=torch.bfloat16)
+    cpu_prog = P.ProgramCache(cfg, cpu, spec, compute_dtype=torch.float32)
+    biased = K2.KERNEL.entry_launches.get("d2s_attention_bias_fwd", 0)
+    k2, k1 = K2.KERNEL.launches, K1.KERNEL.launches
+    for frame in _moving_frames(3, 216, 384, seed=2):
+        sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
+        sbs_r, depth_r = cpu_prog(frame)
+        assert sbs_c.shape == sbs_r.shape == (216, 384, 3) and torch.isfinite(depth_c).all()
+        s_err = (sbs_c.int() - sbs_r.int()).abs().float()
+        assert (depth_c - depth_r).abs().mean().item() <= 0.03
+        assert s_err.mean().item() <= 3.0 and (s_err > 32).float().mean().item() <= 0.03
+    assert K2.KERNEL.launches - k2 == 3 * 12 and K1.KERNEL.launches - k1 == 3
+    assert K2.KERNEL.entry_launches["d2s_attention_bias_fwd"] - biased == 3 * 12
+    (key,) = card_prog._states
+    carry = card_prog._states[key].model
+    assert len(carry) == 12 and all(c.dtype == torch.bfloat16 and c.is_contiguous()
+                                    for c in carry)

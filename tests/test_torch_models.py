@@ -38,7 +38,8 @@ def _rel(a, b):
 def test_registry_entries_equal_jax():
     port = T_reg.MODEL_REGISTRY
     jax_da = {k: v for k, v in J_reg.MODEL_REGISTRY.items()
-              if v.family in ("depth_anything", "vda", "da3")}
+              if v.family in ("depth_anything", "vda", "da3", "dpt", "dpt_dinov2",
+                              "dpt_hybrid", "dpt_beit")}
     assert set(port) == set(jax_da)
     for name, spec in port.items():
         assert dataclasses.asdict(spec) == dataclasses.asdict(jax_da[name]), name
@@ -53,7 +54,7 @@ def test_registry_entries_equal_jax():
 
 def test_registry_refuses_unported_families():
     with pytest.raises(KeyError, match="A5"):
-        T_reg.get_spec("dpt-large")
+        T_reg.get_spec("zoedepth-nyu")
 
 
 @pytest.fixture(scope="module")
