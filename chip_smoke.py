@@ -21,8 +21,9 @@ layer 8, the DualDPT head), DA3MONO-LARGE (DPT head, sky post), int8
 DA3-LARGE and DA3NESTED-GIANT-LARGE (ViT-G with SwiGLU, 40 layers, beside a
 ViT-L metric branch), through the same entry points.  Then the classic DPT
 family on the same capture: dpt-beit-large-512 at 512 (a 288x512 input, 577
-tokens, BEiT-L with a relative-position bias that K2 adds to every layer's
-logits, carried from frame to frame), its int8 form, dpt-large and
+tokens, BEiT-L with a relative-position bias that K2's table entry gathers
+in shared memory from each layer's interpolated table, the tables carried
+from frame to frame), its int8 form, dpt-large and
 dpt-hybrid-midas at 384 (224x384, 337 tokens) and dpt-dinov2-giant-kitti at
 518 (ViT-G with SwiGLU, 40 layers, 778 tokens).
 
@@ -31,13 +32,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
    which of cv2, PIL and PyYAML the host has;
 2. build: nvcc builds the five kernel sources, all at once;
-3. kernel parity on the card against the plain PyTorch versions;
+3. kernel parity on the card against the plain PyTorch versions; K2's
+   table entry also against its dense-bias entry on the expanded bias, and
+   K2's three instances' registers, spills and resident blocks an SM;
 4. kernel times beside the plain versions, one PyTorch library call where
    one computes the same function, and the bound (bytes over the memory
    rate, operations over the peak): each callable device-only (10 calls
    captured into a CUDA graph, its replays timed with CUDA events) and eager
    (CUDA events around 10 calls, the host's cost included), median of
-   interleaved runs;
+   interleaved runs; K2's table entry at BEiT-L's [1, 577, 16, 64] in turns
+   with the dense-bias entry, SDPA with the bias as a float mask and the
+   unbiased entry;
 5. flagship path: Half-SBS (fused tail), FRAMES 4K frames through
    FrameEngine; launch counts (24 attention + one K1 per frame);
 6. reference: one small frame through the flagship program on the card
@@ -122,12 +127,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     sink), /status and /logs are polled until its stats line shows frames,
     POST /stop ends it with exit 0 within the grace period;
 31. dpt-beit-large-512 at 512, Half-SBS (fused tail), FRAMES 4K frames
-    through FrameEngine: 24 biased K2 and one K1 a frame (the biased launches
-    are counted apart, `attention_bias`), stage ms, peak memory, one traced
+    through FrameEngine: 24 K2 a frame, all through the table entry
+    (counted apart, `attention_relpos`; the dense-bias entry,
+    `attention_bias`, none), one K1, stage ms, peak memory, one traced
     frame; the carry: ProgramCache runs `first` once a stream and output
-    size (`compute_rel_pos_biases` called once over frames that include a
+    size (`compute_rel_pos_tables` called once over frames that include a
     live display-mode switch, once more for another capture size), the 24
-    biases [16, 577, 577] bf16 and their MB, and the ms of building them;
+    tables [16, 2208] bf16 and their MB, and the ms of building them; the
+    dense-bias API (`multi_head_attention(..., bias=)`, the JAX package's)
+    on the 24 expanded tables against the table entry, 24 launches each;
     one small frame (first) and a second (step), card bf16 against CPU f32
     at phase 6's thresholds;
 32. dpt-large at 384: CLASSIC_FRAMES frames, 24 K2 and one K1 a frame (no
@@ -139,16 +147,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     `quant="none"` (no QuantLinear) and `quant="int8"` (160), each run on a
     small input;
 35. int8 dpt-beit-large-512: correlation with the bf16 model on one model
-    input, then CLASSIC_FRAMES frames: 24 biased K2, 144 K4 (query, key,
+    input, then CLASSIC_FRAMES frames: 24 K2 (table entry), 144 K4 (query, key,
     value, proj, fc1, fc2 of every layer) and one K1 a frame;
 36. `cli.run --model dpt-beit-large-512` on a settings file at depth
     resolution 512, 4K synthetic source, null sink, FRAMES frames: exit 0,
-    24 biased K2 and one K1 a frame in the warm-up and the run;
+    24 K2 (table entry) and one K1 a frame in the warm-up and the run;
 37. a real-shape dpt-beit-base-384 checkpoint in the HF naming (seeded,
     F16) written by the port's writer: `build_bound(..., checkpoint=path)`
     on the card holds exactly the CPU load's tensors, and `cli.run --model
     dpt-beit-base-384 --checkpoint <file>` runs FRAMES 4K frames into the
-    null sink (12 biased K2 and one K1 a frame).
+    null sink (12 K2 through the table entry and one K1 a frame).
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -163,9 +171,12 @@ trace_da3_full_outputs.json and trace_beit.json.  Each kernels entry's
 `launches_by_path` holds each path's count from its own run (the
 flagship's, DA3-LARGE's, the remote Half-SBS run's and the classic DPT
 paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths), and
-`launches` their sum.  K2's biased entry point has an entry of its own,
-`attention_bias`, timed at BEiT-L's [1, 577, 16, 64] with its [16, 577, 577]
-bf16 bias beside SDPA with the same bias as a float `attn_mask`.
+`launches` their sum.  K2's two biased entry points have entries of their
+own: `attention_relpos` (the table entry, launched by the BEiT paths),
+timed at BEiT-L's [1, 577, 16, 64] with an 18x32 grid's [16, 2208] bf16
+table, and `attention_bias` (the dense entry, launched by the dense-bias
+API in phase 31), timed there with the [16, 577, 577] bf16 bias; both
+beside SDPA with the dense bias as a float `attn_mask`.
 """
 
 from __future__ import annotations
@@ -185,6 +196,9 @@ EYE = (FRAME_SHAPE[0], FRAME_SHAPE[1] // 2)
 FULL = FRAME_SHAPE[:2]               # the generic tail's eyes: full width
 ATTN_SHAPE = (1, 778, 16, 64)        # ViT-L/14 at 294x518: 21*37 + 1 tokens
 BIAS_ATTN_SHAPE = (1, 577, 16, 64)   # BEiT-L/16 at 288x512: 18*32 + 1 tokens
+# the table entry's parity grids: BEiT-L @512 (16:9 and 4:3 captures), the 32x32
+# pretraining window, and ragged N = 2, 19, 64, 129 about the 64/128-row tiles
+RELPOS_GRIDS = ((18, 32), (24, 32), (32, 32), (1, 1), (3, 6), (7, 9), (8, 16))
 FRAMES = 30
 TIMED_RUNS = 25
 SEED = 0
@@ -354,7 +368,7 @@ def time_both(torch, fns):
 # names, then library kernels by name; memcpy and memset activity is "copies"
 TRACE_GROUPS = (
     ("K1 dibr_pair", r"\bdibr_pair_kernel\b"),
-    ("K2 attention", r"\battention_fwd_kernel\b"),
+    ("K2 attention", r"\battention_fwd_kernel(_relpos)?\b"),
     ("K3 warp", r"\bwarp_kernel\b"),
     ("K4 quant_matmul", r"\b(quantize_rows_kernel|quant_gemm_kernel)\b"),
     ("K5 dibr_fill", r"\bdibr_fill_kernel\b"),
@@ -542,11 +556,12 @@ def zero_counts(counters) -> None:
 
 
 def read_counts(counters) -> dict:
-    """Each kernel's launches, and K2's biased entry's apart (also counted
-    under "attention")."""
+    """Each kernel's launches, and K2's dense-bias and table entries' apart
+    (also counted under "attention")."""
     counts = {n: k.launches for n, k in counters.items()}
-    counts["attention_bias"] = counters["attention"].entry_launches.get(
-        "d2s_attention_bias_fwd", 0)
+    entries = counters["attention"].entry_launches
+    counts["attention_bias"] = entries.get("d2s_attention_bias_fwd", 0)
+    counts["attention_relpos"] = entries.get("d2s_attention_relpos_fwd", 0)
     return counts
 
 
@@ -667,13 +682,13 @@ class CliRun:
         return rc
 
     def check_launches(self, name, layers, warm_frames, biased=False):
-        """`layers` K2 (all of them biased where `biased`) and one K1 per frame
-        run, none of the others, in the warm-up (`warm_frames` frames) and in
-        the run."""
+        """`layers` K2 (all of them through the table entry where `biased`,
+        none through the dense-bias entry) and one K1 per frame run, none of
+        the others, in the warm-up (`warm_frames` frames) and in the run."""
         eng = self.engine
         run_counts = {n: self.counts[n] - self.warm_counts[n] for n in self.counts}
         want = {n: 0 for n in self.counts}
-        want.update(attention=layers, dibr_pair=1, attention_bias=layers if biased else 0)
+        want.update(attention=layers, dibr_pair=1, attention_relpos=layers if biased else 0)
         log(f"[cli] {name}: launches in the warm-up " + ", ".join(
             f"{n} {c} (want {want[n] * warm_frames})" for n, c in self.warm_counts.items())
             + f"; in the run of {eng.frames} frames " + ", ".join(
@@ -1945,12 +1960,16 @@ def beit_hf_arrays(np, spec, seed: int):
 def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames,
                        counters, policy, dev, card, out_dir):
     """31-37: the classic DPT family at 4K Half-SBS (the fused tail):
-    dpt-beit-large-512 (biased K2, the carried biases), dpt-large,
+    dpt-beit-large-512 (K2's table entry, the carried tables), dpt-large,
     dpt-hybrid-midas, dpt-dinov2-giant-kitti, int8 dpt-beit-large-512, each
     with exact launches and (but int8) a small-frame reference; the CLI on
     the BEiT flagship; a real-shape dpt-beit-base-384 checkpoint."""
     from desktop2stereo_tpu_torch.models import beit as D_BEIT
+    from desktop2stereo_tpu_torch.ops.attention import multi_head_attention
+    from desktop2stereo_tpu_torch.ops.kernels import attention as K2
     from desktop2stereo_tpu_torch.ops.quant import QuantLinear
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
 
     out = {}
     shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
@@ -1969,8 +1988,8 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
         net, spec, build_s = build(name, quant=quant)
         layers = len(net.backbone.layer if hasattr(net, "backbone") else net.layer)
         want = {"attention": layers, "dibr_pair": 1, **kw}
-        if biased:
-            want["attention_bias"] = layers
+        if biased:  # every K2 launch through the table entry, none through the dense one
+            want["attention_relpos"] = layers
         cfg = drive(key, net, "Half-SBS", "high", shape, want, net_spec=spec,
                     n_frames=n_frames, res=res)
         program = driven.pop(key)
@@ -2000,17 +2019,17 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
                                 cpu_prog, small[i]) for i in range(n_frames)]
         return refs, cpu_net
 
-    # -- 31. dpt-beit-large-512 @512: biased K2, the carried biases ----------
+    # -- 31. dpt-beit-large-512 @512: K2's table entry, the carried tables -----
     net, spec, cfg, rep, model_in = path("beit", BEIT_MODEL, BEIT_RES, BEIT_INPUT, FRAMES,
                                          biased=True)
     calls = []
-    make_biases = D_BEIT.compute_rel_pos_biases
+    make_tables = D_BEIT.compute_rel_pos_tables
 
     def counted(*args):
         calls.append(args[1:])
-        return make_biases(*args)
+        return make_tables(*args)
 
-    D_BEIT.compute_rel_pos_biases = counted
+    D_BEIT.compute_rel_pos_tables = counted
     try:
         prog = programs.ProgramCache(cfg, net, spec, compute_dtype=policy.compute_dtype)
         for i in range(4):  # first, then steps through a live display-mode switch
@@ -2023,33 +2042,61 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
         prog(frames[0][:, : FRAME_SHAPE[1] * 3 // 4])  # 4:3: another output size and carry
         torch.cuda.synchronize()
     finally:
-        D_BEIT.compute_rel_pos_biases = make_biases
+        D_BEIT.compute_rel_pos_tables = make_tables
     carry_mb = sum(t.numel() * t.element_size() for t in carry) / 1e6
+    dense_mb = rep["layers"] * 16 * 577 * 577 * 2 / 1e6  # what PR 10's dense carry held
     other = next(v.model for k, v in prog._states.items() if k != key)
+    R = K2.relative_position_count(18, 32)
     ok = (calls_one == 1 and len(calls) == 2 and len(carry) == rep["layers"]
-          and all(t.shape == (16, 577, 577) and t.dtype == policy.compute_dtype
+          and all(t.shape == (16, R) and t.dtype == policy.compute_dtype
                   and t.is_contiguous() for t in carry)
-          and prog._states[key].model is carry and other[0].shape != carry[0].shape)
+          and prog._states[key].model is carry
+          and other[0].shape == (16, K2.relative_position_count(24, 32)))
     with torch.inference_mode():  # the once-per-shape cost of building the carry
         times = []
         for _ in range(6):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            make_biases(net.backbone, 18, 32)
+            make_tables(net.backbone, 18, 32)
             ev[1].record()
             ev[1].synchronize()
             times.append(ev[0].elapsed_time(ev[1]))
-    rep.update(carry_mb=carry_mb, carry_tensors=len(carry), bias_builds=len(calls),
+    rep.update(carry_mb=carry_mb, carry_tensors=len(carry), table_builds=len(calls),
                carry_build_ms=statistics.median(times[1:]))
-    log(f"[beit] carry: compute_rel_pos_biases ran {calls_one} time(s) over 4 frames of one "
+    log(f"[beit] carry: compute_rel_pos_tables ran {calls_one} time(s) over 4 frames of one "
         f"stream (first, step, a live switch to Half-TAB, step) and {len(calls)} with a 4:3 "
-        f"capture after them (grids {[c[:2] for c in calls]}); {len(carry)} biases "
-        f"{list(carry[0].shape)} {str(carry[0].dtype)[6:]}, {carry_mb:.1f} MB, built in "
-        f"{rep['carry_build_ms']:.3f} ms (CUDA events, median of 5) {'ok' if ok else 'FAIL'}; "
-        f"{card}")
+        f"capture after them (grids {[c[:2] for c in calls]}); {len(carry)} tables "
+        f"{list(carry[0].shape)} {str(carry[0].dtype)[6:]}, {carry_mb:.3f} MB (the dense "
+        f"biases were {dense_mb:.1f} MB), built in {rep['carry_build_ms']:.3f} ms (CUDA "
+        f"events, median of 5) {'ok' if ok else 'FAIL'}; {card}")
     if not ok:
-        raise AssertionError("beit: the biases were not built once per stream and size")
-    del prog, carry, other
+        raise AssertionError("beit: the tables were not built once per stream and size")
+
+    # the dense-bias API (the JAX package's `multi_head_attention(..., bias=)`):
+    # the 24 carried tables expanded, each through the dense entry, against
+    # the table entry on the same q/k/v; counts set to 0 before, read after
+    B, N, H, D = BIAS_ATTN_SHAPE
+    with torch.inference_mode():
+        q, k, v = (torch.randn(B, N, H, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        dense = [K2.expand_rel_pos(t, 18, 32) for t in carry]
+        zero_counts(counters)
+        by_dense = [multi_head_attention(q, k, v, bias=b) for b in dense]
+        by_table = [multi_head_attention(q, k, v, rel_pos=(t, 18, 32)) for t in carry]
+        torch.cuda.synchronize()
+        api_counts = read_counts(counters)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(by_dense, by_table))
+    ok = (api_counts["attention_bias"] == rep["layers"]
+          and api_counts["attention_relpos"] == rep["layers"] and diff <= ATTN_MAX_ABS)
+    log(f"[beit] the dense-bias API on the {rep['layers']} layers' expanded tables: launches "
+        f"attention_bias {api_counts['attention_bias']}, attention_relpos "
+        f"{api_counts['attention_relpos']}; the two entries differ by at most {diff:.3e} "
+        f"({'equal' if all(torch.equal(a, b) for a, b in zip(by_dense, by_table)) else 'NOT equal'}"
+        f") {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("beit: the dense-bias API and the table entry disagree")
+    paths["beit_dense_api"] = dict(launches=api_counts, max_abs_vs_table=diff)
+    del prog, carry, other, q, k, v, dense, by_dense, by_table
     rep["trace"] = trace("beit", net, spec, cfg, "engine",
                          {"K2 attention": rep["layers"], "K1 dibr_pair": 1})
     rep["reference"], _ = reference(BEIT_MODEL, net, cfg, n_frames=2)
@@ -2217,7 +2264,8 @@ def main() -> int:
 
     report = {}
     # launch counters by kernel (K1's two entry points share one; read_counts
-    # adds K2's biased entry as "attention_bias")
+    # adds K2's dense-bias and table entries as "attention_bias" and
+    # "attention_relpos")
     counters = {"attention": K2.KERNEL, "dibr_pair": K1.KERNEL, "warp": K3.KERNEL,
                 "dibr_fill": K5.KERNEL, "quant_matmul": K4.KERNEL}
 
@@ -2309,10 +2357,10 @@ def main() -> int:
         if not ok:
             raise AssertionError("attention kernel disagrees with its plain version")
 
-    # the biased entry: BEiT-L's shape as BEiT gives it (three contiguous
-    # products: query, key, value) and as qkv views, and ragged N on either
-    # side of the tiles; the bias in bf16 (as the model carries it) and in
-    # f32, scaled so that it moves the softmax
+    # the dense-bias entry: BEiT-L's shape with BEiT's layout (three
+    # contiguous products: query, key, value) and as qkv views, and ragged N
+    # on either side of the tiles; the bias in bf16 and in f32, scaled so
+    # that it moves the softmax
     worst["attention_bias"] = 0.0
     for shape, views in ((BIAS_ATTN_SHAPE, False), (BIAS_ATTN_SHAPE, True),
                          ((2, 1, 4, 64), True), ((2, 63, 4, 64), True),
@@ -2339,6 +2387,63 @@ def main() -> int:
                 f"the plain output by up to {moved:.3f} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("biased attention kernel disagrees with its plain version")
+
+    # the table entry: BEiT-L @512's 18x32 grid (577 tokens), the 4:3
+    # capture's 24x32, the 32x32 pretraining window, and ragged N = 2, 19, 64,
+    # 129; contiguous q/k/v (BEiT's three products) and qkv views; the table
+    # in bf16 (as the model carries it) and in f32.  Against the plain version
+    # and against the dense entry on the expanded bias (the same f32 operands
+    # and operations, so equal bit for bit)
+    worst["attention_relpos"] = 0.0
+    relpos_vs_dense = 0.0
+    for (gh, gw) in RELPOS_GRIDS:
+        N = gh * gw + 1
+        B, H = (1, 16) if N > 500 else (2, 4)
+        R = K2.relative_position_count(gh, gw)
+        for views in (False, True):
+            if views:
+                qkv = torch.randn(B, N, 3 * H * 64, generator=gen, device=dev).to(torch.bfloat16)
+                q, k, v = (t.unflatten(-1, (H, 64)) for t in qkv.split(H * 64, dim=-1))
+            else:
+                q, k, v = (torch.randn(B, N, H, 64, generator=gen, device=dev).to(torch.bfloat16)
+                           for _ in range(3))
+            for tdt in (torch.bfloat16, torch.float32):
+                table = (2.0 * torch.randn(H, R, generator=gen, device=dev)).to(tdt)
+                got = K2.attention_relpos(q, k, v, table, gh, gw)
+                dense = K2.expand_rel_pos(table, gh, gw)
+                want = K2.attention_ref(q.float(), k.float(), v.float(), dense.float())
+                same = K2.attention(q, k, v, dense)
+                plain = K2.attention_ref(q.float(), k.float(), v.float())
+                moved = (want - plain).abs().max().item()
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                vs_dense = (got.float() - same.float()).abs().max().item()
+                worst["attention_relpos"] = max(worst["attention_relpos"], err)
+                relpos_vs_dense = max(relpos_vs_dense, vs_dense)
+                ok = (err <= ATTN_MAX_ABS and vs_dense <= ATTN_MAX_ABS and got.shape == q.shape
+                      and (N == 1 or moved > 0.1))
+                log(f"[parity] attention_relpos {gh}x{gw} [{B},{N},{H},64] "
+                    f"{'qkv views' if views else 'contiguous'} + {str(tdt)[6:]} table [{H},{R}]: "
+                    f"max abs err {err:.3e} (tol {ATTN_MAX_ABS:.0e}); against the dense entry "
+                    f"max abs {vs_dense:.3e} ({'equal' if torch.equal(got, same) else 'NOT equal'}"
+                    f"); the bias moves the plain output by up to {moved:.3f} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("table attention kernel disagrees with its plain version")
+    relpos_info = {}
+    for entry, f32 in (("attention", False), ("attention_bias", False), ("attention_bias", True),
+                       ("attention_relpos", False), ("attention_relpos", True)):
+        info = K2.kernel_info(entry, f32, BIAS_ATTN_SHAPE[1], K2.relative_position_count(18, 32))
+        relpos_info[f"{entry}{' f32' if f32 else ''}"] = info
+        log(f"[kernel] {entry}{' f32' if f32 else ''} at [1, 577, 16, 64]: {info['registers']} "
+            f"registers, {info['local_bytes']} local (spill) bytes a thread, "
+            f"{info['smem_bytes']} bytes of dynamic shared memory, {info['blocks_per_sm']} "
+            f"resident blocks an SM (cudaFuncGetAttributes, "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        if entry == "attention_relpos" and (info["local_bytes"] or info["blocks_per_sm"] < 2):
+            raise AssertionError(f"attention_relpos: spills or fewer than two blocks an SM: {info}")
+    report["attention_kernel_info"] = relpos_info
+    report["relpos_vs_dense_max_abs"] = relpos_vs_dense
 
     def fast_px(dep):
         """The fast compositor's reflected warp position, left eye."""
@@ -2460,7 +2565,7 @@ def main() -> int:
                                               4 * B * H * N * N * D, "bf16"))
     del qkv, q, k, v, qh, kh, vh
 
-    # the biased entry at BEiT-L's shape; the yardstick is SDPA with the same
+    # the dense-bias entry at BEiT-L's shape; the yardstick is SDPA with the same
     # bias as a float mask, added to the scaled logits as the kernel adds it
     B, N, H, D = BIAS_ATTN_SHAPE
     qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
@@ -2476,7 +2581,27 @@ def main() -> int:
         t, shape=f"{list(BIAS_ATTN_SHAPE)} bf16 qkv views + bf16 bias [{H},{N},{N}]",
         bound=bound_ms(policy.name, 4 * B * N * H * D * 2 + H * N * N * 2,
                        4 * B * H * N * N * D, "bf16"))
-    del qkv, q, k, v, qh, kh, vh, bias, mask
+    del bias, mask
+
+    # the table entry at the same shape with a bf16 table of the 18x32 grid,
+    # in turns with the dense entry on its expansion, SDPA with that
+    # expansion as a float mask (the library yardstick), the unbiased entry
+    # and the plain version; its bound reads q/k/v/out and the table once
+    R = K2.relative_position_count(18, 32)
+    table = (2.0 * torch.randn(H, R, generator=gen, device=dev)).to(torch.bfloat16)
+    bias = K2.expand_rel_pos(table, 18, 32)
+    mask = bias[None]
+    t = time_both(torch, {
+        "plain": lambda: K2.attention_relpos_ref(q, k, v, table, 18, 32),
+        "kernel": lambda: K2.attention_relpos(q, k, v, table, 18, 32),
+        "library": lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+        "dense": lambda: K2.attention(q, k, v, bias),
+        "unbiased": lambda: K2.attention(q, k, v)})
+    timing["attention_relpos"] = dict(
+        t, shape=f"{list(BIAS_ATTN_SHAPE)} bf16 qkv views + bf16 table [{H},{R}] (18x32)",
+        bound=bound_ms(policy.name, 4 * B * N * H * D * 2 + H * R * 2,
+                       4 * B * H * N * N * D, "bf16"))
+    del qkv, q, k, v, qh, kh, vh, bias, mask, table
 
     rng = np.random.default_rng(2)
     img = torch.from_numpy(rng.random((*FULL, 3), dtype=np.float32) * 255).to(dev)
@@ -2528,6 +2653,10 @@ def main() -> int:
         ea = tm["eager"]
         lib = (f", library {tm['library']:.4f} (eager {ea['library']:.4f})"
                if tm.get("library") is not None else "")
+        if "dense" in tm:
+            lib += (f" (SDPA with the dense bias as a float mask); the dense entry "
+                    f"{tm['dense']:.4f} (eager {ea['dense']:.4f}), the unbiased entry "
+                    f"{tm['unbiased']:.4f} (eager {ea['unbiased']:.4f})")
         if "kernel_int32" in tm:
             lib += (f" (torch._int_mm on int8 x; K4's int32 mode with row_scale 1 "
                     f"{tm['kernel_int32']:.4f}), bf16 F.linear {tm['linear_bf16']:.4f} "
@@ -2848,7 +2977,9 @@ def main() -> int:
                                        "dpt_dinov2"),
                             **remote_launches("attention", "xr_raw")}),
         entry("attention_bias", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention_bias", launches("attention_bias", "beit", "beit_int8")),
+              "attention_bias", launches("attention_bias", "beit_dense_api")),
+        entry("attention_relpos", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_relpos", launches("attention_relpos", "beit", "beit_int8")),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
               launches("warp", "generic_fast")),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",

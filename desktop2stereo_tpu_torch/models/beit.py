@@ -12,20 +12,22 @@ plain ViT:
   `lambda_1` / `lambda_2`;
 - the neck takes the raw (pre-norm) hidden states at `out_indices`.
 
-The bias goes into the attention kernel (K2's biased entry point) as an
-additive operand.  It depends on the weights and the grid only, so the
-streaming functions build every layer's bias once per capture shape
-(`first`, through `compute_rel_pos_biases`) and carry them from frame to
-frame (`step`), as the JAX package's `make_beit_stream_fns` does; a call
-without biases (the parity path) builds each layer's own.
+The bias never exists as an [H, N+1, N+1] tensor on the frame path: each
+layer hands the attention its interpolated table, transposed to [H, R]
+(`multi_head_attention(..., rel_pos=(table, gh, gw))`), and K2's table
+entry gathers the bias from it in shared memory.  The tables depend on the
+weights and the grid only, so the streaming functions build every layer's
+table once per capture shape (`first`, through `compute_rel_pos_tables`:
+1.70 MB for BEiT-L at 18×32 in bf16) and carry them from frame to frame
+(`step`), where the JAX package's `make_beit_stream_fns` carries the dense
+biases; a call without tables (the parity path) builds each layer's own.
+`build_rel_pos_bias`, the dense expansion, is the plain oracle.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -34,7 +36,8 @@ from desktop2stereo_tpu_torch.models.dinov2 import _dense
 from desktop2stereo_tpu_torch.models.dpt_vit import (
     VIT_LN_EPS, ClassicDPTDecoder, patch_tokens, with_cls)
 from desktop2stereo_tpu_torch.ops.activations import gelu
-from desktop2stereo_tpu_torch.ops.attention import multi_head_attention
+from desktop2stereo_tpu_torch.ops.attention import (  # noqa: F401 (the index map, one copy)
+    _relative_position_index, expand_rel_pos, multi_head_attention)
 from desktop2stereo_tpu_torch.ops.resize import resize
 
 # name → (hidden, layers, heads, mlp, out_indices, pretrain_window)
@@ -44,41 +47,12 @@ BEIT_PRESETS = {
 }
 
 
-def _relative_position_index(wh: int, ww: int) -> np.ndarray:
-    """[(wh·ww+1)²] flat index map into the bias table (HF modeling_beit.py
-    generate_relative_position_index)."""
-    num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
-    yy, xx = np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij")
-    coords = np.stack([yy.reshape(-1), xx.reshape(-1)])  # [2, N]
-    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0).astype(np.int64)
-    rel[:, :, 0] += wh - 1
-    rel[:, :, 1] += ww - 1
-    rel[:, :, 0] *= 2 * ww - 1
-    area = wh * ww
-    index = np.zeros((area + 1, area + 1), dtype=np.int64)
-    index[1:, 1:] = rel.sum(-1)
-    index[0, :] = num_rel - 3
-    index[:, 0] = num_rel - 2
-    index[0, 0] = num_rel - 1
-    return index.reshape(-1)
-
-
-@functools.lru_cache(maxsize=8)
-def _index_on(gh: int, gw: int, device: torch.device) -> torch.Tensor:
-    """The index map as a tensor on `device`, built once per grid (every
-    layer gathers with it).  Made outside inference mode, so that a map
-    first built under `torch.inference_mode` also serves callers outside
-    it."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_relative_position_index(gh, gw)).to(device)
-
-
-def build_rel_pos_bias(table: torch.Tensor, gh: int, gw: int, pretrain_window: int,
-                       num_heads: int) -> torch.Tensor:
-    """One layer's table [(2W-1)²+3, H] → contiguous bias [H, N+1, N+1] for a
-    gh × gw grid, in the table's dtype.  Off the pretraining window the
-    (2W-1)² part is resized bilinearly in f32 to (2gh-1) × (2gw-1), as HF
-    BeitRelativePositionBias does."""
+def interpolate_rel_pos_table(table: torch.Tensor, gh: int, gw: int, pretrain_window: int,
+                              num_heads: int) -> torch.Tensor:
+    """One layer's table [(2W-1)²+3, H] → the contiguous [H, R] table of a
+    gh × gw grid, R = (2gh-1)(2gw-1) + 3, in the table's dtype.  Off the
+    pretraining window the (2W-1)² part is resized bilinearly in f32 to
+    (2gh-1) × (2gw-1), as HF BeitRelativePositionBias does."""
     M = pretrain_window
     n_rel = (2 * M - 1) ** 2
     if (gh, gw) != (M, M):
@@ -87,16 +61,23 @@ def build_rel_pos_bias(table: torch.Tensor, gh: int, gw: int, pretrain_window: i
         sub = resize(sub, (new_h, new_w), mode="bilinear")
         table = torch.cat([sub.reshape(new_h * new_w, num_heads),
                            table[n_rel:].float()]).to(table.dtype)
-    n = gh * gw + 1
-    return table[_index_on(gh, gw, table.device)].reshape(n, n, num_heads).permute(
-        2, 0, 1).contiguous()
+    return table.t().contiguous()
 
 
-def compute_rel_pos_biases(backbone: "BeitEncoder", gh: int, gw: int) -> List[torch.Tensor]:
-    """Every layer's bias for one grid: what the streaming `first` builds
-    once per capture shape and `step` reuses."""
-    return [build_rel_pos_bias(layer.relative_position_bias.relative_position_bias_table,
-                               gh, gw, backbone.pretrain_window, backbone.num_heads)
+def build_rel_pos_bias(table: torch.Tensor, gh: int, gw: int, pretrain_window: int,
+                       num_heads: int) -> torch.Tensor:
+    """One layer's table [(2W-1)²+3, H] → contiguous bias [H, N+1, N+1] for a
+    gh × gw grid, in the table's dtype: the interpolated table expanded
+    through the index map (the plain oracle of the table entry)."""
+    return expand_rel_pos(interpolate_rel_pos_table(table, gh, gw, pretrain_window, num_heads),
+                          gh, gw)
+
+
+def compute_rel_pos_tables(backbone: "BeitEncoder", gh: int, gw: int) -> List[torch.Tensor]:
+    """Every layer's [H, R] table for one grid: what the streaming `first`
+    builds once per capture shape and `step` reuses."""
+    return [interpolate_rel_pos_table(layer.relative_position_bias.relative_position_bias_table,
+                                      gh, gw, backbone.pretrain_window, backbone.num_heads)
             for layer in backbone.layer]
 
 
@@ -129,15 +110,16 @@ class BeitLayer(nn.Module):
         self.lambda_2 = nn.Parameter(torch.ones(D))
 
     def forward(self, x: torch.Tensor, gh: int, gw: int,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, D = x.shape
-        if bias is None:  # the parity path; the frame program carries the biases
-            bias = build_rel_pos_bias(self.relative_position_bias.relative_position_bias_table,
-                                      gh, gw, self.pretrain_window, self.num_heads)
+        if table is None:  # the parity path; the frame program carries the tables
+            table = interpolate_rel_pos_table(
+                self.relative_position_bias.relative_position_bias_table, gh, gw,
+                self.pretrain_window, self.num_heads)
         h = self.norm1(x)
         q, k, v = (f(h).unflatten(-1, (self.num_heads, D // self.num_heads))
                    for f in (self.query, self.key, self.value))
-        out = self.proj(multi_head_attention(q, k, v, bias=bias).reshape(B, N, D))
+        out = self.proj(multi_head_attention(q, k, v, rel_pos=(table, gh, gw)).reshape(B, N, D))
         x = x + out * self.lambda_1.to(x.dtype)
         h = self.fc2(gelu(self.fc1(self.norm2(x))))
         return x + h * self.lambda_2.to(x.dtype)
@@ -166,13 +148,13 @@ class BeitEncoder(nn.Module):
         return pixels.shape[1] // self.patch_size, pixels.shape[2] // self.patch_size
 
     def forward(self, pixels: torch.Tensor,
-                biases: Optional[Sequence[torch.Tensor]] = None):
+                tables: Optional[Sequence[torch.Tensor]] = None):
         gh, gw = self.grid(pixels)
         x = with_cls(patch_tokens(pixels, self.patch_kernel, self.patch_bias, self.patch_size),
                      self.cls_token)
         feats = []
         for i, layer in enumerate(self.layer):
-            x = layer(x, gh, gw, None if biases is None else biases[i])
+            x = layer(x, gh, gw, None if tables is None else tables[i])
             if i in self.out_indices:
                 feats.append(x)
         return feats, gh, gw
@@ -181,8 +163,8 @@ class BeitEncoder(nn.Module):
 class DPTBEiT(nn.Module):
     """pixels [B,H,W,3] (normalized) → MiDaS disparity [B,h',w'] at the
     head's resolution.  Stateful for the frame program: `first(pixels)` →
-    (depth, the layers' biases) and `step(pixels, biases)` → (depth, the
-    same biases).  `quant=True` makes query, key, value, proj, fc1 and fc2
+    (depth, the layers' [H, R] relative-position tables) and `step(pixels,
+    tables)` → (depth, the same tables).  `quant=True` makes query, key, value, proj, fc1 and fc2
     of every layer int8 (K4)."""
 
     def __init__(self, preset: str, neck_channels: Sequence[int], fusion_channels: int,
@@ -199,14 +181,14 @@ class DPTBEiT(nn.Module):
                    patch_size=spec.patch_size, quant=quant)
 
     def forward(self, pixels: torch.Tensor,
-                biases: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        feats, gh, gw = self.backbone(pixels, biases)
+                tables: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        feats, gh, gw = self.backbone(pixels, tables)
         return self.decoder(feats, gh, gw)
 
     def first(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        biases = tuple(compute_rel_pos_biases(self.backbone, *self.backbone.grid(pixels)))
-        return self(pixels, biases), biases
+        tables = tuple(compute_rel_pos_tables(self.backbone, *self.backbone.grid(pixels)))
+        return self(pixels, tables), tables
 
-    def step(self, pixels: torch.Tensor, biases: Tuple[torch.Tensor, ...]
+    def step(self, pixels: torch.Tensor, tables: Tuple[torch.Tensor, ...]
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        return self(pixels, biases), biases
+        return self(pixels, tables), tables

@@ -181,8 +181,9 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
     hit the weights are drawn from `seed`.  A `checkpoint` that does not
     exist raises FileNotFoundError.  A vda or dpt_beit model is stateful: it
     exposes `first(pixels)` and `step(pixels, carry)` beside `forward` (VDA
-    carries its temporal window, DPT-BEiT its layers' relative-position
-    biases).
+    carries its temporal window, DPT-BEiT its layers' interpolated
+    relative-position tables, [H, R] each, which the attention kernel
+    gathers its bias from).
 
     `device=None` is the CUDA device policy's (`cuda_policy()`, which raises
     without CUDA); a caller that wants the CPU says so.  `dtype=None` is the

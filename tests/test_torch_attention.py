@@ -1,7 +1,8 @@
 """The port's attention against the JAX package's, on the CPU in f32.
 
-On the CPU the port's attention runs its plain version, `attention_ref`;
-the CUDA kernel it stands beside is checked on the card (test_torch_cuda.py
+On the CPU the port's attention runs its plain versions, `attention_ref`
+and `attention_relpos_ref` (BEiT's relative-position bias from its table);
+the CUDA kernel they stand beside is checked on the card (test_torch_cuda.py
 and chip_smoke.py).
 """
 
@@ -10,6 +11,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import desktop2stereo_tpu.models.beit as J_beit
 from desktop2stereo_tpu.ops.attention import xla_attention
 from desktop2stereo_tpu.ops.pallas.flash_attention import flash_attention
 from desktop2stereo_tpu_torch.ops.attention import attention_ref, multi_head_attention
@@ -128,3 +130,143 @@ def test_kernel_input_checks_refuse_a_bad_bias(bias, match):
     q = _bf16((1, 8, 2, 64))
     with pytest.raises(ValueError, match=match):
         K.check_inputs(q, q, q, bias())
+
+
+# ---- the table entry (BEiT's relative-position bias gathered from its table) ------------
+
+RELPOS_GRIDS = [(1, 1), (1, 7), (5, 1), (3, 6), (18, 32), (24, 32), (32, 32)]
+
+
+def _kernel_index(gh, gw):
+    """The index map as the table entry computes it (csrc/attention.cu):
+    for patch t-1 at (y, x) = ((t-1) // gw, (t-1) % gw), a_i = (y_i + gh -
+    1)(2gw - 1) + x_i + gw - 1 and b_j = y_j (2gw - 1) + x_j (b_0 = 0);
+    idx = a_i - m_i·b_j with a = R-3 and m = 0 on the cls row; key 0's cls
+    entry (R-1 on the cls row, R-2 elsewhere) put in by a select."""
+    R = K.relative_position_count(gh, gw)
+    p = np.arange(gh * gw)
+    y, x = p // gw, p % gw
+    a = np.concatenate([[R - 3], (y + gh - 1) * (2 * gw - 1) + x + gw - 1])
+    b = np.concatenate([[0], y * (2 * gw - 1) + x])
+    m = np.ones_like(a)
+    m[0] = 0
+    index = a[:, None] - m[:, None] * b[None, :]
+    index[:, 0] = R - 2
+    index[0, 0] = R - 1
+    return index
+
+
+@pytest.mark.parametrize("grid", RELPOS_GRIDS, ids=[f"{h}x{w}" for h, w in RELPOS_GRIDS])
+def test_closed_form_index_equals_the_index_map(grid):
+    """a_i - b_j and the three cls entries equal HF's index map, the port's
+    copy and the JAX package's, entry for entry."""
+    gh, gw = grid
+    n = gh * gw + 1
+    got = _kernel_index(gh, gw)
+    assert got.shape == (n, n)
+    np.testing.assert_array_equal(got.reshape(-1), K._relative_position_index(gh, gw))
+    np.testing.assert_array_equal(got.reshape(-1), J_beit._relative_position_index(gh, gw))
+    assert got.min() >= 0 and got.max() == K.relative_position_count(gh, gw) - 1
+
+
+def _table(H, gh, gw, seed):
+    return 2.0 * np.random.default_rng(seed).standard_normal(
+        (H, K.relative_position_count(gh, gw))).astype(np.float32)
+
+
+def _jax_dense_bias(table, gh, gw):
+    """JAX's gather of an [H, R] table through JAX's index map, as
+    `build_rel_pos_bias` does on the pretraining window."""
+    n = gh * gw + 1
+    bias = jnp.take(jnp.asarray(table.T), jnp.asarray(J_beit._relative_position_index(gh, gw)),
+                    axis=0)
+    return bias.reshape(n, n, table.shape[0]).transpose(2, 0, 1)
+
+
+@pytest.mark.parametrize("grid,B,H", [((1, 1), 2, 2), ((3, 6), 2, 3), ((5, 1), 1, 4),
+                                      ((4, 4), 1, 2), ((2, 7), 2, 2)],
+                         ids=["1x1", "3x6", "5x1", "4x4", "2x7"])
+def test_attention_relpos_ref_matches_the_dense_bias_and_xla(grid, B, H):
+    """The plain version equals `attention_ref` on the dense expansion bit
+    for bit, and JAX's `xla_attention` on JAX's gather of the same table."""
+    gh, gw = grid
+    n = gh * gw + 1
+    q, k, v = _qkv((B, n, H, 64), seed=gh * 10 + gw)
+    table = _table(H, gh, gw, seed=gh + gw)
+    tq, tk, tv, tt = map(torch.from_numpy, (q, k, v, table))
+    got = K.attention_relpos_ref(tq, tk, tv, tt, gh, gw)
+    dense = K.expand_rel_pos(tt, gh, gw)
+    assert dense.shape == (H, n, n) and dense.is_contiguous()
+    assert torch.equal(got, attention_ref(tq, tk, tv, dense))
+    jbias = _jax_dense_bias(table, gh, gw)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(jbias))
+    want = np.asarray(xla_attention(*map(jnp.asarray, (q, k, v)), bias=jbias))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    if gh == gw:  # on the pretraining window JAX's own builder takes the [R, H] table
+        jb = J_beit.build_rel_pos_bias(jnp.asarray(table.T), gh, gw, gh, H)
+        np.testing.assert_array_equal(dense.numpy(), np.asarray(jb))
+    assert np.abs(got.numpy() - attention_ref(tq, tk, tv).numpy()).max() > 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_dispatch_takes_the_plain_version_with_a_table(dtype):
+    gh, gw = 3, 4
+    q, k, v = (t.to(dtype) for t in map(torch.from_numpy, _qkv((2, 13, 2, 64), seed=5)))
+    table = torch.from_numpy(_table(2, gh, gw, seed=6)).to(dtype)
+    launches = K.KERNEL.launches
+    got = multi_head_attention(q, k, v, rel_pos=(table, gh, gw))
+    assert torch.equal(got, K.attention_relpos_ref(q, k, v, table, gh, gw))
+    assert torch.equal(got, K.attention_relpos(q, k, v, table, gh, gw))
+    assert K.KERNEL.launches == launches and got.dtype == dtype
+
+
+def test_table_entry_refuses_mixed_devices_and_a_bias_beside_it():
+    q = torch.zeros(1, 5, 2, 64)
+    table = torch.zeros(2, K.relative_position_count(2, 2), device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        K.attention_relpos(q, q, q, table, 2, 2)
+    with pytest.raises(ValueError, match="not both"):
+        multi_head_attention(q, q, q, bias=torch.zeros(2, 5, 5),
+                             rel_pos=(torch.zeros(2, K.relative_position_count(2, 2)), 2, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", [(18, 32), (24, 32), (32, 32), (1, 1)],
+                         ids=["18x32", "24x32", "32x32", "1x1"])
+def test_kernel_input_checks_accept_a_table(grid, dtype):
+    gh, gw = grid
+    qkv = _bf16((1, gh * gw + 1, 3 * 1024))
+    q, k, v = (t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1))
+    table = torch.zeros(16, K.relative_position_count(gh, gw), dtype=dtype)
+    K.check_inputs(q, k, v, rel_pos=(table, gh, gw))
+
+
+def test_table_entry_shared_memory_at_beit_large():
+    """BEiT-L @512's 18x32 grid: an 8.8 KB f32 row and 5 key tiles of
+    offsets beside the dense entry's 73 KB, two blocks an SM's 228 KB."""
+    smem = K.relpos_smem_bytes(577, 2208)
+    assert smem == 1024 + 8192 + 65536 + 48 + 2208 * 4 + 5 * 128 * 4 == 86192
+    assert 2 * (smem + 1024) <= 233472
+
+
+_R = K.relative_position_count
+
+
+@pytest.mark.parametrize("n,table,grid,match", [
+    (20, lambda: torch.zeros(2, _R(3, 6), dtype=torch.bfloat16), (3, 6), "N = gh·gw"),
+    (19, lambda: torch.zeros(2, _R(3, 6) - 1, dtype=torch.bfloat16), (3, 6), r"\[H, R\]"),
+    (19, lambda: torch.zeros(3, _R(3, 6), dtype=torch.bfloat16), (3, 6), r"\[H, R\]"),
+    (19, lambda: torch.zeros(_R(3, 6), 2, dtype=torch.bfloat16), (3, 6), r"\[H, R\]"),
+    (19, lambda: torch.zeros(2, _R(3, 6), dtype=torch.float16), (3, 6), "bf16 or f32"),
+    (19, lambda: torch.zeros(2, _R(3, 6), dtype=torch.float64), (3, 6), "bf16 or f32"),
+    (19, lambda: torch.zeros(_R(3, 6), 2, dtype=torch.bfloat16).t(), (3, 6), "contiguous"),
+    (19, lambda: torch.zeros(2 * _R(3, 6) + 1, dtype=torch.bfloat16)[1:].view(2, -1), (3, 6),
+     "aligned"),
+    (100 * 100 + 1, lambda: torch.zeros(2, _R(100, 100), dtype=torch.bfloat16), (100, 100),
+     "shared memory"),
+], ids=["wrong-n", "wrong-r", "heads", "untransposed", "f16", "f64", "non-contiguous",
+        "misaligned", "oversize"])
+def test_kernel_input_checks_refuse_a_bad_table(n, table, grid, match):
+    q = _bf16((1, n, 2, 64))
+    with pytest.raises(ValueError, match=match):
+        K.check_inputs(q, q, q, rel_pos=(table(), *grid))

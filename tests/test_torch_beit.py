@@ -1,7 +1,9 @@
 """The port's DPT-BEiT (`models/beit.py`) against the JAX package's, on the
 CPU in f32: the relative-position index and biases (on the pretraining
 window and interpolated off it), the converter, the model, its int8 form,
-and the streaming carry of the layers' biases through `ProgramCache`.
+and the streaming carry through `ProgramCache`.  The port carries each
+layer's interpolated [H, R] table where JAX carries the dense [H, N, N]
+bias; expanded through the index map, the tables equal JAX's biases.
 
 Both sides take one synthetic checkpoint in the Hugging Face naming
 (`torch_classic_dpt.py`) through their own converters, with a tiny preset
@@ -71,16 +73,21 @@ def test_relative_position_index_equals_jax(grid):
 @pytest.mark.parametrize("grid", [(4, 4), (3, 6), (6, 6), (2, 5)],
                          ids=["pretrain-window", "3x6", "6x6", "2x5"])
 def test_compute_rel_pos_biases_equals_jax(beit, grid):
+    """Every layer's [H, R] table, expanded through the index map, equals
+    JAX's dense bias for the grid."""
     params, model = beit
     want = J_beit.compute_rel_pos_biases(params["params"]["backbone"], *grid, WINDOW,
                                          LAYERS, HEADS)
     with torch.no_grad():
-        got = T_beit.compute_rel_pos_biases(model.backbone, *grid)
+        got = T_beit.compute_rel_pos_tables(model.backbone, *grid)
     n = grid[0] * grid[1] + 1
+    R = (2 * grid[0] - 1) * (2 * grid[1] - 1) + 3
     assert len(got) == len(want) == LAYERS
     for g, w in zip(got, want):
-        assert g.shape == w.shape == (HEADS, n, n) and g.is_contiguous()
-        assert rel(g.numpy(), w) < F32_TOL
+        assert g.shape == (HEADS, R) and g.is_contiguous()
+        dense = T_beit.expand_rel_pos(g, *grid)
+        assert dense.shape == w.shape == (HEADS, n, n) and dense.is_contiguous()
+        assert rel(dense.numpy(), w) < F32_TOL
 
 
 def test_rel_pos_bias_keeps_the_table_dtype(beit):
@@ -90,6 +97,47 @@ def test_rel_pos_bias_keeps_the_table_dtype(beit):
             for grid in ((4, 4), (3, 6)):
                 bias = T_beit.build_rel_pos_bias(table.to(dtype), *grid, WINDOW, HEADS)
                 assert bias.dtype == dtype and bias.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", [(4, 4), (3, 6), (18, 32)], ids=["pretrain-window", "3x6",
+                                                                  "18x32"])
+def test_rel_pos_table_is_the_dense_bias_gathered(beit, grid, dtype):
+    """The carried table keeps the parameter's dtype, is [H, R] contiguous
+    (what the kernel's table entry takes), and its expansion is
+    `build_rel_pos_bias` exactly."""
+    table = beit[1].backbone.layer[1].relative_position_bias.relative_position_bias_table
+    with torch.no_grad():
+        t = T_beit.interpolate_rel_pos_table(table.to(dtype), *grid, WINDOW, HEADS)
+        dense = T_beit.build_rel_pos_bias(table.to(dtype), *grid, WINDOW, HEADS)
+    R = (2 * grid[0] - 1) * (2 * grid[1] - 1) + 3
+    assert t.shape == (HEADS, R) and t.dtype == dtype and t.is_contiguous()
+    assert torch.equal(T_beit.expand_rel_pos(t, *grid), dense)
+
+
+@pytest.mark.parametrize("grid", [(4, 4), (3, 6)], ids=["pretrain-window", "3x6"])
+def test_layer_attention_takes_the_table(beit, grid, monkeypatch):
+    """A layer hands the attention its [H, R] table and the grid, never a
+    dense bias, with or without a carried table."""
+    layer = beit[1].backbone.layer[0]
+    seen = []
+    attend = T_beit.multi_head_attention
+
+    def spy(q, k, v, bias=None, rel_pos=None):
+        seen.append((bias, rel_pos))
+        return attend(q, k, v, bias=bias, rel_pos=rel_pos)
+
+    monkeypatch.setattr(T_beit, "multi_head_attention", spy)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, grid[0] * grid[1] + 1, 64)).astype(np.float32))
+    with torch.no_grad():
+        table = T_beit.compute_rel_pos_tables(beit[1].backbone, *grid)[0]
+        out_carried = layer(x, *grid, table)
+        out_own = layer(x, *grid)
+    assert torch.equal(out_carried, out_own) and len(seen) == 2
+    for bias, rel_pos in seen:
+        assert bias is None and rel_pos[1:] == grid
+        assert rel_pos[0].shape == (HEADS, (2 * grid[0] - 1) * (2 * grid[1] - 1) + 3)
 
 
 def test_converter_gives_the_jax_tree():
@@ -111,9 +159,10 @@ def test_dpt_beit_matches_jax(beit, hw):
 
 
 def test_first_and_step_carry_the_biases_as_jax(beit):
-    """`first` builds every layer's bias once and returns them as the carry;
-    `step` takes them and hands the same tensors back; both equal JAX's
-    stream functions and the plain forward."""
+    """`first` builds every layer's [H, R] table once and returns them as the
+    carry; `step` takes them and hands the same tensors back; the frames
+    equal JAX's stream functions and the plain forward, and the tables,
+    expanded through the index map, JAX's carried dense biases."""
     params, model = beit
     first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
     x0, x1 = pixels(24, 48, 96), pixels(25, 48, 96)
@@ -127,7 +176,9 @@ def test_first_and_step_carry_the_biases_as_jax(beit):
     assert torch.equal(td1, plain)
     assert len(carry) == len(jcarry) == LAYERS and carry1 is carry
     for c, jc in zip(carry, jcarry):
-        assert c.shape == (HEADS, 19, 19) and rel(c.numpy(), jc) < F32_TOL
+        assert c.shape == (HEADS, 5 * 11 + 3) and c.is_contiguous()  # the 3x6 grid's R
+        dense = T_beit.expand_rel_pos(c, 3, 6)
+        assert dense.shape == (HEADS, 19, 19) and rel(dense.numpy(), jc) < F32_TOL
 
 
 def test_int8_matches_jax(beit):
@@ -156,7 +207,7 @@ def test_int8_matches_jax(beit):
 
 # ---- the frame program -------------------------------------------------------------------------
 
-class _CountBiases:
+class _CountTables:
     def __init__(self, fn):
         self.fn, self.calls = fn, 0
 
@@ -169,11 +220,12 @@ def test_program_cache_streams_the_biases_like_jax(beit, jax_kernels, monkeypatc
     """first → step → step on 180x320 frames (a 48x96 input, grid 3x6, off
     the window), switched live from Half-SBS to Half-TAB after the first;
     then a 180x240 capture (another output size): a carry of its own.  The
-    frames against JAX's ProgramCache; the biases built once per stream and
-    size, the carry surviving the switch and equal to JAX's."""
+    frames against JAX's ProgramCache; the tables built once per stream and
+    size, the carry surviving the switch and, expanded, equal to JAX's
+    dense biases."""
     params, model = beit
-    counter = _CountBiases(T_beit.compute_rel_pos_biases)
-    monkeypatch.setattr(T_beit, "compute_rel_pos_biases", counter)
+    counter = _CountTables(T_beit.compute_rel_pos_tables)
+    monkeypatch.setattr(T_beit, "compute_rel_pos_tables", counter)
     first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
     cfg = dict(CFG, model_name=PRESET, display_mode="Half-SBS")
     jprog = J_programs.ProgramCache(J_programs.ProgramConfig(**cfg),
@@ -196,12 +248,16 @@ def test_program_cache_streams_the_biases_like_jax(beit, jax_kernels, monkeypatc
             assert kept is None or all(a is b for a, b in zip(carry, kept))
             kept = carry
             for c, jc in zip(carry, jprog._states[key].model):
-                assert rel(c.numpy(), jc) < F32_TOL
+                assert c.shape == (HEADS, 58)
+                assert rel(T_beit.expand_rel_pos(c, 3, 6).numpy(), jc) < F32_TOL
             assert counter.calls == 1
     assert counter.calls == 2 and set(tprog._states) == {key, (0, 180, 240)}
     mh, mw = T_programs.ema_shape(tprog.cfg, tprog.spec, 180, 240)
-    n = (mh // 16) * (mw // 16) + 1
-    assert tprog._states[(0, 180, 240)].model[0].shape == (HEADS, n, n) and n != 19
+    gh, gw = mh // 16, mw // 16
+    other = tprog._states[(0, 180, 240)].model
+    assert other[0].shape == (HEADS, (2 * gh - 1) * (2 * gw - 1) + 3) and (gh, gw) != (3, 6)
+    for c, jc in zip(other, jprog._states[(0, 180, 240)].model):
+        assert rel(T_beit.expand_rel_pos(c, gh, gw).numpy(), jc) < F32_TOL
     assert tprog._states[key].model is kept
 
 
@@ -215,7 +271,7 @@ def test_warmup_keeps_no_carry(beit):
 
 def test_build_bound_runs_dpt_beit_base_float_and_int8(monkeypatch):
     """dpt-beit-base-384 at its real widths, seeded, on the CPU: stateful
-    (first, then step with the carried biases), its unit-normal tables
+    (first, then step with the carried tables), its unit-normal tables
     drawn from the seed, int8 on 6 products a layer."""
     import desktop2stereo_tpu_torch.models.factory as factory
 
@@ -230,5 +286,5 @@ def test_build_bound_runs_dpt_beit_base_float_and_int8(monkeypatch):
         with torch.no_grad():
             d0, carry = model.first(x)
             d1, carry1 = model.step(x, carry)
-        assert carry1 is carry and len(carry) == 12 and carry[0].shape == (12, 25, 25)
+        assert carry1 is carry and len(carry) == 12 and carry[0].shape == (12, 7 * 11 + 3)
         assert d0.shape == (1, 64, 96) and torch.equal(d0, d1)

@@ -65,7 +65,7 @@ def test_build_bound_builds_and_runs(name, quant, monkeypatch):
     x = torch.from_numpy(np.random.default_rng(len(name)).standard_normal(
         (1, GRID[0] * p, GRID[1] * p, 3)).astype(np.float32))
     with torch.no_grad():
-        if spec.family == "dpt_beit":  # stateful: the carry is the layers' biases
+        if spec.family == "dpt_beit":  # stateful: the carry is the layers' tables
             depth, carry = model.first(x)
             again, carry_again = model.step(x, carry)
             assert carry_again is carry and len(carry) == 24 and torch.equal(depth, again)

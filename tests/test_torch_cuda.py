@@ -542,12 +542,75 @@ def test_biased_attention_kernel_refuses_a_bad_bias(dev):
             K2.attention(q, q, q, bias)
 
 
+# ---- K2's table entry (DPT-BEiT's relative-position bias gathered from its table) ----------
+
+RELPOS_GRIDS = [(18, 32), (24, 32), (32, 32), (1, 1), (3, 6), (7, 9), (8, 16)]
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv views"])
+@pytest.mark.parametrize("grid", RELPOS_GRIDS, ids=[f"{h}x{w}" for h, w in RELPOS_GRIDS])
+def test_relpos_attention_kernel_matches_plain_and_the_dense_entry(dev, grid, layout,
+                                                                   table_dtype):
+    """The table entry at BEiT-L @512's 18x32 grid (577 tokens), the 4:3
+    capture's 24x32, the 32x32 pretraining window and ragged N = 2, 19, 64,
+    129 (either side of the 64-row query and 128-key tiles): within 2e-2 of
+    the plain version, equal bit for bit to the dense entry on the expanded
+    bias, one launch of the table entry and none of the dense one, and the
+    bias moves the output."""
+    gh, gw = grid
+    N = gh * gw + 1
+    gen = torch.Generator(device=dev).manual_seed(2000 + N)
+    q, k, v = _qkv_layout(layout, 2 if N < 200 else 1, N, 16 if N > 500 else 4, gen, dev)
+    H = q.shape[2]
+    table = (2.0 * torch.randn(H, K2.relative_position_count(gh, gw), generator=gen,
+                               device=dev)).to(table_dtype)
+    before = dict(K2.KERNEL.entry_launches)
+    got = K2.attention_relpos(q, k, v, table, gh, gw)
+    after = K2.KERNEL.entry_launches
+    assert (after.get("d2s_attention_relpos_fwd", 0)
+            == before.get("d2s_attention_relpos_fwd", 0) + 1)
+    assert after.get("d2s_attention_bias_fwd", 0) == before.get("d2s_attention_bias_fwd", 0)
+    dense = K2.expand_rel_pos(table, gh, gw)
+    want = K2.attention_ref(q.float(), k.float(), v.float(), dense.float())
+    same = K2.attention(q, k, v, dense)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous() and got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    assert torch.equal(got, same)
+    if N > 1:
+        plain = K2.attention_ref(q.float(), k.float(), v.float())
+        assert (plain - want).abs().max().item() > 0.1
+
+
+def test_relpos_attention_kernel_refuses_a_bad_table(dev):
+    q = torch.zeros(1, 19, 2, 64, device=dev, dtype=torch.bfloat16)
+    R = K2.relative_position_count(3, 6)
+    for table, grid, match in ((torch.zeros(2, R - 1, device=dev), (3, 6), r"\[H, R\]"),
+                               (torch.zeros(2, R, device=dev), (3, 5), "N = gh"),
+                               (torch.zeros(2, R, device=dev, dtype=torch.float16), (3, 6),
+                                "bf16 or f32"),
+                               (torch.zeros(2, R), (3, 6), "CUDA device")):
+        with pytest.raises(ValueError, match=match):
+            K2.attention_relpos(q, q, q, table, *grid)
+
+
+def test_relpos_attention_kernel_spills_nothing_and_keeps_two_blocks(dev):
+    """At BEiT-L @512's 18x32 grid, bf16 and f32 tables: no local memory
+    (spills) and at least two resident blocks an SM."""
+    for f32 in (False, True):
+        info = K2.kernel_info("attention_relpos", f32, 577, K2.relative_position_count(18, 32))
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
+        assert info["smem_bytes"] == K2.relpos_smem_bytes(577, 2208)
+
+
 def test_dpt_beit_streams_on_the_card_like_the_cpu(dev):
     """dpt-beit-base-384 from one seed through ProgramCache, three frames
-    (first, then step twice with the carried biases): the card in bf16 (12
-    biased K2 and one K1 a frame) against the CPU in f32, each frame held to
-    chip_smoke.py's reference thresholds; the carry is the 12 layers' bf16
-    biases, built once."""
+    (first, then step twice with the carried tables): the card in bf16 (12
+    K2 launches of the table entry, none of the dense one, and one K1 a
+    frame) against the CPU in f32, each frame held to chip_smoke.py's
+    reference thresholds; the carry is the 12 layers' bf16 [12, R] tables,
+    built once."""
     from desktop2stereo_tpu_torch.models.factory import build_bound
     from desktop2stereo_tpu_torch.pipeline import programs as P
 
@@ -561,7 +624,8 @@ def test_dpt_beit_streams_on_the_card_like_the_cpu(dev):
                           emit_depth="model")
     card_prog = P.ProgramCache(cfg, card, spec, compute_dtype=torch.bfloat16)
     cpu_prog = P.ProgramCache(cfg, cpu, spec, compute_dtype=torch.float32)
-    biased = K2.KERNEL.entry_launches.get("d2s_attention_bias_fwd", 0)
+    relpos = K2.KERNEL.entry_launches.get("d2s_attention_relpos_fwd", 0)
+    dense = K2.KERNEL.entry_launches.get("d2s_attention_bias_fwd", 0)
     k2, k1 = K2.KERNEL.launches, K1.KERNEL.launches
     for frame in _moving_frames(3, 216, 384, seed=2):
         sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
@@ -571,8 +635,11 @@ def test_dpt_beit_streams_on_the_card_like_the_cpu(dev):
         assert (depth_c - depth_r).abs().mean().item() <= 0.03
         assert s_err.mean().item() <= 3.0 and (s_err > 32).float().mean().item() <= 0.03
     assert K2.KERNEL.launches - k2 == 3 * 12 and K1.KERNEL.launches - k1 == 3
-    assert K2.KERNEL.entry_launches["d2s_attention_bias_fwd"] - biased == 3 * 12
+    assert K2.KERNEL.entry_launches["d2s_attention_relpos_fwd"] - relpos == 3 * 12
+    assert K2.KERNEL.entry_launches.get("d2s_attention_bias_fwd", 0) == dense
     (key,) = card_prog._states
     carry = card_prog._states[key].model
-    assert len(carry) == 12 and all(c.dtype == torch.bfloat16 and c.is_contiguous()
-                                    for c in carry)
+    gh, gw = (d // 16 for d in P.ema_shape(cfg, spec, 216, 384))  # 9x16
+    assert len(carry) == 12 and all(
+        c.dtype == torch.bfloat16 and c.is_contiguous()
+        and c.shape == (12, K2.relative_position_count(gh, gw)) for c in carry)
