@@ -25,7 +25,13 @@ tokens, BEiT-L with a relative-position bias that K2's table entry gathers
 in shared memory from each layer's interpolated table, the tables carried
 from frame to frame), its int8 form, dpt-large and
 dpt-hybrid-midas at 384 (224x384, 337 tokens) and dpt-dinov2-giant-kitti at
-518 (ViT-G with SwiGLU, 40 layers, 778 tokens).
+518 (ViT-G with SwiGLU, 40 layers, 778 tokens).  Then the last three
+families: zoedepth-nyu-kitti at 512 (the BEiT trunk and K2's table entry,
+a metric-bins head in f32), DepthPro-Large at 1536 (35 overlapping tiles of
+three scales through one DINOv2-L as a batch of 35, beside an image
+encoder; K2 at batch 35, K4 at 25 550 rows in its int8 form) and
+InfiniDepth-Large at 512 (a DINOv3 trunk with RoPE'd q/k and five prefix
+tokens, an f32 conv stem, an implicit MLP head over every pixel).
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -156,7 +162,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     F16) written by the port's writer: `build_bound(..., checkpoint=path)`
     on the card holds exactly the CPU load's tensors, and `cli.run --model
     dpt-beit-base-384 --checkpoint <file>` runs FRAMES 4K frames into the
-    null sink (12 K2 through the table entry and one K1 a frame).
+    null sink (12 K2 through the table entry and one K1 a frame);
+38. zoedepth-nyu-kitti at 512 (BEiT-L/16 on a 24² window, the classic
+    decoder as its relative head, the f32 metric-bins head with the patch
+    transformer's domain vote), CLASSIC_FRAMES 4K frames: 24 K2 a frame,
+    all through the table entry, and one K1; K2's table entry on the
+    model's own tables at the 18x32 and 14x24 grids against its plain
+    version; the carry's 24 tables and MB, the metric head f32 under the
+    bf16 trunk; one traced frame; one small frame, card bf16 against CPU
+    f32; `cli.run
+    --model zoedepth-nyu --depth-res 384` (the 14x24 grid) for
+    LAST_CLI_SECONDS, 24 table-entry K2 and one K1 a frame in the warm-up
+    and the run;
+39. DepthPro-Large at 1536: K2 at [35, 730, 16, 64] (qkv views and
+    contiguous) against its plain version and timed beside SDPA and its
+    bound; CLASSIC_FRAMES 4K frames with 48 K2 (24 at batch 35, 24 for the
+    image encoder) and one K1 a frame, the EMA carry's shape after the run,
+    one traced frame; one small frame, card bf16 against the same model in
+    f32 on the CPU (a full 1536² forward there); K4 exact at the int8 towers' shapes (25 550 and 730
+    rows, the four ViT-L products) and timed at 25 550 rows beside
+    `torch._int_mm` and its bound; the int8 model (192 K4 a frame) against
+    bf16 on one model input, and CLASSIC_FRAMES int8 frames;
+40. InfiniDepth-Large at 512 (a DINOv3 ViT-L with RoPE'd q/k, 581 tokens):
+    K2 at [1, 581, 16, 64] with fresh RoPE'd q/k and a v view against its
+    plain version; CLASSIC_FRAMES 4K frames, 24 K2 and one K1 a frame, the
+    conv stem f32, one traced frame; one small frame, card bf16 against CPU
+    f32; the int8
+    model (96 K4 a frame) against bf16, and CLASSIC_FRAMES int8 frames;
+    `cli.run --model InfiniDepth-SmallPlus --depth-res 512` for
+    LAST_CLI_SECONDS, 12 K2 and one K1 a frame.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -167,7 +201,8 @@ line is {"ok": true, "device": {...}}.  A JSON report with every number also
 goes to chiprun_out/chip_smoke.json, and the traces to
 chiprun_out/trace_flagship.json, trace_int8.json,
 trace_flagship_pageable.json, trace_vda.json, trace_da3.json and
-trace_da3_full_outputs.json and trace_beit.json.  Each kernels entry's
+trace_da3_full_outputs.json, trace_beit.json, trace_zoedepth.json,
+trace_depthpro.json and trace_infinidepth.json.  Each kernels entry's
 `launches_by_path` holds each path's count from its own run (the
 flagship's, DA3-LARGE's, the remote Half-SBS run's and the classic DPT
 paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths), and
@@ -362,6 +397,26 @@ def time_both(torch, fns):
     graphed = time_calls(torch, fns, graph=True)
     torch.cuda.empty_cache()
     return dict(graphed, eager=time_calls(torch, fns))
+
+
+def log_timing(name, tm, card) -> None:
+    """One `time_both` result beside its plain version, library call and bound."""
+    ea = tm["eager"]
+    lib = (f", library {tm['library']:.4f} (eager {ea['library']:.4f})"
+           if tm.get("library") is not None else "")
+    if "dense" in tm:
+        lib += (f" (SDPA with the dense bias as a float mask); the dense entry "
+                f"{tm['dense']:.4f} (eager {ea['dense']:.4f}), the unbiased entry "
+                f"{tm['unbiased']:.4f} (eager {ea['unbiased']:.4f})")
+    if "kernel_int32" in tm:
+        lib += (f" (torch._int_mm on int8 x; K4's int32 mode with row_scale 1 "
+                f"{tm['kernel_int32']:.4f}), bf16 F.linear {tm['linear_bf16']:.4f} "
+                f"(eager {ea['linear_bf16']:.4f})")
+    log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms (eager "
+        f"{ea['kernel']:.4f}), plain {tm['plain']:.4f} (eager {ea['plain']:.4f}){lib}, "
+        f"bound {tm['bound'][0]:.4f} ({tm['bound'][1]}) ms per call (device-only: CUDA "
+        f"graphs of 10 calls; eager: events around 10 calls, host included; median of "
+        f"{TIMED_RUNS}; {card})")
 
 
 # Kernel groups of a traced frame: the port's kernels by their function
@@ -632,7 +687,7 @@ def reference_check(torch, name, card_prog, cpu_prog, frame):
         f"{ref['depth_mean_abs']:.4f} (tol {REF_DEPTH_MEAN_ABS}) max {ref['depth_max_abs']:.4f}; "
         f"sbs {tuple(sbs_c.shape)} mean {ref['sbs_mean_lsb']:.3f} LSB (tol {REF_SBS_MEAN_LSB}) "
         f"max {ref['sbs_max_lsb']:.0f}, >32 LSB {ref['sbs_share_over_32']:.2e} "
-        f"(tol {REF_SBS_SHARE_OVER_32}) {'ok' if ok else 'FAIL'}")
+        f"(tol {REF_SBS_SHARE_OVER_32}); the CPU run {cpu_s:.1f} s {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"reference {name}: the card's output disagrees with the CPU f32 run")
     return ref
@@ -1687,7 +1742,7 @@ def da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
     DA3MONO-LARGE (the sky post's ms); card bf16 against CPU f32 for both;
     int8 DA3-LARGE (K4, correlation with bf16); DA3NESTED-GIANT-LARGE (64 K2
     a frame, build s, peak memory); the CLI with `--model DA3-LARGE`."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     from desktop2stereo_tpu_torch.models import da3 as D3
     from desktop2stereo_tpu_torch.ops.depth_post import normalize_depth
@@ -1733,12 +1788,16 @@ def da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
             for _ in range(3):
                 net.predict(model_in)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                with record_function("frame"):
-                    full = net.predict(model_in)
-                torch.cuda.synchronize()
-    path = out_dir / "trace_da3_full_outputs.json"
-    prof.export_chrome_trace(str(path))
+            # as `trace` does: a discarded warm-up call, then the traced one
+            path = out_dir / "trace_da3_full_outputs.json"
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+                for _ in range(2):
+                    with record_function("frame"):
+                        full = net.predict(model_in)
+                    torch.cuda.synchronize()
+                    prof.step()
 
     def events_of(p):
         data = json.loads(p.read_text())
@@ -1957,6 +2016,75 @@ def beit_hf_arrays(np, spec, seed: int):
     return out
 
 
+class FamilyPaths:
+    """What the family phases share: build a registry model on the card, drive
+    it through FrameEngine at 4K Half-SBS (the fused tail) with exact
+    launches, and hold small frames against the CPU's f32 run."""
+
+    def __init__(self, np, torch, programs, build_bound, drive, driven, frames, policy, dev,
+                 card) -> None:
+        self.torch, self.programs, self.build_bound = torch, programs, build_bound
+        self.drive, self.driven, self.frames = drive, driven, frames
+        self.policy, self.dev, self.card = policy, dev, card
+        self.small = synthetic_frames(np, 2, 216, 384, SEED + 1)
+
+    def build(self, name, **kw):
+        torch = self.torch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net, net_spec = self.build_bound(name, device=self.dev, dtype=self.policy.compute_dtype,
+                                         seed=SEED, **kw)
+        return net, net_spec, time.perf_counter() - t0
+
+    def path(self, key, name, res, want_input, n_frames, biased=False, quant="none", k2=None,
+             **kw):
+        """Build, check the model input, drive n_frames 4K frames with exact
+        launches (`k2` K2 a frame, by default one a trunk layer); returns
+        (net, spec, cfg, the path's report, one model input)."""
+        torch, programs = self.torch, self.programs
+        net, spec, build_s = self.build(name, quant=quant)
+        trunk = getattr(net, "backbone", None) or getattr(net, "patch_encoder", net)
+        layers = len(trunk.layer)
+        k2 = layers if k2 is None else k2
+        want = {"attention": k2, "dibr_pair": 1, **kw}
+        if biased:  # every K2 launch through the table entry, none through the dense one
+            want["attention_relpos"] = k2
+        shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+        cfg = self.drive(key, net, "Half-SBS", "high", shape, want, net_spec=spec,
+                         n_frames=n_frames, res=res)
+        program = self.driven.pop(key)
+        mi = tuple(programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]))
+        if mi != want_input:
+            raise AssertionError(f"{key}: model input {mi}, want {want_input}")
+        (state,) = program._states.values()
+        model_in, raw, finite = finite_share(torch, net, program, self.frames[0], self.dev)
+        rep = dict(build_s=build_s, layers=layers, k2=k2, model_input=list(model_in.shape),
+                   depth_shape=list(raw.shape), ema_carry=list(state.ema_depth.shape),
+                   finite_share=finite, params=sum(p.numel() for p in net.parameters()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        tokens = ("" if spec.square_only else
+                  f" ({mi[0] // spec.patch_size}x{mi[1] // spec.patch_size} patches)")
+        log(f"[{key}] {name}{' int8' if quant != 'none' else ''} @{res}: model input "
+            f"{list(model_in.shape)}{tokens}, depth at the head's resolution "
+            f"{list(raw.shape)}, EMA carry after the run {rep['ema_carry']}, finite on "
+            f"{finite:.6f}; {layers} layers, {rep['params']} parameters, built in "
+            f"{build_s:.1f} s; peak device memory {rep['peak_mem_gb']:.2f} GB; {self.card}")
+        return net, spec, cfg, rep, model_in
+
+    def reference(self, name, card_net, cfg, n_frames=1):
+        """Small frames through the card's program (bf16) and the CPU's
+        (f32, plain versions), each held to phase 6's thresholds."""
+        torch, programs = self.torch, self.programs
+        cpu_net, spec = self.build_bound(name, device="cpu", dtype=torch.float32, seed=SEED)
+        card_prog = programs.ProgramCache(cfg, card_net, spec,
+                                          compute_dtype=self.policy.compute_dtype)
+        cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
+        refs = [reference_check(torch, f"{name} @{cfg.depth_resolution} frame {i}", card_prog,
+                                cpu_prog, self.small[i]) for i in range(n_frames)]
+        return refs, cpu_net
+
+
 def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, paths, frames,
                        counters, policy, dev, card, out_dir):
     """31-37: the classic DPT family at 4K Half-SBS (the fused tail):
@@ -1973,51 +2101,8 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
 
     out = {}
     shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
-    small = synthetic_frames(np, 2, 216, 384, SEED + 1)
-
-    def build(name, **kw):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        net, net_spec = build_bound(name, device=dev, dtype=policy.compute_dtype, seed=SEED, **kw)
-        return net, net_spec, time.perf_counter() - t0
-
-    def path(key, name, res, want_input, n_frames, biased=False, quant="none", **kw):
-        """Build, check the model input, drive n_frames 4K frames with exact
-        launches; returns (net, spec, cfg, the path's report)."""
-        net, spec, build_s = build(name, quant=quant)
-        layers = len(net.backbone.layer if hasattr(net, "backbone") else net.layer)
-        want = {"attention": layers, "dibr_pair": 1, **kw}
-        if biased:  # every K2 launch through the table entry, none through the dense one
-            want["attention_relpos"] = layers
-        cfg = drive(key, net, "Half-SBS", "high", shape, want, net_spec=spec,
-                    n_frames=n_frames, res=res)
-        program = driven.pop(key)
-        mi = tuple(programs.ema_shape(cfg, spec, *FRAME_SHAPE[:2]))
-        if mi != want_input:
-            raise AssertionError(f"{key}: model input {mi}, want {want_input}")
-        model_in, raw, finite = finite_share(torch, net, program, frames[0], dev)
-        rep = dict(build_s=build_s, layers=layers, model_input=list(model_in.shape),
-                   depth_shape=list(raw.shape), finite_share=finite,
-                   params=sum(p.numel() for p in net.parameters()),
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        tokens = (mi[0] // spec.patch_size) * (mi[1] // spec.patch_size) + 1
-        log(f"[{key}] {name}{' int8' if quant != 'none' else ''} @{res}: model input "
-            f"{list(model_in.shape)} ({tokens} tokens), depth at the head's resolution "
-            f"{list(raw.shape)}, finite on {finite:.6f}; {layers} layers, {rep['params']} "
-            f"parameters, built in {build_s:.1f} s; peak device memory "
-            f"{rep['peak_mem_gb']:.2f} GB; {card}")
-        return net, spec, cfg, rep, model_in
-
-    def reference(name, card_net, cfg, n_frames=1):
-        """Small frames through the card's program (bf16) and the CPU's
-        (f32, plain versions), each held to phase 6's thresholds."""
-        cpu_net, spec = build_bound(name, device="cpu", dtype=torch.float32, seed=SEED)
-        card_prog = programs.ProgramCache(cfg, card_net, spec, compute_dtype=policy.compute_dtype)
-        cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
-        refs = [reference_check(torch, f"{name} @{cfg.depth_resolution} frame {i}", card_prog,
-                                cpu_prog, small[i]) for i in range(n_frames)]
-        return refs, cpu_net
+    fam = FamilyPaths(np, torch, programs, build_bound, drive, driven, frames, policy, dev, card)
+    path, reference = fam.path, fam.reference
 
     # -- 31. dpt-beit-large-512 @512: K2's table entry, the carried tables -----
     net, spec, cfg, rep, model_in = path("beit", BEIT_MODEL, BEIT_RES, BEIT_INPUT, FRAMES,
@@ -2233,6 +2318,231 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
                                                          CLI_WARM_FRAMES, biased=True))
     out["paths"] = {k: paths[k] for k in ("beit", "beit_int8", "dpt_large", "dpt_hybrid",
                                           "dpt_dinov2")}
+    return out
+
+
+ZOE_MODEL, ZOE_RES, ZOE_INPUT = "zoedepth-nyu-kitti", 512, (288, 512)  # 18 x 32 + 1 tokens
+ZOE_CLI_MODEL, ZOE_CLI_RES = "zoedepth-nyu", 384  # 14 x 24 + 1: the table entry's other grid
+ZOE_GRIDS = ((18, 32), (14, 24))
+DEPTHPRO_MODEL, DEPTHPRO_RES = "DepthPro-Large", 1536
+DEPTHPRO_ATTN_SHAPE = (35, 730, 16, 64)  # 1 + 9 + 25 tiles of 27² + 1 tokens
+# the int8 towers' products: the patch encoder's 35 x 730 rows and the image
+# encoder's 730, (name, K, F) as VIT_L_DENSE
+DEPTHPRO_ROWS = (35 * 730, 730)
+INFINI_MODEL, INFINI_RES, INFINI_INPUT = "InfiniDepth-Large", 512, (288, 512)
+INFINI_ATTN_SHAPE = (1, 581, 16, 64)  # 18 x 32 patch tokens + cls + 4 storage tokens
+INFINI_CLI_MODEL = "InfiniDepth-SmallPlus"
+LAST_CLI_SECONDS = 3.0
+
+
+def last_families_phases(np, torch, F, programs, build_bound, drive, driven, trace, paths,
+                         frames, counters, policy, dev, card, out_dir, timing, worst):
+    """38-40: ZoeDepth, DepthPro and InfiniDepth at 4K Half-SBS (the fused
+    tail), each with exact launches: K2 at their new shapes against its
+    plain version, K4 exact at DepthPro's 25 550 rows, the int8 forms against
+    bf16, the carries, the peaks, the CLI."""
+    from desktop2stereo_tpu_torch.models import beit as D_BEIT
+    from desktop2stereo_tpu_torch.models import infinidepth as D_INF
+    from desktop2stereo_tpu_torch.ops.kernels import attention as K2
+    from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K4
+    from desktop2stereo_tpu_torch.ops.quant import QuantLinear
+
+    started = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    fam = FamilyPaths(np, torch, programs, build_bound, drive, driven, frames, policy, dev, card)
+    out = {}
+
+    def k2_parity(label, key, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        worst[key] = max(worst[key], err)
+        ok = err <= ATTN_MAX_ABS and got.shape == want.shape
+        log(f"[parity] {label}: max abs err {err:.3e} (tol {ATTN_MAX_ABS:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the kernel disagrees with its plain version")
+        return err
+
+    def correlate(key, name, net, net_q, model_in, n_quant, want_quant):
+        with torch.inference_mode():
+            raw_f = net(model_in)[0].float()
+            raw_q = net_q(model_in)[0].float()
+        both = torch.stack([raw_f.flatten(), raw_q.flatten()])
+        corr = torch.corrcoef(both)[0, 1].item()
+        ok = bool(torch.isfinite(both).all()) and corr >= INT8_MIN_CORR and n_quant == want_quant
+        log(f"[{key}] int8 {name} ({n_quant} int8 products, want {want_quant}) against bf16 on "
+            f"one {list(model_in.shape)} model input: correlation {corr:.5f} (min "
+            f"{INT8_MIN_CORR}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8 {name} does not track the bf16 model")
+        return corr
+
+    def cli(key, model, res, k2, biased=False):
+        run = CliRun(counters)
+        rc = run(["--settings", str(cli_settings(out_dir)), "--model", model, "--depth-res",
+                  str(res), "--source", "synthetic", "--size",
+                  f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null", "--duration",
+                  str(LAST_CLI_SECONDS), "--stop-file", str(out_dir / "stop.request"),
+                  "--stats-every", "0"])
+        _, program, sink, _ = run.parts
+        eng = run.engine
+        ok = (rc == 0 and sink.frames >= 1 and sink.last_shape == (*FRAME_SHAPE[:2], 3)
+              and program.cfg.model_name == model and program.cfg.depth_resolution == res)
+        log(f"[cli] python -m desktop2stereo_tpu_torch.cli --model {model} --depth-res {res} "
+            f"--source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} --sink null "
+            f"--duration {LAST_CLI_SECONDS}: exit {rc}; {eng.frames} frames run, {sink.frames} "
+            f"delivered {sink.last_shape} in {run.wall_s:.2f} s, "
+            f"{eng.frames / run.wall_s:.2f} frames/s {'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            raise AssertionError(f"cli with --model {model}: exit code or output off")
+        return dict(rc=rc, frames_run=eng.frames, delivered=sink.frames, wall_s=run.wall_s,
+                    fps=eng.frames / run.wall_s,
+                    launches=run.check_launches(key, k2, CLI_WARM_FRAMES, biased=biased))
+
+    # -- 38. zoedepth-nyu-kitti @512: BEiT-L on a 24² window, K2's table entry ----
+    net, spec, cfg, rep, _ = fam.path("zoedepth", ZOE_MODEL, ZOE_RES, ZOE_INPUT, CLASSIC_FRAMES,
+                                      biased=True)
+    with torch.inference_mode():
+        prog = programs.ProgramCache(cfg, net, spec, compute_dtype=policy.compute_dtype)
+        prog(frames[0])
+        prog(frames[1])
+        (state,) = prog._states.values()
+        carry = state.model
+        # the table entry at both grids, on the model's own layer-0 tables
+        for gh, gw in ZOE_GRIDS:
+            N = gh * gw + 1
+            table = D_BEIT.compute_rel_pos_tables(net.backbone, gh, gw)[0]
+            q, k, v = (torch.randn(1, N, 16, 64, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            k2_parity(f"attention_relpos zoedepth {gh}x{gw} [1,{N},16,64] + its layer-0 table "
+                      f"{list(table.shape)} {str(table.dtype)[6:]} (R = "
+                      f"{K2.relative_position_count(gh, gw)}, "
+                      f"{K2.relpos_smem_bytes(N, table.shape[1])} B shared)",
+                      "attention_relpos", K2.attention_relpos(q, k, v, table, gh, gw),
+                      K2.attention_relpos_ref(q.float(), k.float(), v.float(), table, gh, gw))
+    R = K2.relative_position_count(*ZOE_GRIDS[0])
+    head_dtypes = {p.dtype for p in net.metric_head.parameters()}
+    carry_mb = sum(t.numel() * t.element_size() for t in carry) / 1e6
+    ok = (len(carry) == 24 and all(t.shape == (16, R) and t.dtype == policy.compute_dtype
+                                   for t in carry) and head_dtypes == {torch.float32})
+    log(f"[zoedepth] carry: {len(carry)} tables {list(carry[0].shape)} "
+        f"{str(carry[0].dtype)[6:]}, {carry_mb:.3f} MB; the metric head's parameters "
+        f"{sorted(str(d)[6:] for d in head_dtypes)} under a {str(policy.compute_dtype)[6:]} "
+        f"trunk {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("zoedepth: carry or metric head dtype off")
+    rep.update(carry_mb=carry_mb, carry_tensors=len(carry))
+    del prog, state, carry
+    rep["trace"] = trace("zoedepth", net, spec, cfg, "engine",
+                         {"K2 attention": 24, "K1 dibr_pair": 1})
+    rep["reference"], _ = fam.reference(ZOE_MODEL, net, cfg)
+    out["zoedepth"] = rep
+    del net
+    out["zoedepth_cli"] = cli("zoedepth cli", ZOE_CLI_MODEL, ZOE_CLI_RES, 24, biased=True)
+
+    # -- 39. DepthPro-Large @1536: 35 tiles through one ViT-L, K2 at batch 35 -----
+    B, N, H, D = DEPTHPRO_ATTN_SHAPE
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
+    with torch.inference_mode():
+        k2_parity(f"attention {list(DEPTHPRO_ATTN_SHAPE)} qkv views (DepthPro's tiles)",
+                  "attention", K2.attention(q, k, v),
+                  K2.attention_ref(q.float(), k.float(), v.float()))
+        qc, kc, vc = (t_.contiguous() for t_ in (q, k, v))
+        k2_parity(f"attention {list(DEPTHPRO_ATTN_SHAPE)} contiguous", "attention",
+                  K2.attention(qc, kc, vc), K2.attention_ref(qc.float(), kc.float(), vc.float()))
+    qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    t = time_both(torch, {"plain": lambda: K2.attention_ref(q, k, v),
+                          "kernel": lambda: K2.attention(q, k, v),
+                          "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+    timing["attention_b35"] = dict(t, shape=f"{list(DEPTHPRO_ATTN_SHAPE)} bf16 qkv views",
+                                   bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
+                                                  4 * B * H * N * N * D, "bf16"))
+    log_timing("attention_b35", timing["attention_b35"], card)
+    del qkv, q, k, v, qc, kc, vc, qh, kh, vh
+    torch.cuda.empty_cache()
+
+    net, spec, cfg, rep, model_in = fam.path("depthpro", DEPTHPRO_MODEL, DEPTHPRO_RES,
+                                             (DEPTHPRO_RES, DEPTHPRO_RES), CLASSIC_FRAMES, k2=48)
+    rep["trace"] = trace("depthpro", net, spec, cfg, "engine",
+                         {"K2 attention": 48, "K1 dibr_pair": 1})
+    # the same model in f32 on the CPU: one full 1536² forward, 35 tiles
+    rep["reference"], _ = fam.reference(DEPTHPRO_MODEL, net, cfg)
+    out["depthpro"] = rep
+
+    # K4 at the int8 towers' shapes, exactly, and timed at 25 550 rows
+    for rows in DEPTHPRO_ROWS:
+        for name, kin, fout in VIT_L_DENSE:
+            args = dense_inputs(np, torch, dev, rows, kin, fout, torch.bfloat16, True,
+                                seed=rows + kin + fout)
+            got, want = K4.quant_dense(*args), K4.quant_dense_ref(*args)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            worst["quant_matmul"] = max(worst["quant_matmul"], err)
+            ok = got.shape == want.shape and err <= QUANT_MAX_ABS
+            log(f"[parity] quant_matmul DepthPro {name} [{rows},{kin}]x[{kin},{fout}] bf16 + "
+                f"bias: max abs err {err:.3e} (tol {QUANT_MAX_ABS}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"quant_matmul at DepthPro's {name}: kernel disagrees")
+            if rows != DEPTHPRO_ROWS[0]:
+                continue
+            x, wq, scale, bias = args
+            xq8 = x.float().clamp(-127, 127).round().to(torch.int8)
+            wt = wq.t()
+            t = time_both(torch, {"plain": lambda: K4.quant_dense_ref(x, wq, scale, bias),
+                                  "kernel": lambda: K4.quant_dense(x, wq, scale, bias),
+                                  "library": lambda: torch._int_mm(xq8, wt)})
+            timing[f"quant_matmul_depthpro_{name}"] = dict(
+                t, shape=f"{name} [{rows},{kin}] bf16 x [{fout},{kin}] int8 + bias",
+                bound=bound_ms(policy.name, 2 * rows * kin + fout * kin + 8 * fout
+                               + 2 * rows * fout, 2 * rows * kin * fout, "int8"))
+            log_timing(f"quant_matmul_depthpro_{name}", timing[f"quant_matmul_depthpro_{name}"],
+                       card)
+            del x, wq, scale, bias, xq8, wt
+            torch.cuda.empty_cache()
+        del args, got, want
+    net_q, _, _, rep_q, _ = fam.path("depthpro_int8", DEPTHPRO_MODEL, DEPTHPRO_RES,
+                                     (DEPTHPRO_RES, DEPTHPRO_RES), CLASSIC_FRAMES, k2=48,
+                                     quant="int8", quant_matmul=192)
+    rep_q["corr"] = correlate("depthpro_int8", DEPTHPRO_MODEL, net, net_q, model_in,
+                              sum(isinstance(m, QuantLinear) for m in net_q.modules()), 192)
+    out["depthpro_int8"] = rep_q
+    del net, net_q, model_in
+    torch.cuda.empty_cache()
+
+    # -- 40. InfiniDepth-Large @512: DINOv3 + RoPE, 5 prefix tokens; SmallPlus CLI --
+    B, N, H, D = INFINI_ATTN_SHAPE
+    with torch.inference_mode():
+        qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
+        sin, cos = D_INF._rope_on(D, 18, 32, dev, torch.bfloat16)
+        q, k = D_INF.rope_apply(q, sin, cos), D_INF.rope_apply(k, sin, cos)
+        k2_parity(f"attention {list(INFINI_ATTN_SHAPE)} RoPE'd q/k (fresh), v a qkv view "
+                  f"(InfiniDepth)", "attention", K2.attention(q, k, v),
+                  K2.attention_ref(q.float(), k.float(), v.float()))
+        del qkv, q, k, v
+    net, spec, cfg, rep, model_in = fam.path("infinidepth", INFINI_MODEL, INFINI_RES,
+                                             INFINI_INPUT, CLASSIC_FRAMES)
+    stem = {p.dtype for p in net.basic_encoder.parameters()}
+    if stem != {torch.float32}:
+        raise AssertionError(f"infinidepth: the conv stem runs in {stem}, not float32")
+    rep["trace"] = trace("infinidepth", net, spec, cfg, "engine",
+                         {"K2 attention": 24, "K1 dibr_pair": 1})
+    rep["reference"], _ = fam.reference(INFINI_MODEL, net, cfg)
+    out["infinidepth"] = rep
+    net_q, _, _, rep_q, _ = fam.path("infinidepth_int8", INFINI_MODEL, INFINI_RES, INFINI_INPUT,
+                                     CLASSIC_FRAMES, quant="int8", quant_matmul=96)
+    rep_q["corr"] = correlate("infinidepth_int8", INFINI_MODEL, net, net_q, model_in,
+                              sum(isinstance(m, QuantLinear) for m in net_q.modules()), 96)
+    out["infinidepth_int8"] = rep_q
+    del net, net_q, model_in
+    torch.cuda.empty_cache()
+    out["infinidepth_cli"] = cli("infinidepth cli", INFINI_CLI_MODEL, INFINI_RES, 12)
+    out["paths"] = {k: paths[k] for k in ("zoedepth", "depthpro", "depthpro_int8",
+                                          "infinidepth", "infinidepth_int8")}
+    out["wall_s"] = time.perf_counter() - started
+    log(f"[last families] phases 38-40 in {out['wall_s']:.1f} s of wall time, builds and "
+        f"host references included; {card}")
     return out
 
 
@@ -2650,22 +2960,7 @@ def main() -> int:
                            + 2 * M_TOK * fout, 2 * M_TOK * kin * fout, "int8"))
         del x, wq, scale, bias, xq, xi, xq8, ones, wt, w_bf16, b_bf16
     for name, tm in timing.items():
-        ea = tm["eager"]
-        lib = (f", library {tm['library']:.4f} (eager {ea['library']:.4f})"
-               if tm.get("library") is not None else "")
-        if "dense" in tm:
-            lib += (f" (SDPA with the dense bias as a float mask); the dense entry "
-                    f"{tm['dense']:.4f} (eager {ea['dense']:.4f}), the unbiased entry "
-                    f"{tm['unbiased']:.4f} (eager {ea['unbiased']:.4f})")
-        if "kernel_int32" in tm:
-            lib += (f" (torch._int_mm on int8 x; K4's int32 mode with row_scale 1 "
-                    f"{tm['kernel_int32']:.4f}), bf16 F.linear {tm['linear_bf16']:.4f} "
-                    f"(eager {ea['linear_bf16']:.4f})")
-        log(f"[time] {name} {tm['shape']}: kernel {tm['kernel']:.4f} ms (eager "
-            f"{ea['kernel']:.4f}), plain {tm['plain']:.4f} (eager {ea['plain']:.4f}){lib}, "
-            f"bound {tm['bound'][0]:.4f} ({tm['bound'][1]}) ms per call (device-only: CUDA "
-            f"graphs of 10 calls; eager: events around 10 calls, host included; median of "
-            f"{TIMED_RUNS}; {card})")
+        log_timing(name, tm, card)
     torch.cuda.empty_cache()
 
     # -- 5. flagship path: Half-SBS, fused tail -------------------------------
@@ -2819,7 +3114,7 @@ def main() -> int:
     del cpu_model_q
 
     # -- 15. one traced flagship frame and one traced int8 frame --------------
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2848,12 +3143,25 @@ def main() -> int:
         for _ in range(3):
             frame()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("frame"):
-                frame()
-            torch.cuda.synchronize()
+        # the first frame under the profiler is its warm-up, traced and
+        # discarded: CUPTI loses the device records of the first ~2 ms of
+        # host launches after it starts (the upload's copy, the preprocess,
+        # a ZoeDepth frame's first K2)
         path = out_dir / f"trace_{name}.json"
-        prof.export_chrome_trace(str(path))
+        host_ops = []
+
+        def ready(p):  # the active frame's trace, kept when its cycle ends
+            p.export_chrome_trace(str(path))
+            host_ops.extend(p.key_averages())
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                with record_function("frame"):
+                    frame()
+                torch.cuda.synchronize()
+                prof.step()
         trace_json = json.loads(path.read_text())
         tr = summarize_trace(trace_json["traceEvents"] if isinstance(trace_json, dict)
                              else trace_json, spans)
@@ -2875,7 +3183,7 @@ def main() -> int:
         tr["upload_host_ms"] = statistics.median(up)
         # the host's side of the frame: CPU ops by self time (all threads)
         host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                       for e in prof.key_averages()), key=lambda kv: -kv[1])[:8]
+                       for e in host_ops), key=lambda kv: -kv[1])[:8]
         tr["host_top"] = [{"op": k, "self_ms": ms, "calls": n} for k, ms, n in host]
         g = tr["groups"]
         how = ("FrameEngine._dispatch/_finish: pinned upload, program, pinned download"
@@ -2943,6 +3251,11 @@ def main() -> int:
                                                trace, paths, frames, counters, policy, dev,
                                                card, out_dir)
 
+    # -- 38-40. ZoeDepth, DepthPro and InfiniDepth --------------------------------------------
+    report["last_families"] = last_families_phases(np, torch, F, programs, build_bound, drive,
+                                                   driven, trace, paths, frames, counters,
+                                                   policy, dev, card, out_dir, timing, worst)
+
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
         each read from its own run with the counts set to 0 before it)."""
@@ -2962,30 +3275,33 @@ def main() -> int:
     def remote_launches(kernel, name):  # a remote CLI run's count, after its warm-up
         return {f"remote_{name}": report["remote"][name]["launches"]["run"][kernel]}
 
-    # each entry's launches: the slice's main path, and the DA3 and classic DPT
-    # paths' beside it
+    # each entry's launches: the slice's main path, and the DA3, classic DPT,
+    # ZoeDepth, DepthPro and InfiniDepth paths' beside it
     classic = ("beit", "dpt_large", "dpt_hybrid", "dpt_dinov2")
+    last = ("zoedepth", "depthpro", "infinidepth")
     kernels = [
         entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
-              "dibr_pair_half", {**launches("dibr_pair", "main", "da3", *classic),
+              "dibr_pair_half", {**launches("dibr_pair", "main", "da3", *classic, *last),
                                  **remote_launches("dibr_pair", "xr_raw")}),
         entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
               "dibr_pair_eyes", {**launches("dibr_pair", "generic_high"),
                                  **remote_launches("dibr_pair", "xr_mono")}),
         entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
               "attention", {**launches("attention", "main", "da3", "dpt_large", "dpt_hybrid",
-                                       "dpt_dinov2"),
+                                       "dpt_dinov2", "depthpro", "infinidepth"),
                             **remote_launches("attention", "xr_raw")}),
         entry("attention_bias", csrc + "attention.cu", pallas + "flash_attention.py:79",
               "attention_bias", launches("attention_bias", "beit_dense_api")),
         entry("attention_relpos", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention_relpos", launches("attention_relpos", "beit", "beit_int8")),
+              "attention_relpos", launches("attention_relpos", "beit", "beit_int8",
+                                           "zoedepth")),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
               launches("warp", "generic_fast")),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
               {"dibr_render": render_counts["dibr_fill"]}),
         entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
-              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8", "beit_int8")),
+              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8", "beit_int8",
+                                           "depthpro_int8", "infinidepth_int8")),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,

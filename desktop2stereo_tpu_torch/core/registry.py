@@ -1,11 +1,10 @@
-"""Model registry for the port: the Depth-Anything, Video-Depth-Anything,
-Depth-Anything-3 and classic DPT families (dpt-large, DPT-DINOv2,
-dpt-hybrid-midas, DPT-BEiT).
+"""Model registry for the port: every family of the JAX registry
+(Depth-Anything, Video-Depth-Anything, Depth-Anything-3, the classic DPT
+family, ZoeDepth, DepthPro and InfiniDepth), 52 names.
 
 The same `ModelSpec` facts as `desktop2stereo_tpu/core/registry.py` (family,
 ViT variant, patch size, normalization, metric-ness, HF repo, resolution
-menu), restricted to the families the port builds today.  The other families
-(ZoeDepth, DepthPro, InfiniDepth) are ROADMAP A5; `get_spec` raises for them.
+menu, square-only input).
 """
 
 from __future__ import annotations
@@ -76,10 +75,11 @@ class ModelSpec:
 # Per-family depth-resolution menus (the JAX registry's family menu table)
 _DA_MENU = (196, 238, 294, 336, 392, 448, 518)   # patch-14 DA/VDA/Distill
 _DA3_MENU = (182, 224, 280, 322, 378, 434, 504)  # patch-14 DA3 spread
+_INFINI_MENU = (192, 240, 304, 336, 384, 448, 512)  # patch-16 InfiniDepth
 _P16_MENU = (256, 320, 384, 448, 512)            # classic DPT-era models
 _FAMILY_MENUS = {"depth_anything": _DA_MENU, "dpt_dinov2": _DA_MENU, "vda": _DA_MENU,
-                 "da3": _DA3_MENU, "dpt": _P16_MENU, "dpt_hybrid": _P16_MENU,
-                 "dpt_beit": _P16_MENU}
+                 "da3": _DA3_MENU, "infinidepth": _INFINI_MENU, "dpt": _P16_MENU,
+                 "dpt_hybrid": _P16_MENU, "dpt_beit": _P16_MENU, "zoedepth": _P16_MENU}
 
 _SIZE = {"small": "vits", "base": "vitb", "large": "vitl", "giant": "vitg"}
 
@@ -88,11 +88,12 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {}
 
 def _register(name: str, variant: str, repo: str, metric: bool = False,
               max_depth: float = 1.0, family: str = "depth_anything",
-              patch_size: int = 14, norm_family: str = "imagenet") -> None:
+              patch_size: int = 14, norm_family: str = "imagenet",
+              resolutions: Optional[Tuple[int, ...]] = None, square_only: bool = False) -> None:
     MODEL_REGISTRY[name] = ModelSpec(
         name=name, family=family, variant=variant, hf_repo=repo, patch_size=patch_size,
         metric=metric, max_depth=max_depth, norm_family=norm_family,
-        resolutions=_FAMILY_MENUS[family])
+        resolutions=resolutions or _FAMILY_MENUS[family], square_only=square_only)
 
 
 for _size in ("Small", "Base", "Large"):
@@ -160,6 +161,21 @@ _register("dpt-beit-base-384", "vitb", "Intel/dpt-beit-base-384", family="dpt_be
 _register("dpt-beit-large-512", "vitl", "Intel/dpt-beit-large-512", family="dpt_beit",
           patch_size=16, norm_family="half")
 
+# ZoeDepth: a BEiT-L/16 trunk (24x24 window) with the classic DPT decoder as
+# its relative head and a metric-bins head
+for _ds in ("nyu-kitti", "nyu", "kitti"):
+    _register(f"zoedepth-{_ds}", "vitl", f"Intel/zoedepth-{_ds}", metric=True,
+              family="zoedepth", patch_size=16, norm_family="half")
+# DepthPro: a square 1536 input cut into 35 tiles of one shared DINOv2-L/14
+_register("DepthPro-Large", "vitl", "apple/DepthPro-hf", metric=True, family="depthpro",
+          norm_family="half", resolutions=(1536,), square_only=True)
+# InfiniDepth: a DINOv3 trunk (SmallPlus: 384 wide with a SwiGLU MLP) and an
+# implicit head; the model normalizes RGB in [0, 1] itself
+for _size, _v in (("Small", "vits"), ("SmallPlus", "vitsplus"), ("Base", "vitb"),
+                  ("Large", "vitl")):
+    _register(f"InfiniDepth-{_size}", _v, f"lc700x/InfiniDepth-{_size}", family="infinidepth",
+              patch_size=16, norm_family="none")
+
 _register("depth-ai", "vitl", "lc700x/depth-ai-hf", metric=True)
 
 
@@ -184,11 +200,7 @@ def get_spec(name: str) -> ModelSpec:
     try:
         return MODEL_REGISTRY[name]
     except KeyError:
-        raise KeyError(
-            f"unknown model {name!r} for the torch port (the depth_anything, "
-            f"vda, da3, dpt, dpt_dinov2, dpt_hybrid and dpt_beit families are "
-            f"ported; ROADMAP A5 covers the other families); registered: "
-            f"{sorted(MODEL_REGISTRY)}") from None
+        raise KeyError(f"unknown model {name!r}; registered: {sorted(MODEL_REGISTRY)}") from None
 
 
 def effective_compute_dtype(spec: ModelSpec, policy_dtype: torch.dtype,

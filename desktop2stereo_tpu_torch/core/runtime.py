@@ -49,3 +49,20 @@ def cuda_policy(index: int = 0, allow_tf32: bool = False) -> DevicePolicy:
         allow_tf32=allow_tf32,
         name=torch.cuda.get_device_name(index),
     )
+
+
+class F32Module(torch.nn.Module):
+    """A module that computes in float32 whatever the model's dtype: its
+    floating parameters and buffers follow `Module.to` / `.cuda()` to the
+    new device but keep float32 (ZoeDepth's metric-bins head, InfiniDepth's
+    conv stem: the JAX modules promote them to f32 under a bf16 trunk)."""
+
+    def _apply(self, fn, recurse=True):
+        def keep(t: torch.Tensor) -> torch.Tensor:
+            if not t.is_floating_point():
+                return fn(t)
+            # fn's target device, probed from t's own: a dtype-only cast
+            # (`.to(torch.bfloat16)`, `.half()`) leaves t where it is
+            return t.to(fn(t.new_zeros(())).device)
+
+        return super()._apply(keep, recurse)

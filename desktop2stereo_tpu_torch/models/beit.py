@@ -44,6 +44,8 @@ from desktop2stereo_tpu_torch.ops.resize import resize
 BEIT_PRESETS = {
     "dpt-beit-base-384": (768, 12, 12, 3072, (2, 5, 8, 11), 24),
     "dpt-beit-large-512": (1024, 24, 16, 4096, (5, 11, 17, 23), 32),
+    # ZoeDepth's trunk: BEiT-L/16 pretrained on a 24x24 window
+    "zoedepth": (1024, 24, 16, 4096, (5, 11, 17, 23), 24),
 }
 
 

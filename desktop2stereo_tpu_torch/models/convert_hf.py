@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
@@ -390,14 +390,17 @@ def _convert_vit_layer(sd: Mapping[str, np.ndarray], lp: str) -> Params:
             "fc2": _linear(sd, lp + "output.dense")}
 
 
-def convert_classic_dpt_decoder(sd: Mapping[str, np.ndarray]) -> Params:
+def convert_classic_dpt_decoder(sd: Mapping[str, np.ndarray],
+                                head_prefix: Optional[str] = "head.head.") -> Params:
     """HF DPTNeck (readout-project) + DPTDepthEstimationHead →
-    ClassicDPTDecoder params (dpt-large, DPT-DINOv2, DPT-BEiT)."""
+    ClassicDPTDecoder params (dpt-large, DPT-DINOv2, DPT-BEiT, and ZoeDepth's
+    relative head, which passes head_prefix=None and converts its own)."""
     dec = convert_dpt_neck(sd)
     for i in range(4):
         dec[f"readout_{i}"] = _linear(sd, f"neck.reassemble_stage.readout_projects.{i}.0")
-    for n, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
-        dec[n] = _conv(sd, f"head.head.{idx}")
+    if head_prefix is not None:
+        for n, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+            dec[n] = _conv(sd, f"{head_prefix}{idx}")
     return dec
 
 
@@ -474,6 +477,63 @@ def convert_dpt_beit(state_dict: Any, spec: ModelSpec) -> Params:
             "decoder": convert_classic_dpt_decoder(sd)}
 
 
+def _convert_projector(sd: Mapping[str, np.ndarray], prefix: str) -> Params:
+    return {"conv1": _conv(sd, prefix + "conv1"), "conv2": _conv(sd, prefix + "conv2")}
+
+
+def convert_zoedepth(state_dict: Any, spec: ModelSpec) -> Params:
+    """HF ZoeDepthForDepthEstimation (Intel/zoedepth-*) → ZoeDepth params:
+    the BEiT trunk, the classic decoder with `relative_head.conv1-3` as its
+    head, and the metric head (one bin configuration, or two with the patch
+    transformer and the domain classifier)."""
+    from desktop2stereo_tpu_torch.models.beit import BEIT_PRESETS
+    from desktop2stereo_tpu_torch.models.zoedepth import ZOE_PRESETS
+
+    sd = to_numpy_state_dict(state_dict)
+    configs, multi = ZOE_PRESETS[spec.name]
+    D, num_layers = BEIT_PRESETS["zoedepth"][:2]
+    decoder = convert_classic_dpt_decoder(sd, head_prefix=None)
+    for n in ("conv1", "conv2", "conv3"):
+        decoder[f"head_{n}"] = _conv(sd, f"relative_head.{n}")
+
+    m = "metric_head."
+    mh: Params = {"conv2": _conv(sd, m + "conv2"),
+                  "seed_projector": _convert_projector(sd, m + "seed_projector.")}
+    for i in range(4):
+        mh[f"projector_{i}"] = _convert_projector(sd, f"{m}projectors.{i}.")
+    if not multi:
+        mh["seed_bin_regressor"] = _convert_projector(sd, m + "seed_bin_regressor.")
+        for i in range(4):
+            mh[f"attractor_{i}"] = _convert_projector(sd, f"{m}attractors.{i}.")
+        mh["conditional_log_binomial"] = {
+            "mlp_conv1": _conv(sd, m + "conditional_log_binomial.mlp.0"),
+            "mlp_conv2": _conv(sd, m + "conditional_log_binomial.mlp.2")}
+    else:
+        for name, *_ in configs:
+            mh[f"seed_bin_regressor_{name}"] = _convert_projector(
+                sd, f"{m}seed_bin_regressors.{name}.")
+            for i in range(4):
+                mh[f"attractor_{name}_{i}"] = _convert_projector(
+                    sd, f"{m}attractors.{name}.{i}.")
+            mh[f"conditional_log_binomial_{name}"] = {
+                "mlp_conv1": _conv(sd, f"{m}conditional_log_binomial.{name}.mlp.0"),
+                "mlp_conv2": _conv(sd, f"{m}conditional_log_binomial.{name}.mlp.2")}
+        pt: Params = {"embedding": _conv(sd, m + "patch_transformer.embedding_convPxP")}
+        for li in range(4):
+            tp = f"{m}patch_transformer.transformer_encoder.{li}."
+            for n, src in (("q", "self_attn.query"), ("k", "self_attn.key"),
+                           ("v", "self_attn.value"), ("out", "self_attn.out_proj"),
+                           ("fc1", "linear1"), ("fc2", "linear2")):
+                pt[f"{n}_{li}"] = _linear(sd, tp + src)
+            pt[f"norm1_{li}"] = _layernorm(sd, tp + "norm1")
+            pt[f"norm2_{li}"] = _layernorm(sd, tp + "norm2")
+        mh["patch_transformer"] = pt
+        mh["classifier_fc1"] = _linear(sd, m + "mlp_classifier.linear1")
+        mh["classifier_fc2"] = _linear(sd, m + "mlp_classifier.linear2")
+    return {"backbone": _convert_beit_backbone(sd, D, num_layers), "decoder": decoder,
+            "metric_head": mh}
+
+
 def convert_dpt_hybrid(state_dict: Any, spec: ModelSpec, depths=(3, 4, 9),
                        num_layers: int = 12) -> Params:
     """HF DPTForDepthEstimation(is_hybrid=True) → DPTHybrid params."""
@@ -521,3 +581,116 @@ def convert_dpt_hybrid(state_dict: Any, spec: ModelSpec, depths=(3, 4, 9),
     for n, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
         params[n] = _conv(sd, f"head.head.{idx}")
     return params
+
+
+def convert_depthpro(state_dict: Any, spec: ModelSpec, num_layers: int = 24) -> Params:
+    """HF DepthProForDepthEstimation → DepthPro params: the two DINOv2
+    towers, the upsample blocks (1x1 projections HWIO, ConvTransposes kept
+    (C, O, 2, 2)), the projections, the fusion stage and the head; the FOV
+    branch's weights are left out (the frame path reads depth only)."""
+    from desktop2stereo_tpu_torch.models.depthpro import HOOK_IDS, SCALED_DIMS
+
+    sd = to_numpy_state_dict(state_dict)
+    n_scaled, n_hooks = len(SCALED_DIMS), len(HOOK_IDS)
+    params: Params = {
+        "patch_encoder": convert_dinov2_backbone(
+            sd, num_layers, prefix="depth_pro.encoder.patch_encoder.model."),
+        "image_encoder": convert_dinov2_backbone(
+            sd, num_layers, prefix="depth_pro.encoder.image_encoder.model."),
+    }
+    up = "depth_pro.neck.feature_upsample."
+
+    def upsample_block(prefix: str, n_layers: int, bias: bool) -> Params:
+        block: Params = {}
+        for li in range(n_layers):
+            w = sd[f"{prefix}layers.{li}.weight"]
+            if w.ndim == 4 and w.shape[2:] == (1, 1):      # 1x1 Conv2d (out, in, 1, 1)
+                entry: Params = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0))}
+            else:                                          # ConvTranspose2d (in, out, 2, 2)
+                entry = {"kernel": w}
+            if bias and f"{prefix}layers.{li}.bias" in sd:
+                entry["bias"] = sd[f"{prefix}layers.{li}.bias"]
+            block[f"layers_{li}"] = entry
+        return block
+
+    params["image_block"] = upsample_block(up + "image_block.", 1, bias=True)
+    for i in range(n_scaled):
+        params[f"scaled_{i}"] = upsample_block(up + f"scaled_images.{i}.", 2, bias=False)
+    for i in range(n_hooks):
+        params[f"intermediate_{i}"] = upsample_block(up + f"intermediate.{i}.", 3 + i,
+                                                     bias=False)
+    params["fuse_image_low_res"] = _conv(sd, "depth_pro.neck.fuse_image_with_low_res")
+    for i in range(4):
+        pp = f"depth_pro.neck.feature_projection.projections.{i}"
+        if pp + ".weight" in sd:
+            params[f"projection_{i}"] = _conv(sd, pp, bias=False)
+
+    def residual(fp: str, r: int) -> Params:
+        return {f"conv{c}": _conv(sd, f"{fp}residual_layer{r}.convolution{c}") for c in (1, 2)}
+
+    for j in range(n_scaled + n_hooks - 1):
+        fp = f"fusion_stage.intermediate.{j}."
+        layer: Params = {"res2": residual(fp, 2), "deconv": {"kernel": sd[fp + "deconv.weight"]},
+                         "projection": _conv(sd, fp + "projection")}
+        if j > 0:  # the first fusion layer takes no residual
+            layer["res1"] = residual(fp, 1)
+        params[f"fusion_{j}"] = layer
+    fp = "fusion_stage.final."
+    params["fusion_final"] = {"res1": residual(fp, 1), "res2": residual(fp, 2),
+                              "projection": _conv(sd, fp + "projection")}
+    params["head_conv1"] = _conv(sd, "head.layers.0")
+    params["head_deconv"] = {"kernel": sd["head.layers.1.weight"],
+                             "bias": sd["head.layers.1.bias"]}
+    params["head_conv2"] = _conv(sd, "head.layers.2")
+    params["head_conv3"] = _conv(sd, "head.layers.4")
+    return params
+
+
+def convert_infinidepth(state_dict: Any, spec: ModelSpec) -> Params:
+    """InfiniDepth checkpoint (`pretrained.*` DINOv3, `basic_encoder.*`,
+    `depth_implicit_head.*`, optionally under `model.`) → InfiniDepth
+    params.  The k part of a masked qkv bias (`attn.qkv.bias_mask`, NaN
+    where the bias stays) is folded into the fused bias."""
+    from desktop2stereo_tpu_torch.models.infinidepth import DINOV3_CONFIGS, ENCODER_BY_NAME
+
+    sd = to_numpy_state_dict(state_dict)
+    if any(k.startswith("model.pretrained.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    D, depth, _, _, swiglu = DINOV3_CONFIGS[ENCODER_BY_NAME[spec.name]]
+    bp = "pretrained."
+    pw = sd[bp + "patch_embed.proj.weight"]
+    backbone: Params = {
+        "cls_token": sd[bp + "cls_token"],
+        "storage_tokens": sd[bp + "storage_tokens"],
+        "patch_kernel": np.ascontiguousarray(pw.transpose(2, 3, 1, 0).reshape(-1, D)),
+        "patch_bias": sd[bp + "patch_embed.proj.bias"],
+        "norm": _layernorm(sd, bp + "norm"),
+    }
+    for i in range(depth):
+        lp = f"{bp}blocks.{i}."
+        qkv_b = sd.get(lp + "attn.qkv.bias")
+        mask = sd.get(lp + "attn.qkv.bias_mask")
+        if qkv_b is not None and mask is not None:
+            qkv_b = qkv_b * np.nan_to_num(mask, nan=1.0)
+        qkv: Params = {"kernel": np.ascontiguousarray(sd[lp + "attn.qkv.weight"].T)}
+        if qkv_b is not None:
+            qkv["bias"] = qkv_b
+        mlp = ({n: _linear(sd, f"{lp}mlp.{n}") for n in ("w1", "w2", "w3")} if swiglu
+               else {n: _linear(sd, f"{lp}mlp.{n}") for n in ("fc1", "fc2")})
+        backbone[f"layer_{i}"] = {
+            "norm1": _layernorm(sd, lp + "norm1"), "norm2": _layernorm(sd, lp + "norm2"),
+            "qkv": qkv, "proj": _linear(sd, lp + "attn.proj"),
+            "layer_scale1": sd[lp + "ls1.gamma"], "layer_scale2": sd[lp + "ls2.gamma"], **mlp}
+    be = "basic_encoder."
+    basic: Params = {n: _conv(sd, be + n) for n in ("conv1", "conv2", "conv3")}
+    for li in range(1, 5):
+        for bi in range(2):
+            bl = f"{be}layer{li}.{bi}."
+            blk: Params = {"conv1": _conv(sd, bl + "conv1"), "conv2": _conv(sd, bl + "conv2")}
+            if bl + "downsample.0.weight" in sd:
+                blk["downsample"] = _conv(sd, bl + "downsample.0")
+            basic[f"layer{li}_{bi}"] = blk
+    hp = "depth_implicit_head.out_layer.layers."
+    head: Params = {"mlp_0": _linear(sd, hp + "0"), "mlp_1": _linear(sd, hp + "2"),
+                    "mlp_2": _linear(sd, hp + "4"), "mlp_out": _linear(sd, hp + "6")}
+    return {"backbone": backbone, "basic_encoder": basic, "head": head}

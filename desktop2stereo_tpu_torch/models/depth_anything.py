@@ -38,7 +38,7 @@ class DepthAnything(nn.Module):
         if spec.family != "depth_anything" or spec.variant == "vitg":
             raise NotImplementedError(
                 f"{spec.name}: the port builds the depth_anything family up to "
-                f"ViT-L (ViT-G's SwiGLU MLP is ROADMAP A5)")
+                f"ViT-L (no depth_anything registry name is ViT-G)")
         hidden, layers, heads, mlp = spec.dims
         return cls(hidden_size=hidden, num_layers=layers, num_heads=heads,
                    mlp_dim=mlp, out_layers=spec.dpt_layers,

@@ -15,7 +15,7 @@ maps it mechanically (see models/from_flax.py).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -54,21 +54,24 @@ class PatchEmbed(nn.Module):
 
 
 class Dinov2Embeddings(nn.Module):
-    """Patch tokens, the cls token and the position table, bicubically
-    interpolated to the grid.  `interpolate_offset` (0.1 for the original
-    DINOv2 weights VDA ships) samples the table at scale (g + offset) / 37,
-    as the original code's scale_factor call does; HF's DINOv2 uses 0."""
+    """Patch tokens, the cls token and the position table of a
+    `pretrain_grid`² grid (37 for 518-pixel DINOv2, 27 for DepthPro's 384-px
+    tiles), bicubically interpolated to another grid.  `interpolate_offset`
+    (0.1 for the original DINOv2 weights VDA ships) samples the table at
+    scale (g + offset) / M, as the original code's scale_factor call does;
+    HF's DINOv2 uses 0."""
 
     def __init__(self, hidden_size: int, patch_size: int = 14,
-                 interpolate_offset: float = 0.0) -> None:
+                 interpolate_offset: float = 0.0, pretrain_grid: int = PRETRAIN_GRID) -> None:
         super().__init__()
         self.hidden_size = hidden_size
         self.patch_size = patch_size
         self.interpolate_offset = interpolate_offset
+        self.pretrain_grid = pretrain_grid
         self.patch_embeddings = PatchEmbed(hidden_size, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_size))
         self.position_embeddings = nn.Parameter(
-            torch.zeros(1, PRETRAIN_GRID * PRETRAIN_GRID + 1, hidden_size))
+            torch.zeros(1, pretrain_grid * pretrain_grid + 1, hidden_size))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = pixels.shape
@@ -76,7 +79,7 @@ class Dinov2Embeddings(nn.Module):
         tokens = self.patch_embeddings(pixels)
         pos = self.position_embeddings
         cls_pos, patch_pos = pos[:, :1], pos[:, 1:]
-        M = PRETRAIN_GRID
+        M = self.pretrain_grid
         if (gh, gw) != (M, M):
             # HF interpolates in f32, bicubic, align_corners=False
             grid = patch_pos.reshape(M, M, self.hidden_size).float()
@@ -164,8 +167,10 @@ class Dinov2Layer(nn.Module):
 
 
 class Dinov2Encoder(nn.Module):
-    """ViT trunk returning the LayerNorm'd hidden states of `out_layers`
-    (0-indexed).  Layers after the last selected one feed nothing and are
+    """ViT trunk returning the hidden states of `out_layers` (0-indexed, in
+    layer order), LayerNorm'd; with `final_norm_indices`, only those layers'
+    states are (DepthPro's hooks read the raw states, HF Dinov2Model's
+    semantics).  Layers after the last selected one feed nothing and are
     not built, as in the JAX module.  `quant` makes the four dense products
     of every layer int8 (`QuantLinear`, kernel K4); `use_swiglu` is ViT-G's
     MLP."""
@@ -173,10 +178,13 @@ class Dinov2Encoder(nn.Module):
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14,
                  quant: bool = False, interpolate_offset: float = 0.0,
-                 use_swiglu: bool = False) -> None:
+                 use_swiglu: bool = False, pretrain_grid: int = PRETRAIN_GRID,
+                 final_norm_indices: Optional[Tuple[int, ...]] = None) -> None:
         super().__init__()
         self.out_layers = tuple(sorted(out_layers))
-        self.embeddings = Dinov2Embeddings(hidden_size, patch_size, interpolate_offset)
+        self.normed = set(self.out_layers if final_norm_indices is None else final_norm_indices)
+        self.embeddings = Dinov2Embeddings(hidden_size, patch_size, interpolate_offset,
+                                           pretrain_grid)
         n_run = min(num_layers, max(self.out_layers) + 1)
         self.layer = nn.ModuleList(
             Dinov2Layer(hidden_size, num_heads, mlp_dim, quant, use_swiglu)
@@ -189,5 +197,5 @@ class Dinov2Encoder(nn.Module):
         for i, layer in enumerate(self.layer):
             x = layer(x)
             if i in self.out_layers:
-                outputs.append(self.layernorm(x))
+                outputs.append(self.layernorm(x) if i in self.normed else x)
         return tuple(outputs)

@@ -42,19 +42,37 @@ def apply_expand(x: torch.Tensor, kernel: torch.Tensor,
     B, H, W, C = x.shape
     _, f, f2, O = kernel.shape
     y = x.reshape(-1, C) @ kernel.to(x.dtype).reshape(C, f * f2 * O)
-    if bias is not None:
+    if bias is not None:  # [O], or [f, f, O] (a composed expansion's)
         y = y + bias.to(x.dtype).expand(f, f2, O).reshape(-1)
     y = y.reshape(B, H, W, f, f2, O).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(B, H * f, W * f2, O)
 
 
+def compose_expand(kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                   deconv_kernel: torch.Tensor, deconv_bias: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A k=s=2 ConvTranspose folded after an expansion: kernel [C,P,P,O] ∘
+    deconv (O, O2, 2, 2) → [C, 2P, 2P, O2], the biases composed affinely
+    ([2P, 2P, O2], or None).  Both are linear maps, so a chain of them is
+    one product + depth-to-space (`apply_expand`)."""
+    C, P, _, O = kernel.shape
+    O2 = deconv_kernel.shape[1]
+    k2 = torch.einsum("cpqo,oygk->cpgqky", kernel, deconv_kernel).reshape(C, 2 * P, 2 * P, O2)
+    b2 = None
+    if bias is not None:
+        b2 = torch.einsum("pqo,oygk->pgqky", bias, deconv_kernel).reshape(2 * P, 2 * P, O2)
+    if deconv_bias is not None:
+        b2 = (deconv_bias if b2 is None else b2 + deconv_bias).expand(2 * P, 2 * P, O2)
+    return k2, b2
+
+
 class ConvTransposeSameStride(nn.Module):
     """ConvTranspose2d(C, O, k=f, s=f); weight in torch's (C, O, f, f) layout."""
 
-    def __init__(self, in_channels: int, channels: int, factor: int) -> None:
+    def __init__(self, in_channels: int, channels: int, factor: int, bias: bool = True) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_channels, channels, factor, factor))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.bias = nn.Parameter(torch.zeros(channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_expand(x, self.weight.permute(0, 2, 3, 1), self.bias)

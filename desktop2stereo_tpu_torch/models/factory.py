@@ -1,8 +1,8 @@
 """Model factory: registry name → (model, spec), weights from a checkpoint or
 from a seed.
 
-Port of `desktop2stereo_tpu/models/factory.py:build_bound` for the
-depth_anything, vda, da3, dpt, dpt_dinov2, dpt_hybrid and dpt_beit families.  Weights come, in the JAX factory's order,
+Port of `desktop2stereo_tpu/models/factory.py:build_bound` for every family
+of the registry.  Weights come, in the JAX factory's order,
 from an explicit checkpoint path, then from a local cache
 (`find_checkpoint`), then from a seeded draw (printing the JAX factory's
 "no checkpoint found" line).  A checkpoint (safetensors, one file or
@@ -15,7 +15,9 @@ a unit-normal DA3 camera token and unit-normal BEiT relative-position
 tables).  `quant="int8"` quantizes the encoder's dense weights at load
 (`ops/quant.py:quantize_state_dict`) within each family's scope, as the JAX
 builders' `quantize_tree` step does (the ViT layers themselves for dpt and
-dpt_hybrid, `backbone` for the others); DA3NESTED refuses it, as JAX does.
+dpt_hybrid, DepthPro's two towers, `backbone` for the others); DA3NESTED
+refuses it, as JAX does; every other family takes it (the JAX
+`QUANT_FAMILIES` lists them all).
 `quant="none"` is float for every family: the JAX `build_model` hands
 `build_dpt_dinov2` the string, so its DPT-DINOv2 models run int8 even then
 (ROADMAP C5); the port does not follow it there.
@@ -36,16 +38,20 @@ from desktop2stereo_tpu_torch.core.runtime import COMPUTE_DTYPE, cuda_policy
 from desktop2stereo_tpu_torch.models import da3
 from desktop2stereo_tpu_torch.models.beit import BeitEncoder, BeitRelativePositionBias, DPTBEiT
 from desktop2stereo_tpu_torch.models.convert_hf import (
-    convert_da3, convert_da3_nested, convert_depth_anything, convert_dpt_beit,
-    convert_dpt_dinov2, convert_dpt_hybrid, convert_dpt_vit, convert_vda)
+    convert_da3, convert_da3_nested, convert_depth_anything, convert_depthpro, convert_dpt_beit,
+    convert_dpt_dinov2, convert_dpt_hybrid, convert_dpt_vit, convert_infinidepth, convert_vda,
+    convert_zoedepth)
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
+from desktop2stereo_tpu_torch.models.depthpro import DepthPro
 from desktop2stereo_tpu_torch.models.dinov2 import PatchEmbed
 from desktop2stereo_tpu_torch.models.dpt import ConvTransposeSameStride
 from desktop2stereo_tpu_torch.models.dpt_hybrid import DPTHybrid
 from desktop2stereo_tpu_torch.models.dpt_vit import DPTDinov2, DPTViT
 from desktop2stereo_tpu_torch.models.from_flax import from_flax
+from desktop2stereo_tpu_torch.models.infinidepth import Dinov3Backbone, InfiniDepth
 from desktop2stereo_tpu_torch.models.safetensors_io import INDEX_NAME
 from desktop2stereo_tpu_torch.models.vda import VideoDepthAnything
+from desktop2stereo_tpu_torch.models.zoedepth import ZoeDepth
 from desktop2stereo_tpu_torch.ops.quant import quantize_state_dict
 
 QUANT_MODES = ("none", "int8")
@@ -53,11 +59,6 @@ QUANT_MODES = ("none", "int8")
 # where converted checkpoints are looked for (the reference keeps them in
 # ./models), before the Hugging Face cache
 DEFAULT_WEIGHTS_DIRS = ("./models", os.path.expanduser("~/.cache/desktop2stereo_tpu/models"))
-
-# families whose ViT encoder runs int8 under --quant int8 (the JAX list)
-QUANT_FAMILIES = frozenset(
-    {"depth_anything", "dpt_dinov2", "vda", "depthpro", "da3",
-     "infinidepth", "dpt", "dpt_beit", "dpt_hybrid", "zoedepth"})
 
 NESTED_QUANT_MESSAGE = ("--quant is not supported for the NESTED preset (two aligned "
                         "branches); use DA3METRIC/DA3-* instead")
@@ -74,12 +75,18 @@ FAMILIES = {"depth_anything": (DepthAnything.from_spec, convert_depth_anything),
             "dpt": (DPTViT.from_spec, convert_dpt_vit),
             "dpt_dinov2": (DPTDinov2.from_spec, convert_dpt_dinov2),
             "dpt_hybrid": (DPTHybrid.from_spec, convert_dpt_hybrid),
-            "dpt_beit": (DPTBEiT.from_spec, convert_dpt_beit)}
+            "dpt_beit": (DPTBEiT.from_spec, convert_dpt_beit),
+            "zoedepth": (ZoeDepth.from_spec, convert_zoedepth),
+            "depthpro": (DepthPro.from_spec, convert_depthpro),
+            "infinidepth": (InfiniDepth.from_spec, convert_infinidepth)}
 
 # the module names `quant="int8"` quantizes beneath (`quantize_state_dict`'s
 # scope): the ViT layers sit at the model's top level in dpt and dpt_hybrid,
-# as the JAX builders' `layer_{i}` scopes say; "backbone" elsewhere
-QUANT_SCOPES = {"dpt": ("layer",), "dpt_hybrid": ("layer",)}
+# as the JAX builders' `layer_{i}` scopes say; DepthPro's two ViT towers;
+# "backbone" elsewhere (ZoeDepth's metric head, its patch transformer among
+# it, stays float)
+QUANT_SCOPES = {"dpt": ("layer",), "dpt_hybrid": ("layer",),
+                "depthpro": ("patch_encoder", "image_encoder")}
 
 # std of N(0,1) truncated to ±2, the correction flax's truncated_normal
 # initializer divides by so the drawn variance is the requested one
@@ -123,7 +130,7 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             _lecun_(m.patch_kernel, m.patch_kernel.shape[0], gen)
             if hasattr(m, "camera_token"):
                 m.camera_token.normal_(generator=gen)
-        elif isinstance(m, (DPTViT, BeitEncoder)):
+        elif isinstance(m, (DPTViT, BeitEncoder, Dinov3Backbone)):
             _lecun_(m.patch_kernel, m.patch_kernel.shape[0], gen)
         elif isinstance(m, BeitRelativePositionBias):
             # flax draws zeros; unit normal so that a run on random weights
@@ -179,11 +186,11 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
     `checkpoint` is a safetensors path (a file, an index json or one shard);
     without one, `find_checkpoint` looks in the local caches, and without a
     hit the weights are drawn from `seed`.  A `checkpoint` that does not
-    exist raises FileNotFoundError.  A vda or dpt_beit model is stateful: it
-    exposes `first(pixels)` and `step(pixels, carry)` beside `forward` (VDA
-    carries its temporal window, DPT-BEiT its layers' interpolated
-    relative-position tables, [H, R] each, which the attention kernel
-    gathers its bias from).
+    exist raises FileNotFoundError.  A vda, dpt_beit or zoedepth model is
+    stateful: it exposes `first(pixels)` and `step(pixels, carry)` beside
+    `forward` (VDA carries its temporal window, DPT-BEiT and ZoeDepth their
+    layers' interpolated relative-position tables, [H, R] each, which the
+    attention kernel gathers its bias from).
 
     `device=None` is the CUDA device policy's (`cuda_policy()`, which raises
     without CUDA); a caller that wants the CPU says so.  `dtype=None` is the
@@ -196,12 +203,6 @@ def build_bound(name: str, device: Optional[torch.device | str] = None,
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r} ({'|'.join(QUANT_MODES)})")
     spec = get_spec(name)
-    if quant != "none" and spec.family not in QUANT_FAMILIES:
-        raise NotImplementedError(
-            f"--quant {quant} is implemented for families {sorted(QUANT_FAMILIES)}; "
-            f"{name} is family {spec.family!r}")
-    if spec.family not in FAMILIES:
-        raise NotImplementedError(f"{name}: family {spec.family!r} is not ported (ROADMAP A5)")
     if quant != "none" and is_da3_nested(spec):
         raise NotImplementedError(NESTED_QUANT_MESSAGE)
     if device is None:

@@ -13,8 +13,10 @@ mechanical:
 - Conv kernels HWIO become Conv2d weights OIHW;
 - the conv-transpose kernels of a reassemble stage (the DPT neck's, the
   classic DPT decoder's, the VDA head's, and the DA3 heads'
-  `reassemble.resize_{0,1}`, whichever branch holds them) are stored
-  (C, O, f, f) on both sides and are kept as they are;
+  `reassemble.resize_{0,1}`, whichever branch holds them) and DepthPro's
+  (the upsample blocks' ConvTs after their 1x1 projection, the image
+  block's, the fusion layers' `deconv` and the head's `head_deconv`) are
+  stored (C, O, f, f) on both sides and are kept as they are;
 - LayerNorm `scale` becomes `weight`; every other leaf keeps its name;
 - a quantized Dense (`kernel_q` [in, out] int8, `scale`, `bias`; see the JAX
   `ops/quant.py:quantize_tree`) becomes a QuantLinear: `weight_q` [out, in]
@@ -41,6 +43,9 @@ _CONV_TRANSPOSE = tuple(end for i, f in enumerate(REASSEMBLE_FACTORS) if f > 1
                                     f"decoder.reassemble.{i}.resize.kernel",
                                     f"head.reassemble.{i}.resize.kernel",
                                     f"head.reassemble.resize.{i}.kernel"))
+_DEPTHPRO_CONV_TRANSPOSE = re.compile(
+    r"(^|\.)(head_deconv|deconv|image_block\.layers\.\d+"
+    r"|(scaled|intermediate)\.\d+\.layers\.[1-9]\d*)\.kernel$")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -71,7 +76,7 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             continue
         a = np.array(leaf, dtype=np.float32)  # a writable copy
         if name == "kernel":
-            if path.endswith(_CONV_TRANSPOSE):
+            if path.endswith(_CONV_TRANSPOSE) or _DEPTHPRO_CONV_TRANSPOSE.search(path):
                 pass                               # (C, O, f, f) on both sides
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)        # HWIO → OIHW

@@ -120,10 +120,21 @@ def check_supported(cfg: ProgramConfig) -> None:
         raise ValueError(f"emit_depth must be 'full' or 'model', got {cfg.emit_depth!r}")
 
 
-def ema_shape(cfg: ProgramConfig, spec: ModelSpec, frame_h: int, frame_w: int) -> Tuple[int, int]:
-    """Model-resolution depth shape (= the EMA carry shape) for a capture shape."""
-    oh, ow = process_frame_size(frame_h, frame_w, cfg.output_height)
+def model_input_size(cfg: ProgramConfig, spec: ModelSpec, oh: int, ow: int) -> Tuple[int, int]:
+    """The model input's size for an output size: depth_resolution² for a
+    square-only model (DepthPro), else the patch-aligned aspect-kept size."""
+    if spec.square_only:
+        return cfg.depth_resolution, cfg.depth_resolution
     return patch_aligned_size(oh, ow, cfg.depth_resolution, spec.patch_size)
+
+
+def ema_shape(cfg: ProgramConfig, spec: ModelSpec, frame_h: int, frame_w: int) -> Tuple[int, int]:
+    """Model-resolution depth shape (= the EMA carry shape) for a capture
+    shape, as the JAX package names it: the model input's size.  A model
+    whose depth has another size (DepthPro's is twice its input's side)
+    passes its first frame through the EMA and carries its own size after."""
+    oh, ow = process_frame_size(frame_h, frame_w, cfg.output_height)
+    return model_input_size(cfg, spec, oh, ow)
 
 
 class FrameProgram:
@@ -160,6 +171,15 @@ class FrameProgram:
             return self._fused_preprocess(frame_u8)
         return self._shared_preprocess(frame_u8)
 
+    def _resize_for_model(self, x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+        """[N, oh, ow, C] → the model input's size: bilinear without
+        antialias to depth_resolution² for a square-only model, as the JAX
+        program resizes it, else bicubic with antialias."""
+        size = model_input_size(self.cfg, self.spec, oh, ow)
+        if self.spec.square_only:
+            return resize(x, size, mode="bilinear")
+        return resize(x, size, mode="bicubic", antialias=True)
+
     def _model_input(self, mi: torch.Tensor) -> torch.Tensor:
         """[1,mh,mw,3] resized capture (0..255) → normalised model input."""
         return normalize_for_model(mi / 255.0, self.spec.norm_family).to(self.compute_dtype)
@@ -170,8 +190,7 @@ class FrameProgram:
         rgb = bgra_to_rgb(frame_u8).to(self.compute_dtype)
         if (oh, ow) != (h0, w0):
             rgb = resize(rgb, (oh, ow), mode="bilinear", antialias=oh < h0)
-        mh, mw = patch_aligned_size(oh, ow, self.cfg.depth_resolution, self.spec.patch_size)
-        mi = resize(rgb[None], (mh, mw), mode="bicubic", antialias=True)
+        mi = self._resize_for_model(rgb[None], oh, ow)
         return rgb, self._model_input(mi)
 
     def _fused_preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -181,9 +200,7 @@ class FrameProgram:
         if (oh, ow) != (h0, w0):
             planar = resize(planar[..., None], (oh, ow), mode="bilinear",
                             antialias=oh < h0)[..., 0]
-        mh, mw = patch_aligned_size(oh, ow, self.cfg.depth_resolution, self.spec.patch_size)
-        small = planar.to(self.compute_dtype)[..., None]
-        mi = resize(small, (mh, mw), mode="bicubic", antialias=True)[..., 0]
+        mi = self._resize_for_model(planar.to(self.compute_dtype)[..., None], oh, ow)[..., 0]
         model_in = self._model_input(mi.permute(1, 2, 0)[None])
         # pair-mean squeeze to the eye size: the reference viewer samples its
         # half-size viewports at texel-pair midpoints, i.e. (a+b)/2

@@ -643,3 +643,23 @@ def test_dpt_beit_streams_on_the_card_like_the_cpu(dev):
     assert len(carry) == 12 and all(
         c.dtype == torch.bfloat16 and c.is_contiguous()
         and c.shape == (12, K2.relative_position_count(gh, gw)) for c in carry)
+
+
+@pytest.mark.parametrize("name", ["zoedepth-nyu-kitti", "InfiniDepth-Small"])
+def test_f32_parts_stay_on_the_card_through_a_dtype_cast(dev, name):
+    """A model moved to the card, then cast by dtype alone: ZoeDepth's metric
+    head and InfiniDepth's conv stem stay float32 on the card, the trunk is
+    bf16, and a frame runs."""
+    from desktop2stereo_tpu_torch.models.factory import build_bound
+
+    model, _ = build_bound(name, device="cpu", seed=0)
+    model = model.to("cuda").to(torch.bfloat16)
+    f32 = model.metric_head if name.startswith("zoedepth") else model.basic_encoder
+    assert {p.device for p in model.parameters()} == {dev}
+    assert {p.dtype for p in f32.parameters()} == {torch.float32}
+    assert torch.bfloat16 in {p.dtype for p in model.parameters()}
+    x = torch.rand(1, 64, 112, 3, generator=torch.Generator(device=dev).manual_seed(0),
+                   device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        depth = model(x)
+    assert depth.device == dev and bool(torch.isfinite(depth.float()).all())

@@ -31,7 +31,8 @@ def test_port_has_the_slice_modules():
                  "models.dinov2", "models.dpt", "models.depth_anything",
                  "models.factory", "models.from_flax", "models.safetensors_io",
                  "models.convert_hf", "models.vda", "models.da3", "models.dpt_vit",
-                 "models.dpt_hybrid", "models.beit", "pipeline.programs",
+                 "models.dpt_hybrid", "models.beit", "models.zoedepth", "models.depthpro",
+                 "models.infinidepth", "pipeline.programs",
                  "pipeline.engine", "pipeline.metrics", "core.yaml_subset",
                  "core.display", "pipeline.crop", "ops.overlay", "native",
                  "sources", "sources.synthetic", "sources.image", "sources.video",

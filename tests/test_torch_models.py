@@ -36,16 +36,18 @@ def _rel(a, b):
 
 
 def test_registry_entries_equal_jax():
+    """Every one of the JAX registry's 52 names, with equal specs (menus,
+    square-only, normalisation, patch size, metric-ness)."""
     port = T_reg.MODEL_REGISTRY
-    jax_da = {k: v for k, v in J_reg.MODEL_REGISTRY.items()
-              if v.family in ("depth_anything", "vda", "da3", "dpt", "dpt_dinov2",
-                              "dpt_hybrid", "dpt_beit")}
-    assert set(port) == set(jax_da)
+    jax_all = J_reg.MODEL_REGISTRY
+    assert set(port) == set(jax_all) and len(port) == 52
     for name, spec in port.items():
-        assert dataclasses.asdict(spec) == dataclasses.asdict(jax_da[name]), name
-        assert (spec.dims, spec.dpt_layers, spec.neck_channels, spec.fusion_channels) == (
-            jax_da[name].dims, jax_da[name].dpt_layers, jax_da[name].neck_channels,
-            jax_da[name].fusion_channels)
+        assert dataclasses.asdict(spec) == dataclasses.asdict(jax_all[name]), name
+        assert spec.dims == jax_all[name].dims
+        if spec.variant in T_reg.DPT_LAYER_IDS:  # not InfiniDepth-SmallPlus's "vitsplus"
+            assert (spec.dpt_layers, spec.neck_channels, spec.fusion_channels) == (
+                jax_all[name].dpt_layers, jax_all[name].neck_channels,
+                jax_all[name].fusion_channels)
     assert T_reg.VIT_VARIANTS == J_reg.VIT_VARIANTS
     assert T_reg.DPT_LAYER_IDS == J_reg.DPT_LAYER_IDS
     assert T_reg.NECK_CHANNELS == J_reg.NECK_CHANNELS
@@ -53,8 +55,13 @@ def test_registry_entries_equal_jax():
 
 
 def test_registry_refuses_unported_families():
-    with pytest.raises(KeyError, match="A5"):
-        T_reg.get_spec("zoedepth-nyu")
+    """Every family is ported: a name outside the JAX registry raises, and
+    every registry name has a builder."""
+    from desktop2stereo_tpu_torch.models.factory import FAMILIES
+
+    with pytest.raises(KeyError, match="unknown model 'zoedepth-foo'"):
+        T_reg.get_spec("zoedepth-foo")
+    assert {s.family for s in T_reg.MODEL_REGISTRY.values()} == set(FAMILIES)
 
 
 @pytest.fixture(scope="module")

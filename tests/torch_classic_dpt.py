@@ -214,6 +214,22 @@ def hf_dpt_hybrid(seed: int, cfg=HYBRID) -> dict:
     return s.sd
 
 
+def perturb(params, seed):
+    """Every leaf moved by seeded noise: kernels by half their spread, zero
+    and unit leaves (biases, norms, LayerScale) by 0.05, the relative-position
+    tables drawn from N(0, 1) so that the bias moves the attention."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, leaf):
+        a = np.asarray(leaf, np.float32)
+        if "relative_position_bias_table" in jax.tree_util.keystr(path):
+            return rng.standard_normal(a.shape).astype(np.float32)
+        std = 0.5 * float(a.std()) if a.size > 1 and a.std() > 0 else 0.05
+        return (a + std * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(move, params)
+
+
 def pixels(seed: int, h: int, w: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal((1, h, w, 3)).astype(np.float32)
 
