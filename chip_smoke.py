@@ -109,7 +109,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     and sky mask as well, since the sky fill covers most of its frame on
     random weights;
 27. remote topology, Half-SBS: `cli.run --source tcp:0 --sink xr --port 0
-    --xr-no-input` on the phase-16 settings file for CLI_SECONDS, fed by a
+    --xr-no-input` on the phase-16 settings file for REMOTE_SECONDS, fed by a
     capture agent in a thread (the port's TcpFrameSender connection
     streaming seeded 4K BGRA frames over loopback, each packed beforehand:
     zlib-compressed noisy synthetic frames, the worst case for zlib, then
@@ -190,7 +190,43 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     f32; the int8
     model (96 K4 a frame) against bf16, and CLASSIC_FRAMES int8 frames;
     `cli.run --model InfiniDepth-SmallPlus --depth-res 512` for
-    LAST_CLI_SECONDS, 12 K2 and one K1 a frame.
+    LAST_CLI_SECONDS, 12 K2 and one K1 a frame;
+41. K1 over a stream axis of STREAMS = 2 frames (one launch, the grid's z
+    axis): at the 4K eye (Half-SBS) and the 4K frame (eyes), bit-equal to
+    two one-frame launches, timed beside them, the plain version and the
+    bound (twice one frame's);
+42. DA-V2-Large @518 on one 4K stream through FrameEngine, then two streams
+    (seeds 0 and 7) round-robin through MultiStreamEngine, MULTI_FRAMES a
+    stream: frames/s a stream and in total, exactly 24 K2 and one K1 a
+    frame, peak memory;
+43. the same two streams through BatchedStreamEngine (a BatchedProgramCache
+    of S = 2): frames/s, steps and the step ms, exactly 24 K2 (at batch 2)
+    and one K1 (over the stream axis) a step; the batched generic tails,
+    MULTI_STEPS steps each: Full-SBS high (one K1 eyes over the stream axis
+    a step), Half-SBS fast (K3 twice a row); each row of a batched step on
+    small frames is held against the card's single-stream program and the
+    CPU f32 run at phase 6's thresholds in phases 11 (bf16), 14 (int8), 18
+    (VDA) and 31 (BEiT);
+44. batched int8: each row's raw depth against bf16 at batch 2 (K4 at 1 556
+    rows; correlation >= INT8_MIN_CORR), MULTI_STEPS frames a stream with
+    24 K2, 96 K4 and one K1 a step;
+45. batched VDA-Large, MULTI_STEPS steps with the second row stale on every
+    other one: its caches bit-equal across each stale step and moved on
+    each fresh one, the carry (2 x 8 caches) MB, peak memory, 24 K2 and one
+    K1 a step;
+46. batched dpt-beit-large-512, the same pattern: no error on a stale row,
+    the carry one set of 24 tables for the batch, never rebuilt, 24 K2
+    through the table entry and one K1 a step;
+47. `cli.run --streams 2` and `--streams 2 --batched` for MULTI_CLI_SECONDS
+    on the phase-16 settings file (null sinks): frames/s a stream, one K1
+    and 24 K2 a frame run (round-robin) or a step (batched) in the warm-up
+    and the run; `cli.run --profile-dir` for PROFILE_CLI_SECONDS: its Chrome
+    trace (taken on the engine's compute thread) holds K1's and K2's kernels
+    and the d2s.preprocess / d2s.model / d2s.tail ranges;
+48. `python -m desktop2stereo_tpu_torch.tools.aot_compile` for 2160x3840 in
+    a process of its own with an empty build directory (D2S_BUILD_DIR):
+    the five sources' nvcc seconds and the warm seconds; `depth_visualize`
+    on assets/golden.png on the card.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -206,7 +242,10 @@ trace_depthpro.json and trace_infinidepth.json.  Each kernels entry's
 `launches_by_path` holds each path's count from its own run (the
 flagship's, DA3-LARGE's, the remote Half-SBS run's and the classic DPT
 paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths), and
-`launches` their sum.  K2's two biased entry points have entries of their
+`launches` their sum; K1's stream axis has entries of its own,
+`dibr_pair_half_s2` and `dibr_pair_eyes_s2` (the batched paths' launches,
+timed at S = 2 in phase 41), and the round-robin path's launches join the
+one-frame entries.  K2's two biased entry points have entries of their
 own: `attention_relpos` (the table entry, launched by the BEiT paths),
 timed at BEiT-L's [1, 577, 16, 64] with an 18x32 grid's [16, 2208] bf16
 table, and `attention_bias` (the dense entry, launched by the dense-bias
@@ -668,21 +707,30 @@ def stage_times(torch, programs, program, frame_np, cfg, spec, dev, generic: boo
     return {k: statistics.median(v) for k, v in times.items()}, out
 
 
-def reference_check(torch, name, card_prog, cpu_prog, frame):
-    sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
-    t0 = time.perf_counter()
-    sbs_r, depth_r = cpu_prog(frame)
-    cpu_s = time.perf_counter() - t0
+def ref_stats(torch, name, got, want, cpu_s=0.0):
+    """Phase 6's comparison of the card's (sbs, depth) `got` with the
+    reference `want`, both on the host: errors and whether they pass."""
+    (sbs_c, depth_c), (sbs_r, depth_r) = got, want
     if not torch.isfinite(depth_c).all() or sbs_c.shape != sbs_r.shape:
         raise AssertionError(f"reference {name}: non-finite depth or shape mismatch")
-    d_err = (depth_c - depth_r).abs()
+    d_err = (depth_c.float() - depth_r.float()).abs()
     s_err = (sbs_c.int() - sbs_r.int()).abs().float()
     ref = {"depth_mean_abs": d_err.mean().item(), "depth_max_abs": d_err.max().item(),
            "sbs_mean_lsb": s_err.mean().item(), "sbs_max_lsb": s_err.max().item(),
            "sbs_share_over_32": (s_err > 32).float().mean().item(), "cpu_s": cpu_s,
            "shape": list(sbs_c.shape)}
-    ok = (ref["depth_mean_abs"] <= REF_DEPTH_MEAN_ABS and ref["sbs_mean_lsb"] <= REF_SBS_MEAN_LSB
-          and ref["sbs_share_over_32"] <= REF_SBS_SHARE_OVER_32)
+    ref["ok"] = (ref["depth_mean_abs"] <= REF_DEPTH_MEAN_ABS
+                 and ref["sbs_mean_lsb"] <= REF_SBS_MEAN_LSB
+                 and ref["sbs_share_over_32"] <= REF_SBS_SHARE_OVER_32)
+    return ref
+
+
+def reference_check(torch, name, card_prog, cpu_prog, frame):
+    got = tuple(t.cpu() for t in card_prog(frame))
+    t0 = time.perf_counter()
+    want = cpu_prog(frame)
+    ref = ref_stats(torch, name, got, want, time.perf_counter() - t0)
+    sbs_c, ok, cpu_s = got[0], ref["ok"], ref["cpu_s"]
     log(f"[reference] {name}, 216x384 frame, card bf16 vs CPU f32: depth mean "
         f"{ref['depth_mean_abs']:.4f} (tol {REF_DEPTH_MEAN_ABS}) max {ref['depth_max_abs']:.4f}; "
         f"sbs {tuple(sbs_c.shape)} mean {ref['sbs_mean_lsb']:.3f} LSB (tol {REF_SBS_MEAN_LSB}) "
@@ -893,6 +941,7 @@ def cli_crop(np, torch, counters, layers, card, out_dir):
 # ---- 27-30: the remote topology ---------------------------------------------
 
 REMOTE_DISTINCT = 4      # seeded 4K frames the capture agent cycles through
+REMOTE_SECONDS = 6.0     # each remote CLI run (`--duration`)
 RTMP_URL = "rtmp://127.0.0.1/live/d2s"
 MODEL_SHAPE = (294, 518)  # DA-V2-Large's input for a 4K capture at 518
 CONTROL_S = 600.0         # bound on the control panel's worker reaching its first stats line
@@ -1086,7 +1135,7 @@ def zlib_decode_ms(packet) -> float:
 def remote_run(counters, layers, card, out_dir, name, packets, crcs, sink_argv,
                mode="Half-SBS", client=True, on_parts=None):
     """One `cli.run --source tcp:0` on the flagship settings file for
-    CLI_SECONDS (`--duration`: a steady stream, as phase 16a times the
+    REMOTE_SECONDS (`--duration`: a steady stream, as phase 16a times the
     CLI), fed by a RemoteFeed; checks the exit code, the launches (24 K2 and
     one K1 a frame), the source's stats, and that every delivered frame is
     one the agent sent (by CRC-32).  Returns (measurements, CliRun,
@@ -1101,7 +1150,7 @@ def remote_run(counters, layers, card, out_dir, name, packets, crcs, sink_argv,
     run = CliRun(counters, on_parts=parts)
     try:
         rc = run(["--settings", str(cli_settings(out_dir)), "--source", "tcp:0",
-                  "--display-mode", mode, "--duration", str(CLI_SECONDS), *sink_argv,
+                  "--display-mode", mode, "--duration", str(REMOTE_SECONDS), *sink_argv,
                   "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"])
     finally:
         feed.finish()
@@ -1123,7 +1172,7 @@ def remote_run(counters, layers, card, out_dir, name, packets, crcs, sink_argv,
           and st["frames_delivered"] <= st["frames_received"] <= feed.sent
           and 1 <= eng.frames <= st["frames_delivered"])
     log(f"[remote] {name}: cli --source tcp:0 --display-mode {mode} {' '.join(sink_argv)} "
-        f"--duration {CLI_SECONDS}: exit {rc}; the agent sent {feed.sent} 4K BGRA frames in "
+        f"--duration {REMOTE_SECONDS}: exit {rc}; the agent sent {feed.sent} 4K BGRA frames in "
         f"{feed.sent_s:.2f} s; the source received {st['frames_received']}, delivered "
         f"{st['frames_delivered']}, dropped {st['frames_dropped']}, decode errors "
         f"{st['decode_errors']}; {bad} delivered frames not among the sent ones (CRC-32); "
@@ -1585,6 +1634,10 @@ def vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths, fr
     out["reference_carry_max_rel"] = rel
     log(f"[vda] carry after 3 small frames, card bf16 against CPU f32, max abs err over max "
         f"abs per cache: " + ", ".join(f"{r:.4f}" for r in rel))
+    # the batched program (phase 45's path): two streams, first then step
+    out["batched_reference"] = batched_reference(
+        np, torch, programs, "vda", cfg, vda, cpu_vda, vda_spec, policy,
+        [small[:2], small[1:]])
     del cpu_vda, cpu_prog, card_prog
 
     # -- 19. int8 VDA ----------------------------------------------------------
@@ -2184,7 +2237,12 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
     del prog, carry, other, q, k, v, dense, by_dense, by_table
     rep["trace"] = trace("beit", net, spec, cfg, "engine",
                          {"K2 attention": rep["layers"], "K1 dibr_pair": 1})
-    rep["reference"], _ = reference(BEIT_MODEL, net, cfg, n_frames=2)
+    rep["reference"], cpu_net = reference(BEIT_MODEL, net, cfg, n_frames=2)
+    # the batched program (phase 46's path): two streams, first then step
+    rep["batched_reference"] = batched_reference(
+        np, torch, programs, "beit", cfg, net, cpu_net, spec, policy,
+        [fam.small, fam.small[::-1]])
+    del cpu_net
     out["beit"] = rep
 
     # -- 35. int8 dpt-beit-large-512 ---------------------------------------------
@@ -2546,6 +2604,568 @@ def last_families_phases(np, torch, F, programs, build_bound, drive, driven, tra
     return out
 
 
+# ---- 41-48: multi-stream serving, the profiler and the build tools -----------
+
+STREAMS = 2
+MULTI_FRAMES = 30         # frames a stream through the round-robin and batched engines
+MULTI_STEPS = 10          # steps of the batched int8, VDA, BEiT and generic paths
+MULTI_CLI_SECONDS = 10.0
+PROFILE_CLI_SECONDS = 3.0
+PLAIN_RUNS = 5            # timed samples of phase 41's plain version
+
+
+class StreamSource(SaturatingSource):
+    """A SaturatingSource for stream `idx` of a multi-stream engine: the next
+    frame as soon as the engine took that stream's previous one."""
+
+    def __init__(self, frames, count: int, idx: int) -> None:
+        super().__init__(frames, count)
+        self.idx = idx
+
+    def grab(self):
+        if self.sent == self.count:
+            return None
+        if not self.engine.streams[self.idx].raw.wait_taken(timeout=120.0):
+            raise TimeoutError(f"the engine took no frame of stream {self.idx} for 120 s")
+        frame = self.frames[self.sent % len(self.frames)]
+        self.sent += 1
+        return frame
+
+
+class CountedProgram:
+    """A program that counts its calls (a batched engine's steps)."""
+
+    def __init__(self, program) -> None:
+        self.program, self.calls = program, 0
+        self.device, self.stateful = program.device, program.stateful
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.program(*args, **kw)
+
+
+def run_streams(engine_cls, program, frame_sets, counters, n_frames, shape):
+    """Counts to 0, `n_frames` a stream through a multi-stream engine of
+    saturating sources into checking null sinks, counts read: (per-stream
+    frames/s over the wall time, the engine's stats, counts, the sinks)."""
+    sources = [StreamSource(fs, n_frames, i) for i, fs in enumerate(frame_sets)]
+    sinks = [CheckingNullSink(shape) for _ in frame_sets]
+    engine = engine_cls(sources, program, sinks, target_fps=0.0)
+    for s in sources:
+        s.engine = engine
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    stats = engine.run(duration=600.0)
+    wall_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    for st, sink in zip(engine.streams, sinks):
+        if st.frames != n_frames or sink.count + st.out.dropped != n_frames:
+            raise AssertionError(f"stream {st.idx}: {st.frames} frames run, {sink.count} "
+                                 f"delivered, {st.out.dropped} superseded; want {n_frames}")
+    return [n_frames / wall_s] * len(frame_sets), stats, counts, wall_s
+
+
+def check_counts(name, counts, want, per):
+    """Each kernel's launches against `want` (kernel → launches a frame or a
+    step) times `per`; the others none."""
+    log(f"[{name}] launches " + ", ".join(
+        f"{k} {n} (want {want.get(k, 0) * per})" for k, n in counts.items()))
+    if any(counts[k] != want.get(k, 0) * per for k in counts):
+        raise AssertionError(f"{name}: a kernel was not launched as the path needs")
+
+
+def batched_reference(np, torch, programs, name, cfg, card_net, cpu_net, spec, policy, steps):
+    """Each row of each batched step (S = 2 small frames, `steps` a list of
+    frame pairs) on the card (bf16) against the single-stream program on the
+    card on that row's frames, and against the CPU's f32 single-stream
+    programs (one a stream), both at phase 6's thresholds."""
+    card_b = programs.BatchedProgramCache(cfg, card_net, spec,
+                                          compute_dtype=policy.compute_dtype,
+                                          num_streams=len(steps[0]))
+    card_1 = programs.ProgramCache(cfg, card_net, spec, compute_dtype=policy.compute_dtype)
+    cpu_1 = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
+    out = []
+    for t, pair in enumerate(steps):
+        rows = [x.cpu() for x in card_b(np.stack(pair))]
+        for s, frame in enumerate(pair):
+            got = (rows[0][s], rows[1][s])
+            single = tuple(x.cpu() for x in card_1(frame, stream=s))
+            t0 = time.perf_counter()
+            cpu = cpu_1(frame, stream=s)
+            cpu_s = time.perf_counter() - t0
+            vs_single = ref_stats(torch, name, got, single)
+            vs_cpu = ref_stats(torch, name, got, cpu, cpu_s)
+            ok = vs_single["ok"] and vs_cpu["ok"]
+            log(f"[reference] {name} batched S={len(pair)}, step {t} row {s}, 216x384: against "
+                f"the card's single-stream program depth mean {vs_single['depth_mean_abs']:.4f}, "
+                f"sbs mean {vs_single['sbs_mean_lsb']:.3f} LSB; against CPU f32 depth mean "
+                f"{vs_cpu['depth_mean_abs']:.4f} (tol {REF_DEPTH_MEAN_ABS}), sbs "
+                f"{tuple(got[0].shape)} mean {vs_cpu['sbs_mean_lsb']:.3f} LSB (tol "
+                f"{REF_SBS_MEAN_LSB}), >32 LSB {vs_cpu['sbs_share_over_32']:.2e} (tol "
+                f"{REF_SBS_SHARE_OVER_32}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"batched reference {name}: a row disagrees")
+            out.append({"step": t, "row": s, "vs_single": vs_single, "vs_cpu": vs_cpu})
+    return out
+
+
+def step_ms(torch, program, batch, runs=TIMED_RUNS):
+    """Device ms of one batched step (CUDA events around the program call,
+    host launch gaps included), median of `runs` after 3 warm ones."""
+    times = []
+    with torch.inference_mode():
+        for i in range(runs + 3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            program(batch)
+            b.record()
+            b.synchronize()
+            if i >= 3:
+                times.append(a.elapsed_time(b))
+    program.reset()
+    return statistics.median(times)
+
+
+def k1_stream_axis(np, torch, K1, policy, card, timing, worst):
+    """41. K1 over a stream axis of STREAMS frames at the 4K eye (Half-SBS)
+    and the 4K frame (eyes): bit-equal to STREAMS one-frame launches, timed
+    device-only and eager beside the one-frame launches, the plain version
+    and the bound (STREAMS times one frame's bytes and operations)."""
+    dev = policy.device
+    rng = np.random.default_rng(41)
+    dkw = dict(ipd=IPD, depth_strength=STRENGTH, convergence=0.01)
+    out = {}
+    for key, (h, w), eyes in (("dibr_pair_half_s2", EYE, False),
+                              ("dibr_pair_eyes_s2", FULL, True)):
+        rgb = torch.from_numpy(rng.random((STREAMS, 3, h, w), dtype=np.float32) * 255).to(dev)
+        dep = torch.from_numpy(rng.random((STREAMS, h, w), dtype=np.float32)).to(dev)
+        if eyes:
+            batched = lambda: K1.dibr_pair_eyes(rgb, dep, **dkw)  # noqa: E731
+            singles = lambda: [K1.dibr_pair_eyes(rgb[s], dep[s], **dkw)  # noqa: E731
+                               for s in range(STREAMS)]
+            plain = lambda: K1.dibr_pair_eyes_ref(rgb, dep, **dkw)  # noqa: E731
+            got, one = batched(), singles()
+            err = max((g[s] - o).abs().max().item()
+                      for s in range(STREAMS) for g, o in zip(got, one[s]))
+            equal = all(torch.equal(g[s], o) for s in range(STREAMS) for g, o in zip(got, one[s]))
+            out_bytes = 2 * 3 * 4
+        else:
+            batched = lambda: K1.dibr_pair_half(rgb, dep, feather=0.0, **dkw)  # noqa: E731
+            singles = lambda: [K1.dibr_pair_half(rgb[s], dep[s], feather=0.0, **dkw)  # noqa: E731
+                               for s in range(STREAMS)]
+            plain = lambda: K1.dibr_pair_half_ref(rgb, dep, feather=0.0, **dkw)  # noqa: E731
+            got, one = batched(), singles()
+            err = max((got[s].int() - one[s].int()).abs().max().item() for s in range(STREAMS))
+            equal = all(torch.equal(got[s], one[s]) for s in range(STREAMS))
+            out_bytes = 2 * 3
+        torch.cuda.synchronize()
+        worst[key] = float(err)
+        log(f"[parity] K1 stream axis {key} [{STREAMS}, 3, {h}, {w}]: max abs {err} against "
+            f"{STREAMS} one-frame launches ({'bit-equal' if equal else 'NOT equal'})")
+        if not equal:
+            raise AssertionError(f"{key}: the stream axis is not bit-equal to one-frame launches")
+        t = time_both(torch, {"kernel": batched, "singles": singles})
+        # the plain version (20-40 ms a call) over PLAIN_RUNS samples
+        t["plain"] = time_calls(torch, {"plain": plain}, runs=PLAIN_RUNS, graph=True)["plain"]
+        t["eager"]["plain"] = time_calls(torch, {"plain": plain}, runs=PLAIN_RUNS)["plain"]
+        px = STREAMS * h * w
+        timing[key] = dict(t, library=None,
+                           shape=f"[{STREAMS}, 3, {h}, {w}] {'eyes f32' if eyes else 'Half-SBS'}",
+                           bound=bound_ms(policy.name, (4 * 4 + out_bytes) * px,
+                                          OPS_PER_PX["dibr_pair"] * px, "f32"))
+        tm = timing[key]
+        log(f"[time] {key}: one launch over {STREAMS} frames {tm['kernel']:.4f} ms (eager "
+            f"{tm['eager']['kernel']:.4f}), {STREAMS} one-frame launches {tm['singles']:.4f} "
+            f"(eager {tm['eager']['singles']:.4f}), plain {tm['plain']:.4f} (median of "
+            f"{PLAIN_RUNS}; eager {tm['eager']['plain']:.4f}), bound "
+            f"{tm['bound'][0]:.4f} ({tm['bound'][1]}) ms (CUDA graphs of 10 calls; {card})")
+        out[key] = {k: tm[k] for k in ("kernel", "singles", "plain", "bound", "eager")}
+        del rgb, dep, got, one
+    torch.cuda.empty_cache()
+    return out
+
+
+class CliMultiRun(CliRun):
+    """CliRun for `--streams N`: records the multi-stream engine as CliRun
+    records the FrameEngine."""
+
+    def __call__(self, argv):
+        from desktop2stereo_tpu_torch.pipeline import multi
+
+        run = self
+        classes = multi.MultiStreamEngine, multi.BatchedStreamEngine
+
+        def recording(cls):
+            class Recording(cls):
+                def start(self) -> None:
+                    run.engine = self
+                    run.warm_counts = read_counts(run.counters)
+                    self.started_at = time.perf_counter()
+                    super().start()
+            return Recording
+
+        multi.MultiStreamEngine, multi.BatchedStreamEngine = map(recording, classes)
+        try:
+            return super().__call__(argv)
+        finally:
+            multi.MultiStreamEngine, multi.BatchedStreamEngine = classes
+
+
+def cli_multi_phases(np, counters, layers, card, out_dir):
+    """47. `cli.run --streams 2` and `--streams 2 --batched` for
+    MULTI_CLI_SECONDS on the flagship settings file (4K synthetic sources
+    with seeds 0 and 1, null sinks): exit 0, each stream's frames and shape,
+    one K1 and `layers` K2 a frame run (round-robin) or a step (batched) in
+    the warm-up and the run; per-stream frames/s.  Then `--profile-dir` on
+    the flagship for PROFILE_CLI_SECONDS: the trace holds K2's and K1's
+    kernels and the frame program's d2s.* ranges."""
+    import shutil
+
+    base = ["--settings", str(cli_settings(out_dir)), "--source", "synthetic",
+            "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null",
+            "--stop-file", str(out_dir / "stop.request"), "--stats-every", "0"]
+    want_shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    out = {}
+    for name, extra in (("streams", ["--streams", str(STREAMS)]),
+                        ("batched", ["--streams", str(STREAMS), "--batched"])):
+        run = CliMultiRun(counters)
+        rc = run(base + extra + ["--duration", str(MULTI_CLI_SECONDS)])
+        eng = run.engine
+        sinks = [st.sink for st in eng.streams]
+        frames = [st.frames for st in eng.streams]
+        if rc != 0 or any(s.frames < 1 or s.last_shape != want_shape for s in sinks):
+            raise AssertionError(f"cli {name}: rc {rc}, delivered "
+                                 f"{[(s.frames, s.last_shape) for s in sinks]}")
+        run_counts = {n: run.counts[n] - run.warm_counts[n] for n in run.counts}
+        # round-robin: a K1 a frame run; batched: a K1 a step
+        steps = run_counts["dibr_pair"]
+        ok = (run.warm_counts["dibr_pair"] == CLI_WARM_FRAMES
+              and run.warm_counts["attention"] == layers * CLI_WARM_FRAMES
+              and run_counts["attention"] == layers * steps
+              and (steps == sum(frames) if name == "streams" else steps >= max(frames))
+              and all(c == 0 for n, c in run_counts.items()
+                      if n not in ("attention", "dibr_pair")))
+        fps = [f / run.wall_s for f in frames]
+        log(f"[cli] {name}: python -m desktop2stereo_tpu_torch.cli --settings (DA-V2-Large "
+            f"@518, Half-SBS) --source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} "
+            f"--sink null {' '.join(extra)} --duration {MULTI_CLI_SECONDS:g}: exit {rc}; frames "
+            f"a stream {frames}, delivered {[s.frames for s in sinks]}; frames/s a stream "
+            + ", ".join(f"{v:.2f}" for v in fps) + f", total {sum(fps):.2f} (over "
+            f"{run.wall_s:.2f} s); launches in the warm-up {run.warm_counts}, in the run "
+            f"{run_counts} ({steps} {'frames' if name == 'streams' else 'steps'}) "
+            f"{'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            raise AssertionError(f"cli {name}: a kernel was not launched as the path needs")
+        out[name] = dict(rc=rc, frames=frames, delivered=[s.frames for s in sinks],
+                         fps=fps, total_fps=sum(fps), wall_s=run.wall_s, steps=steps,
+                         launches={"warmup": run.warm_counts, "run": run_counts})
+
+    trace_dir = out_dir / "cli_profile"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    run = CliRun(counters)
+    rc = run(base + ["--duration", str(PROFILE_CLI_SECONDS), "--profile-dir", str(trace_dir)])
+    files = sorted(trace_dir.glob("*.json"))
+    if rc != 0 or len(files) != 1:
+        raise AssertionError(f"cli --profile-dir: rc {rc}, trace files {files}")
+    size_mb = files[0].stat().st_size / 1e6
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = sum("dibr_pair_kernel" in k for k in kernels)
+    k2 = sum("attention_fwd_kernel" in k for k in kernels)
+    ranges = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("d2s.") and e.get("cat") == "user_annotation":
+            ranges[e["name"]] = ranges.get(e["name"], 0) + 1
+    frames_run = run.engine.frames
+    ok = k1 >= 1 and k2 >= layers and {"d2s.preprocess", "d2s.model", "d2s.tail"} <= set(ranges)
+    log(f"[cli] --profile-dir: {frames_run} frames in {PROFILE_CLI_SECONDS:g} s, one Chrome "
+        f"trace of {size_mb:.1f} MB with {len(kernels)} kernels, K1 dibr_pair_kernel {k1}, K2 "
+        f"attention_fwd_kernel {k2}, ranges {ranges} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("cli --profile-dir: the trace lacks K1, K2 or the d2s.* ranges")
+    shutil.rmtree(trace_dir)  # the counts are kept, not the trace
+    out["profile"] = dict(rc=rc, frames=frames_run, trace_mb=size_mb, kernels=len(kernels),
+                          k1=k1, k2=k2, ranges=ranges)
+    return out
+
+
+def tools_phase(card, out_dir):
+    """48. `tools/aot_compile.py` for 2160x3840 in a process of its own with
+    an empty build directory: the five kernel sources' nvcc seconds and the
+    warm seconds; `tools/depth_visualize.py` on assets/golden.png on the card
+    in this process."""
+    import io
+    import os
+    import re
+    import shutil
+    from contextlib import redirect_stdout
+
+    from desktop2stereo_tpu_torch.tools import depth_visualize
+
+    build_dir = out_dir / "aot_build"
+    shutil.rmtree(build_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "desktop2stereo_tpu_torch.tools.aot_compile", "--model",
+           FLAGSHIP_MODEL, "--depth-res", "518", "--shapes",
+           f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--output-resolution", str(FRAME_SHAPE[0])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env=dict(os.environ, D2S_BUILD_DIR=str(build_dir)))
+    wall_s = time.perf_counter() - t0
+    shutil.rmtree(build_dir, ignore_errors=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[aot]")]
+    nvcc = {m.group(1): float(m.group(2))
+            for m in re.finditer(r"(\w+\.cu) nvcc ([0-9.]+)s", proc.stdout)}
+    warm = re.search(rf"\[aot\] {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}: warm in ([0-9.]+)s",
+                     proc.stdout)
+    ok = proc.returncode == 0 and len(nvcc) == 5 and warm is not None
+    log(f"[tools] {' '.join(cmd[2:])} (empty build directory), exit {proc.returncode} in "
+        f"{wall_s:.1f} s: " + " | ".join(lines) + f" {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError(f"aot_compile failed:\n{proc.stdout}\n{proc.stderr}")
+    buf = io.StringIO()
+    vis_out = out_dir / "depth_vis" / "golden"
+    with redirect_stdout(buf):
+        depth_visualize.main([str(ROOT / "assets" / "golden.png"), "--model", FLAGSHIP_MODEL,
+                              "--depth-res", "518", "--out", str(vis_out)])
+    m = re.search(r"shape=\((\d+), (\d+)\) min=([-0-9.]+) max=([-0-9.]+) mean=([-0-9.]+)",
+                  buf.getvalue())
+    png = vis_out.with_name(vis_out.name + "_depth.png")
+    ok = m is not None and png.exists() and 0.0 <= float(m.group(3)) <= float(m.group(4)) <= 1.0
+    log(f"[tools] depth_visualize assets/golden.png --model {FLAGSHIP_MODEL} --depth-res 518 "
+        f"on the card: {m.group(0) if m else buf.getvalue()} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("depth_visualize did not print its stats or write its PNG")
+    shutil.rmtree(vis_out.parent)
+    return dict(aot=dict(rc=proc.returncode, wall_s=wall_s, nvcc_s=nvcc,
+                         warm_s=float(warm.group(1)), lines=lines),
+                depth_visualize=dict(shape=[int(m.group(1)), int(m.group(2))],
+                                     min=float(m.group(3)), max=float(m.group(4)),
+                                     mean=float(m.group(5))))
+
+
+def multi_stream_phases(np, torch, programs, build_bound, counters, frames, policy, dev, card,
+                        out_dir, timing, worst):
+    """41-48: K1's stream axis; DA-V2-Large @518 on two 4K streams through
+    MultiStreamEngine (round-robin) and BatchedStreamEngine beside one
+    stream's FrameEngine; the batched generic tails; batched int8, VDA-Large
+    (a stale row a step in two) and dpt-beit-large-512; the CLI's
+    `--streams`, `--batched` and `--profile-dir`; the two build tools."""
+    from desktop2stereo_tpu_torch.ops.kernels import dibr as K1
+    from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
+    from desktop2stereo_tpu_torch.pipeline.multi import BatchedStreamEngine, MultiStreamEngine
+
+    started = time.perf_counter()
+    out = {"k1_stream_axis": k1_stream_axis(np, torch, K1, policy, card, timing, worst)}
+    paths = {}
+    feeds = [frames, synthetic_frames(np, 4, FRAME_SHAPE[0], FRAME_SHAPE[1], SEED + 7)]
+    shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    batch = torch.from_numpy(np.stack([feeds[0][0], feeds[1][0]])).to(dev)
+
+    # -- 42. the flagship on one stream, then two round-robin ------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, spec = build_bound(FLAGSHIP_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED)
+    layers = len(model.backbone.layer)
+    cfg = config(programs)
+    single = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
+    single.warmup(FRAME_SHAPE)
+    fps1, counts, _ = run_engine(FrameEngine, single, SaturatingSource(frames, MULTI_FRAMES),
+                                 CheckingNullSink(shape), counters, MULTI_FRAMES)
+    check_counts("single", counts, {"attention": layers, "dibr_pair": 1}, MULTI_FRAMES)
+    del single
+    rr = programs.ProgramCache(cfg, model, spec, compute_dtype=policy.compute_dtype)
+    rr.warmup(FRAME_SHAPE)
+    fps, stats, counts, wall_s = run_streams(MultiStreamEngine, rr, feeds, counters,
+                                             MULTI_FRAMES, shape)
+    check_counts("round_robin", counts, {"attention": layers, "dibr_pair": 1},
+                 STREAMS * MULTI_FRAMES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    paths["round_robin"] = dict(fps=fps, total_fps=sum(fps), single_fps=fps1, launches=counts,
+                                fps_counter=[s["fps"] for s in stats.values()], wall_s=wall_s,
+                                peak_mem_gb=peak, frames=MULTI_FRAMES)
+    log(f"[multi] round-robin, {STREAMS} streams of 4K Half-SBS ({FLAGSHIP_MODEL} @518), "
+        f"{MULTI_FRAMES} frames each through MultiStreamEngine: frames/s a stream "
+        + ", ".join(f"{v:.2f}" for v in fps) + f", total {sum(fps):.2f}; one stream through "
+        f"FrameEngine just before {fps1:.2f}; peak device memory {peak:.2f} GB; {card}")
+    del rr
+
+    # -- 43. batched: the fused tail, then the generic tails -----------------
+    torch.cuda.reset_peak_memory_stats()
+    prog = CountedProgram(programs.BatchedProgramCache(cfg, model, spec,
+                                                       compute_dtype=policy.compute_dtype,
+                                                       num_streams=STREAMS))
+    prog.program.warmup(FRAME_SHAPE)
+    prog.calls = 0
+    fps, stats, counts, wall_s = run_streams(BatchedStreamEngine, prog, feeds, counters,
+                                             MULTI_FRAMES, shape)
+    check_counts("batched", counts, {"attention": layers, "dibr_pair": 1}, prog.calls)
+    step = step_ms(torch, prog.program, batch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    paths["batched"] = dict(fps=fps, total_fps=sum(fps), steps=prog.calls, step_ms=step,
+                            launches=counts, fps_counter=[s["fps"] for s in stats.values()],
+                            wall_s=wall_s, peak_mem_gb=peak, frames=MULTI_FRAMES)
+    log(f"[multi] batched, {STREAMS} streams through BatchedStreamEngine: {MULTI_FRAMES} "
+        f"frames a stream in {prog.calls} steps; frames/s a stream "
+        + ", ".join(f"{v:.2f}" for v in fps) + f", total {sum(fps):.2f} (round-robin "
+        f"{paths['round_robin']['total_fps']:.2f}, one stream {fps1:.2f}); a step "
+        f"{step:.3f} ms (CUDA events around the program call, median of {TIMED_RUNS}); peak "
+        f"device memory {peak:.2f} GB; {card}")
+    del prog
+    for key, mode, quality, want in (
+            ("batched_generic_high", "Full-SBS", "high", {"attention": layers, "dibr_pair": 1}),
+            ("batched_generic_fast", "Half-SBS", "fast",
+             {"attention": layers, "warp": 2 * STREAMS})):
+        p = programs.BatchedProgramCache(config(programs, mode, quality), model, spec,
+                                         compute_dtype=policy.compute_dtype, num_streams=STREAMS)
+        p.warmup(FRAME_SHAPE)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for t in range(MULTI_STEPS):
+                sbs, _ = p(np.stack([feeds[0][t % 4], feeds[1][t % 4]]))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+        check_counts(key, counts, want, MULTI_STEPS)
+        want_shape = (STREAMS, FRAME_SHAPE[0], 2 * FRAME_SHAPE[1] if mode == "Full-SBS"
+                      else FRAME_SHAPE[1], 3)
+        if tuple(sbs.shape) != want_shape:
+            raise AssertionError(f"{key}: output {tuple(sbs.shape)}, want {want_shape}")
+        paths[key] = dict(steps=MULTI_STEPS, launches=counts,
+                          step_ms=step_ms(torch, p, batch), wall_s=wall_s)
+        log(f"[multi] {key} ({mode} {quality}): {MULTI_STEPS} steps of {STREAMS} 4K frames, "
+            f"output {want_shape}; a step {paths[key]['step_ms']:.3f} ms; {card}")
+        del p
+
+    # -- 44. batched int8: K4 at STREAMS x 778 rows ----------------------------
+    model_q, _ = build_bound(FLAGSHIP_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED,
+                             quant="int8")
+    with torch.inference_mode():
+        fp = programs.FrameProgram(cfg, model, spec, policy.compute_dtype, streams=STREAMS)
+        _, model_in = fp.preprocess(batch)
+        raw_f, raw_q = model(model_in).float(), model_q(model_in).float()
+    corr = [torch.corrcoef(torch.stack([raw_f[s].flatten(), raw_q[s].flatten()]))[0, 1].item()
+            for s in range(STREAMS)]
+    log(f"[multi] int8 against bf16 at batch {STREAMS} (model input "
+        f"{list(model_in.shape)}, K4 at {STREAMS} x {ATTN_SHAPE[1]} rows): correlation a row "
+        + ", ".join(f"{c:.5f}" for c in corr) + f" (min {INT8_MIN_CORR})")
+    if min(corr) < INT8_MIN_CORR or not torch.isfinite(raw_q).all():
+        raise AssertionError("batched int8: a row does not track the bf16 model")
+    del fp, model_in, raw_f, raw_q
+    prog = CountedProgram(programs.BatchedProgramCache(cfg, model_q, spec,
+                                                       compute_dtype=policy.compute_dtype,
+                                                       num_streams=STREAMS))
+    prog.program.warmup(FRAME_SHAPE)
+    prog.calls = 0
+    fps, stats, counts, wall_s = run_streams(BatchedStreamEngine, prog, feeds, counters,
+                                             MULTI_STEPS, shape)
+    check_counts("batched_int8", counts,
+                 {"attention": layers, "quant_matmul": 4 * layers, "dibr_pair": 1}, prog.calls)
+    paths["batched_int8"] = dict(fps=fps, total_fps=sum(fps), steps=prog.calls, corr=corr,
+                                 launches=counts, step_ms=step_ms(torch, prog.program, batch))
+    log(f"[multi] batched int8: {MULTI_STEPS} frames a stream in {prog.calls} steps, total "
+        f"{sum(fps):.2f} frames/s, a step {paths['batched_int8']['step_ms']:.3f} ms; {card}")
+    del prog, model_q, model
+    torch.cuda.empty_cache()
+
+    # -- 45. batched VDA-Large: the second row stale every other step ---------
+    torch.cuda.reset_peak_memory_stats()
+    vda, vda_spec = build_bound(VDA_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED)
+    vcfg = config(programs, model=VDA_MODEL)
+    prog = programs.BatchedProgramCache(vcfg, vda, vda_spec, compute_dtype=policy.compute_dtype,
+                                        num_streams=STREAMS)
+    prog.warmup(FRAME_SHAPE)
+    zero_counts(counters)
+    rows = [feeds[0][0], feeds[1][0]]
+    stale_equal, moved = [], []
+    t0 = time.perf_counter()
+    for t in range(MULTI_STEPS):
+        fresh = None if t == 0 else [True, t % 2 == 0]
+        for s in range(STREAMS):
+            if fresh is None or fresh[s]:
+                rows[s] = feeds[s][t % 4]
+        before = None if fresh is None else [c[1].clone() for c in
+                                             next(iter(prog._states.values())).model]
+        prog(np.stack(rows), fresh=fresh)
+        carry = next(iter(prog._states.values())).model
+        if before is not None:
+            same = all(torch.equal(c[1], b) for c, b in zip(carry, before))
+            (stale_equal if not fresh[1] else moved).append(same)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    check_counts("batched_vda", counts, {"attention": len(vda.backbone.layer), "dibr_pair": 1},
+                 MULTI_STEPS)
+    carry_mb = sum(c.numel() * c.element_size() for c in carry) / 1e6
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok = (all(stale_equal) and not any(moved) and len(carry) == 8
+          and all(c.shape[0] == STREAMS for c in carry))
+    paths["batched_vda"] = dict(steps=MULTI_STEPS, launches=counts, carry_mb=carry_mb,
+                                peak_mem_gb=peak, stale_steps=len(stale_equal),
+                                stale_rows_bit_equal=all(stale_equal),
+                                cache_shapes=[list(c.shape) for c in carry], wall_s=wall_s,
+                                step_ms=step_ms(torch, prog, batch))
+    log(f"[multi] batched {VDA_MODEL}: {MULTI_STEPS} steps, the second row stale on "
+        f"{len(stale_equal)} of them: its caches bit-equal across each stale step "
+        f"{all(stale_equal)}, moved on each fresh one {not any(moved)}; the carry 8 caches "
+        f"{[list(c.shape) for c in carry][:2]}..., {carry_mb:.1f} MB ({carry_mb / STREAMS:.1f} "
+        f"MB a stream); a step {paths['batched_vda']['step_ms']:.3f} ms; peak device memory "
+        f"{peak:.2f} GB {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("batched vda: a stale row's caches moved, or the carry is off")
+    del prog, vda, carry, before
+    torch.cuda.empty_cache()
+
+    # -- 46. batched dpt-beit-large-512: one set of tables, a stale row -------
+    torch.cuda.reset_peak_memory_stats()
+    beit, beit_spec = build_bound(BEIT_MODEL, device=dev, dtype=policy.compute_dtype, seed=SEED)
+    bcfg = config(programs, model=BEIT_MODEL, res=512)
+    prog = programs.BatchedProgramCache(bcfg, beit, beit_spec,
+                                        compute_dtype=policy.compute_dtype, num_streams=STREAMS)
+    prog.warmup(FRAME_SHAPE)
+    zero_counts(counters)
+    rows = [feeds[0][0], feeds[1][0]]
+    kept = None
+    for t in range(MULTI_STEPS):
+        fresh = None if t == 0 else [True, t % 2 == 0]
+        for s in range(STREAMS):
+            if fresh is None or fresh[s]:
+                rows[s] = feeds[s][t % 4]
+        prog(np.stack(rows), fresh=fresh)
+        carry = next(iter(prog._states.values())).model
+        if kept is not None and carry is not kept:
+            raise AssertionError("batched beit: the tables were rebuilt or masked")
+        kept = carry
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    nl = len(beit.backbone.layer)
+    check_counts("batched_beit", counts,
+                 {"attention": nl, "attention_relpos": nl, "dibr_pair": 1}, MULTI_STEPS)
+    carry_mb = sum(c.numel() * c.element_size() for c in kept) / 1e6
+    ok = len(kept) == nl and all(c.ndim == 2 and c.shape == kept[0].shape for c in kept)
+    paths["batched_beit"] = dict(steps=MULTI_STEPS, launches=counts, carry_mb=carry_mb,
+                                 tables=[list(kept[0].shape), str(kept[0].dtype)],
+                                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                 step_ms=step_ms(torch, prog, batch))
+    log(f"[multi] batched {BEIT_MODEL}: {MULTI_STEPS} steps with the second row stale on every "
+        f"other one, no error; the carry one set of {len(kept)} tables {list(kept[0].shape)} "
+        f"{kept[0].dtype}, {carry_mb:.2f} MB for the batch; a step "
+        f"{paths['batched_beit']['step_ms']:.3f} ms; peak device memory "
+        f"{paths['batched_beit']['peak_mem_gb']:.2f} GB {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("batched beit: the carry is not one set of tables")
+    del prog, beit, kept, carry, batch
+    torch.cuda.empty_cache()
+
+    # -- 47. the CLI; 48. the tools ---------------------------------------------
+    out["cli"] = cli_multi_phases(np, counters, layers, card, out_dir)
+    out["tools"] = tools_phase(card, out_dir)
+    out["paths"] = paths
+    out["seconds"] = time.perf_counter() - started
+    log(f"[multi] phases 41-48 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -2569,6 +3189,7 @@ def main() -> int:
     from desktop2stereo_tpu_torch.ops.kernels import dibr_fill as K5
     from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K4
     from desktop2stereo_tpu_torch.ops.kernels import warp as K3
+    from desktop2stereo_tpu_torch.ops.kernels.build import build_all
     from desktop2stereo_tpu_torch.pipeline import programs
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
 
@@ -2595,14 +3216,11 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    libs = [K2.KERNEL, K1.KERNEL, K3.KERNEL, K5.KERNEL, K4.KERNEL]
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda k: k.lib, libs))  # builds (if missing) and loads
+    built = build_all()  # builds (if missing) and loads
     build_s = time.perf_counter() - t0
     log("[build] " + ", ".join(
-        f"{k.source.name} {k.build_seconds:.2f} s" if k.build_seconds is not None
-        else f"{k.source.name} already built" for k in libs)
-        + f" (nvcc in parallel); all loaded in {build_s:.2f} s")
+        f"{name} {s:.2f} s" if s is not None else f"{name} already built"
+        for name, s in built.items()) + f" (nvcc in parallel); all loaded in {build_s:.2f} s")
     report["build_s"] = build_s
 
     # -- 3. kernel parity ----------------------------------------------------
@@ -3074,6 +3692,10 @@ def main() -> int:
     # -- 11. reference for the generic tail ------------------------------------
     reference("generic_high", full_cfg, model, cpu_model)
     reference("generic_fast", fast_cfg, model, cpu_model)
+    # the batched program's rows on the same frames (phase 43's path)
+    pair = [small_frame, synthetic_frames(np, 1, 216, 384, SEED + 8)[0]]
+    refs["batched"] = batched_reference(np, torch, programs, "main", flagship_cfg, model,
+                                        cpu_model, spec, policy, [pair])
     del cpu_model
 
     # -- 12. int8 against bf16: one seed, one model input ---------------------
@@ -3111,6 +3733,8 @@ def main() -> int:
                                  quant="int8")
     reference("int8", flagship_cfg, model_q, cpu_model_q)
     report["int8_vs_bf16"]["reference"] = refs["int8"]
+    refs["batched_int8"] = batched_reference(np, torch, programs, "int8", flagship_cfg, model_q,
+                                             cpu_model_q, spec, policy, [pair])
     del cpu_model_q
 
     # -- 15. one traced flagship frame and one traced int8 frame --------------
@@ -3256,6 +3880,11 @@ def main() -> int:
                                                    driven, trace, paths, frames, counters,
                                                    policy, dev, card, out_dir, timing, worst)
 
+    # -- 41-48. multi-stream serving, the profiler and the build tools ---------------
+    report["multi"] = multi_stream_phases(np, torch, programs, build_bound, counters, frames,
+                                          policy, dev, card, out_dir, timing, worst)
+    multi = report["multi"]["paths"]
+
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
         each read from its own run with the counts set to 0 before it)."""
@@ -3275,6 +3904,9 @@ def main() -> int:
     def remote_launches(kernel, name):  # a remote CLI run's count, after its warm-up
         return {f"remote_{name}": report["remote"][name]["launches"]["run"][kernel]}
 
+    def multi_launches(kernel, *names):  # the multi-stream paths' counts (41-46)
+        return {f"multi_{n}": multi[n]["launches"][kernel] for n in names}
+
     # each entry's launches: the slice's main path, and the DA3, classic DPT,
     # ZoeDepth, DepthPro and InfiniDepth paths' beside it
     classic = ("beit", "dpt_large", "dpt_hybrid", "dpt_dinov2")
@@ -3282,26 +3914,37 @@ def main() -> int:
     kernels = [
         entry("dibr_pair_half", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
               "dibr_pair_half", {**launches("dibr_pair", "main", "da3", *classic, *last),
-                                 **remote_launches("dibr_pair", "xr_raw")}),
+                                 **remote_launches("dibr_pair", "xr_raw"),
+                                 **multi_launches("dibr_pair", "round_robin")}),
+        entry("dibr_pair_half_s2", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
+              "dibr_pair_half_s2", multi_launches("dibr_pair", "batched", "batched_int8",
+                                                  "batched_vda", "batched_beit")),
         entry("dibr_pair_eyes", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
               "dibr_pair_eyes", {**launches("dibr_pair", "generic_high"),
                                  **remote_launches("dibr_pair", "xr_mono")}),
+        entry("dibr_pair_eyes_s2", csrc + "dibr_pair.cu", pallas + "dibr.py:535",
+              "dibr_pair_eyes_s2", multi_launches("dibr_pair", "batched_generic_high")),
         entry("attention", csrc + "attention.cu", pallas + "flash_attention.py:79",
               "attention", {**launches("attention", "main", "da3", "dpt_large", "dpt_hybrid",
                                        "dpt_dinov2", "depthpro", "infinidepth"),
-                            **remote_launches("attention", "xr_raw")}),
+                            **remote_launches("attention", "xr_raw"),
+                            **multi_launches("attention", "round_robin", "batched",
+                                             "batched_vda")}),
         entry("attention_bias", csrc + "attention.cu", pallas + "flash_attention.py:79",
               "attention_bias", launches("attention_bias", "beit_dense_api")),
         entry("attention_relpos", csrc + "attention.cu", pallas + "flash_attention.py:79",
-              "attention_relpos", launches("attention_relpos", "beit", "beit_int8",
-                                           "zoedepth")),
+              "attention_relpos", {**launches("attention_relpos", "beit", "beit_int8",
+                                              "zoedepth"),
+                                   **multi_launches("attention_relpos", "batched_beit")}),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
-              launches("warp", "generic_fast")),
+              {**launches("warp", "generic_fast"),
+               **multi_launches("warp", "batched_generic_fast")}),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
               {"dibr_render": render_counts["dibr_fill"]}),
         entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
-              "quant_matmul_fc1", launches("quant_matmul", "int8", "da3_int8", "beit_int8",
-                                           "depthpro_int8", "infinidepth_int8")),
+              "quant_matmul_fc1", {**launches("quant_matmul", "int8", "da3_int8", "beit_int8",
+                                              "depthpro_int8", "infinidepth_int8"),
+                                   **multi_launches("quant_matmul", "batched_int8")}),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,

@@ -29,8 +29,17 @@ The remote topology: `--source tcp[:PORT]` listens for a capture agent
 HOST:PORT` on the desktop; the shared secret `D2S_INGEST_TOKEN` on both
 ends), `--sink xr` serves the frame and its model-resolution depth to XR
 clients on `--port` (1123 by default; 0 binds a free port), and `--sink
-rtmp` publishes through ffmpeg.  What the port cannot do yet is refused by
-name: `--streams` > 1 and `--batched` (ROADMAP A6), `--profile-dir` (A10).
+rtmp` publishes through ffmpeg.
+
+`--streams N` serves N feeds through one program with per-stream state
+(`pipeline/multi.py`): N sources of the `--source` kind (synthetic with
+seed i, `<ring>_i` shm rings, the same image or video) into N sinks of the
+`--sink` kind (png into `<out>_i`, video into `<root>_i<ext>`, mjpeg on
+`port + i`, null), round-robin; with `--batched`, one batch of every
+stream's newest frame a launch (the frames must share one shape, and
+`--crop` is refused).  `--profile-dir DIR` writes a torch.profiler Chrome
+trace of the run after the warm-up into DIR, taken on the engine's compute
+thread.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import threading
 import time
 
 DEVICES = ("cuda", "cpu", "auto")
+TRACE_WRITE_S = 300.0  # bound on the compute thread's writing of a --profile-dir trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,22 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-every", type=float, default=2.0,
                    help="seconds between stats lines (0 = quiet)")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace of the run (ROADMAP A10)")
+                   help="write a torch.profiler trace of the run (Chrome trace "
+                        "JSON, CPU and CUDA activity) into this dir; starts "
+                        "after the warm-up so kernel builds stay out of it")
     p.add_argument("--streams", type=int, default=1,
-                   help="concurrent feeds through one pipeline (ROADMAP A6)")
+                   help="serve N concurrent feeds through one pipeline "
+                        "(per-stream state; png/video/mjpeg sinks get "
+                        "per-stream suffixes)")
     p.add_argument("--batched", action="store_true",
-                   help="with --streams N: one device batch per launch (ROADMAP A6)")
+                   help="with --streams N: stack the streams into one "
+                        "device batch per launch")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Exit naming the ROADMAP item for an option the port lacks."""
-    if args.streams > 1 or args.batched:
-        raise SystemExit("--streams > 1 and --batched are not ported to "
-                         "desktop2stereo_tpu_torch yet (ROADMAP A6)")
-    if args.profile_dir:
-        raise SystemExit("--profile-dir is not ported to desktop2stereo_tpu_torch yet "
-                         "(ROADMAP A10)")
 
 
 def _sink_for_run_mode(run_mode: str) -> str:
@@ -202,7 +207,8 @@ def device_policy(device: str, fp32: bool):
 def make_components(args, settings):
     from desktop2stereo_tpu_torch.core.registry import effective_compute_dtype, get_spec
     from desktop2stereo_tpu_torch.models.factory import build_bound
-    from desktop2stereo_tpu_torch.pipeline.programs import ProgramCache, ProgramConfig
+    from desktop2stereo_tpu_torch.pipeline.programs import (
+        BatchedProgramCache, ProgramCache, ProgramConfig)
     from desktop2stereo_tpu_torch.sinks import SINK_KINDS, make_sink
     from desktop2stereo_tpu_torch.sources import make_source
 
@@ -225,7 +231,13 @@ def make_components(args, settings):
         # viewer's viewport fit, viewer.py:1760-1770, live 'a' key); padding
         # in the device program too would pad twice
         cfg = dataclasses.replace(cfg, fill_16_9=False)
-    program = ProgramCache(cfg, model, spec, compute_dtype=compute_dtype)
+    if args.streams > 1 and args.batched:
+        if args.crop and args.crop != "off":
+            raise SystemExit("--batched does not support --crop")
+        program = BatchedProgramCache(cfg, model, spec, compute_dtype=compute_dtype,
+                                      num_streams=args.streams)
+    else:
+        program = ProgramCache(cfg, model, spec, compute_dtype=compute_dtype)
 
     if args.crop and args.crop != "off":
         # letterbox crop between capture and the frame program (reference
@@ -350,7 +362,6 @@ def _sink_kwargs(kind: str, args, settings) -> dict:
 
 def run(args=None) -> int:
     args = build_parser().parse_args(args)
-    refuse_unported(args)
     if args.device == "auto":
         args.device = "cuda"
 
@@ -366,6 +377,7 @@ def run(args=None) -> int:
 
     from desktop2stereo_tpu_torch.core.config import Settings, load_settings
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
+    from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest
 
     settings = load_settings(args.settings) if args.settings else Settings()
     overrides = {}
@@ -387,6 +399,9 @@ def run(args=None) -> int:
         # unknown model or mode, an unported kind, a checkpoint that is not
         # there, a quant mode the model refuses (DA3NESTED)
         raise SystemExit(f"[d2s] {e}")
+
+    if args.streams > 1:
+        return _run_multi(args, settings, source, program, sink)
 
     shutdown = threading.Event()
 
@@ -428,13 +443,10 @@ def run(args=None) -> int:
     # probe is then frame 0, staged like every other frame
     probe = source.grab()
     if probe is not None:
-        t0 = time.perf_counter()
-        print(f"[d2s] warming up for frame shape {probe.shape} ...")
-        rep = program.warmup(probe.shape)
-        detail = ("  (" + ", ".join(f"{k[:-2]} {v:.2f}s" for k, v in rep.items())
-                  + ")") if rep else ""
-        print(f"[d2s] warm in {time.perf_counter() - t0:.1f}s{detail}")
+        _warm_line(program, probe.shape)
         engine.preload(probe)
+    if args.profile_dir:
+        engine.trace = TraceRequest(args.profile_dir)
 
     try:
         engine.start()
@@ -461,6 +473,8 @@ def run(args=None) -> int:
                 last_stats = now
             time.sleep(0.05)
     finally:
+        if engine.trace is not None:
+            print(f"[d2s] profiler trace -> {engine.trace.finish(TRACE_WRITE_S)}")
         shutdown.set()
         # watchdog: hard-exit if native threads refuse to unwind
         # (reference main.py:325-339)
@@ -488,6 +502,92 @@ def run(args=None) -> int:
     final = engine.stats_final()
     print(f"[d2s] done: {final.frames} frames ({final.dropped} dropped), "
           f"avg {final.fps:.1f} FPS, 1% low {final.fps_1pct_low:.1f}")
+    return 0
+
+
+def _warm_line(program, shape) -> None:
+    t0 = time.perf_counter()
+    print(f"[d2s] warming up for frame shape {shape} ...")
+    rep = program.warmup(shape)
+    detail = ("  (" + ", ".join(f"{k[:-2]} {v:.2f}s" for k, v in rep.items())
+              + ")") if rep else ""
+    print(f"[d2s] warm in {time.perf_counter() - t0:.1f}s{detail}")
+
+
+def _run_multi(args, settings, source0, program, sink0) -> int:
+    """--streams N: N sources → MultiStreamEngine (or, with --batched,
+    BatchedStreamEngine) → N sinks, one program with per-stream carried
+    state (JAX `cli.py:596-683`)."""
+    from desktop2stereo_tpu_torch.pipeline import multi
+    from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest
+    from desktop2stereo_tpu_torch.sinks import make_sink
+    from desktop2stereo_tpu_torch.sources import make_source
+
+    n = args.streams
+    sources, sinks = [source0], [sink0]
+    try:
+        for i in range(1, n):
+            kw = {"max_frames": args.frames} if args.frames else {}
+            if args.source == "synthetic":
+                h, w = (int(v) for v in args.size.split("x"))
+                sources.append(make_source("synthetic", size=(h, w), seed=i, **kw))
+            elif args.source == "shm":
+                sources.append(make_source("shm", name=f"{args.input or '/d2s_frames'}_{i}",
+                                           **kw))
+            elif args.source in ("image", "video"):
+                if args.source == "video":
+                    kw["loop"] = args.frames is not None
+                sources.append(make_source(args.source, path=args.input, **kw))
+            else:
+                raise SystemExit(f"--streams with --source {args.source} unsupported")
+
+            if args.sink == "png":
+                sinks.append(make_sink("png", out_dir=f"{args.out or 'out'}_{i}",
+                                       save_depth=True))
+            elif args.sink == "video":
+                # splitext, not rpartition: a dotted directory name is not the
+                # extension ("results.v2/capture")
+                root, ext = os.path.splitext(args.out or "out.mp4")
+                sinks.append(make_sink("video", path=f"{root}_{i}{ext}", fps=settings.fps))
+            elif args.sink == "mjpeg":
+                sinks.append(make_sink("mjpeg", port=(args.port or settings.streamer_port) + i,
+                                       fps=settings.fps, quality=settings.stream_quality,
+                                       show_fps=args.show_fps or settings.show_fps))
+            elif args.sink == "null":
+                sinks.append(make_sink("null"))
+            else:
+                raise SystemExit(f"--streams with --sink {args.sink} unsupported")
+
+        shutdown = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                signal.signal(sig, lambda *_a: shutdown.set())
+            except (ValueError, OSError):
+                pass  # not the main thread (tests)
+
+        probe = sources[0].grab()
+        if probe is not None:
+            _warm_line(program, probe.shape)
+        engine_cls = multi.BatchedStreamEngine if args.batched else multi.MultiStreamEngine
+        engine = engine_cls(sources, program, sinks, target_fps=settings.fps,
+                            shutdown=shutdown)
+        if probe is not None:
+            engine.preload(probe, stream=0)  # stream 0's first frame, not a casualty
+        if args.profile_dir:
+            engine.trace = TraceRequest(args.profile_dir)
+        stats = engine.run(duration=args.duration)
+        if engine.trace is not None:
+            # the compute thread writes it as it leaves, maybe after run()
+            print(f"[d2s] profiler trace -> {engine.trace.finish(TRACE_WRITE_S)}")
+    finally:
+        for obj in sources + sinks:
+            try:
+                getattr(obj, "shutdown", obj.close)()
+            except Exception:
+                pass
+    for name, s in stats.items():
+        print(f"[d2s] {name}: {s['frames']} frames ({s['dropped']} dropped), "
+              f"{s.get('fps', 0.0):.1f} FPS")
     return 0
 
 

@@ -50,7 +50,15 @@
 //
 // The launch geometry comes from the wrapper (ops/kernels/dibr.py:
 // tile_geometry) and is checked here; a mismatch returns
-// cudaErrorInvalidValue.  Every pixel's float operations are those of the
+// cudaErrorInvalidValue.
+//
+// Stream axis: both entry points take S frames at once, contiguous
+// [S, 3, H, W] rgb and [S, H, W] depth, into S outputs (the batched
+// multi-stream program's one launch a step, as jax.vmap gives the TPU
+// kernel a batch grid axis).  The stream index is the grid's z axis and
+// each block offsets its rgb, depth and output pointers by its stream's
+// stride; nothing else changes, so row s of an S-frame launch is bit-equal
+// to a one-frame launch on row s.  Every pixel's float operations are those of the
 // earlier thread-per-pixel kernel in the same order, so the output is
 // bit-identical to it; only where the operands come from changed.
 
@@ -86,6 +94,9 @@ struct EdgeScale {
 
 struct DibrParams {
   int height, width;      // eye size
+  // per-stream strides in elements: rgb and depth (f32), the output (u8 for
+  // the Half frame, f32 for each eye)
+  long long s_rgb, s_dep, s_out;
   float disp_l, disp_r;   // eye offset * width, per eye (-|ipd/2|*W, +|ipd/2|*W)
   float depth_strength;
   float convergence;
@@ -348,6 +359,15 @@ __global__ void __launch_bounds__(kMaxThreads, D2S_DIBR_MIN_BLOCKS)
                      const __grid_constant__ Geometry g) {
   extern __shared__ float4 smem[];
   const Tile t = tile_of(smem, g);
+  const long long z = blockIdx.z;  // the stream
+  rgb += z * p.s_rgb;
+  dep += z * p.s_dep;
+  if (kEyes) {
+    out0 = static_cast<float*>(out0) + z * p.s_out;
+    out1 = static_cast<float*>(out1) + z * p.s_out;
+  } else {
+    out0 = static_cast<uint8_t*>(out0) + z * p.s_out;
+  }
   const int W = p.width;
   const int y = blockIdx.y;
   const size_t plane = (size_t)p.height * W;
@@ -396,17 +416,25 @@ DibrParams make_params(int height, int width, float ipd, float depth_strength,
   return p;
 }
 
+// `streams` frames at the per-stream strides of contiguous [S, ...] inputs
+// and outputs (elements: 3HW rgb, HW depth, 6HW u8 Half frame or 3HW f32 eye).
 template <bool kEyes>
-int launch(const void* rgb, const void* dep, void* out0, void* out1, DibrParams p,
-           const Geometry& g, int pix, void* stream) {
-  if (p.height < 1 || p.height > 65535 || !geometry_ok(g, p.width, pix, kRadius))
+int launch(const void* rgb, const void* dep, void* out0, void* out1, int streams,
+           DibrParams p, const Geometry& g, int pix, void* stream) {
+  if (streams < 1 || streams > 65535 || p.height < 1 || p.height > 65535 ||
+      !geometry_ok(g, p.width, pix, kRadius))
     return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)p.height * p.width;
+  p.s_rgb = 3 * plane;
+  p.s_dep = plane;
+  p.s_out = kEyes ? 3 * plane : 6 * plane;
+  // width % 4 == 0 keeps every stream's rows as aligned as stream 0's
   p.vec = p.width % 4 == 0 && aligned16(rgb) && aligned16(dep) && aligned16(out0) &&
           (out1 == nullptr || aligned16(out1));
   static int allowed = 0;
   const cudaError_t err = allow_smem(dibr_pair_kernel<kEyes>, g.smem, &allowed);
   if (err != cudaSuccess) return (int)err;
-  dibr_pair_kernel<kEyes><<<dim3(g.grid_x, p.height), g.threads, g.smem,
+  dibr_pair_kernel<kEyes><<<dim3(g.grid_x, p.height, streams), g.threads, g.smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rgb), static_cast<const float*>(dep), out0, out1, p, g);
   return (int)cudaGetLastError();
@@ -420,29 +448,30 @@ const char* d2s_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// rgb: contiguous planar [3, height, width] f32 (0..255); dep: contiguous
-// [height, width] f32 in [0, 1]; out: contiguous u8, [height, 2*width, 3]
-// (tab = 0) or [2*height, width, 3] (tab = 1).  seg .. grid_x: the launch
-// geometry of ops/kernels/dibr.py:tile_geometry (pix = 4, halo >= 12).
-int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int height,
-                       int width, float ipd, float depth_strength,
+// rgb: contiguous planar [streams, 3, height, width] f32 (0..255); dep:
+// contiguous [streams, height, width] f32 in [0, 1]; out: contiguous u8,
+// [streams, height, 2*width, 3] (tab = 0) or [streams, 2*height, width, 3]
+// (tab = 1).  seg .. grid_x: the launch geometry of ops/kernels/dibr.py:
+// tile_geometry (pix = 4, halo >= 12).
+int d2s_dibr_pair_half(const void* rgb, const void* dep, void* out, int streams,
+                       int height, int width, float ipd, float depth_strength,
                        float convergence, double feather, int tab, int seg,
                        int halo, int pix, int threads, int smem, int grid_x,
                        void* stream) {
-  return launch<false>(rgb, dep, out, nullptr,
+  return launch<false>(rgb, dep, out, nullptr, streams,
                        make_params(height, width, ipd, depth_strength,
                                    convergence, feather, tab),
                        Geometry{seg, halo, threads, smem, grid_x}, pix, stream);
 }
 
-// rgb, dep as above; out_l, out_r: contiguous planar [3, height, width] f32,
-// unfeathered (the generic tail feathers the eyes itself).
+// rgb, dep as above; out_l, out_r: contiguous planar [streams, 3, height,
+// width] f32, unfeathered (the generic tail feathers the eyes itself).
 int d2s_dibr_pair_eyes(const void* rgb, const void* dep, void* out_l,
-                       void* out_r, int height, int width, float ipd,
+                       void* out_r, int streams, int height, int width, float ipd,
                        float depth_strength, float convergence, int seg,
                        int halo, int pix, int threads, int smem, int grid_x,
                        void* stream) {
-  return launch<true>(rgb, dep, out_l, out_r,
+  return launch<true>(rgb, dep, out_l, out_r, streams,
                       make_params(height, width, ipd, depth_strength,
                                   convergence, 0.0, 0),
                       Geometry{seg, halo, threads, smem, grid_x}, pix, stream);

@@ -167,7 +167,10 @@ class DPTBEiT(nn.Module):
     head's resolution.  Stateful for the frame program: `first(pixels)` →
     (depth, the layers' [H, R] relative-position tables) and `step(pixels,
     tables)` → (depth, the same tables).  `quant=True` makes query, key, value, proj, fc1 and fc2
-    of every layer int8 (K4)."""
+    of every layer int8 (K4).  The tables depend on the input's shape alone,
+    so a batch of streams carries one set (`carry_per_stream` False)."""
+
+    carry_per_stream = False  # no stream axis in the carry: never masked
 
     def __init__(self, preset: str, neck_channels: Sequence[int], fusion_channels: int,
                  patch_size: int = 16, quant: bool = False) -> None:

@@ -198,7 +198,10 @@ def update_state(state: VDAState, entries: Sequence[torch.Tensor]) -> VDAState:
 class VideoDepthAnything(nn.Module):
     """Encoder + temporal head.  forward(pixels [B·T, H, W, 3], frames,
     caches) → (depth [B·T, H, W], entries).  `quant=True` builds the int8
-    encoder (K4); the head stays float."""
+    encoder (K4); the head stays float.  Each batch row carries its own
+    caches ([B, P, 31, C]): a batch of streams keeps one window a stream."""
+
+    carry_per_stream = True  # the frame program's batched `fresh` mask applies
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...],

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -30,7 +31,8 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+# $D2S_BUILD_DIR moves the built libraries (a cold build beside a warm one)
+BUILD_DIR = Path(os.environ.get("D2S_BUILD_DIR") or PACKAGE_DIR / "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo")
@@ -150,3 +152,16 @@ class CudaLibrary:
                                f"cudaError {code} ({msg})")
         if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
             self.entry_launches[name] = self.entry_launches.get(name, 0) + 1
+
+
+def build_all() -> Dict[str, Optional[float]]:
+    """Build (where missing) and load the five kernel sources' libraries
+    (K2, K1, K3, K5, K4), one nvcc per source, all started together;
+    → {source name: nvcc seconds, None where it was already built}."""
+    from desktop2stereo_tpu_torch.ops.kernels import (
+        attention, dibr, dibr_fill, quant_matmul, warp)
+
+    libs = [attention.KERNEL, dibr.KERNEL, warp.KERNEL, dibr_fill.KERNEL, quant_matmul.KERNEL]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.lib, libs))
+    return {k.source.name: k.build_seconds for k in libs}

@@ -10,6 +10,12 @@ f32 [3, h, w] at the full frame width.  Inputs are planar rgb [3, h, w] f32
 reads on the true frame equal the JAX kernel's reads of its edge-padded
 frame.  Both entry points launch the same kernel and count on one `KERNEL`.
 
+Both also take a stream axis, as `jax.vmap` over the JAX program's tail
+gives the TPU kernel a batch grid axis: rgb [S, 3, h, w] with depth
+[S, h, w] is one launch over S frames (the batched multi-stream program),
+each row's output bit-equal to a one-frame launch on that row; the plain
+versions loop over the rows.
+
 The launch geometry of both DIBR kernels (this one and K5,
 `dibr_fill.py`) is computed here, in `tile_geometry`, and checked by the C
 side: a block owns a segment of one row and stages it once in shared memory
@@ -95,9 +101,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOMETRY = [_I] * len(TileGeometry._fields)
 KERNEL = CudaLibrary(
     "dibr_pair.cu",
-    {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _F, _F, _F, ctypes.c_double,
+    {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _I, _F, _F, _F, ctypes.c_double,
                             _I, *_GEOMETRY, _P],
-     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _F, _F, _F, *_GEOMETRY, _P]},
+     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, *_GEOMETRY, _P]},
     # no contracted multiply-adds: keeps the kernel within rounding of the
     # plain version, whose every op rounds on its own
     extra_flags=("-fmad=false",),
@@ -144,7 +150,14 @@ def dibr_pair_eyes_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
     forward (depth-weighted) and a backward (plain) push-pull sweep over RAW
     depth, ±2-row vertical taps, then per eye a bilinear warp at the
     depth-driven position and the confidence blend; optional edge feather.
+    With a stream axis (rgb [S, 3, eh, ew], depth [S, eh, ew]) each row on
+    its own, → [S, 3, eh, ew] each.
     """
+    if rgb_h.ndim == 4:
+        eyes = [dibr_pair_eyes_ref(r, d, ipd=ipd, depth_strength=depth_strength,
+                                   convergence=convergence, feather=feather)
+                for r, d in zip(rgb_h, dep_h)]
+        return torch.stack([e[0] for e in eyes]), torch.stack([e[1] for e in eyes])
     rgb, d = rgb_h, dep_h
     H, W = d.shape
     h_lo = clamp_shift(d, -2, -1) * 0.5 + clamp_shift(d, -1, -1) * 0.5  # tap at -1.5 px
@@ -241,7 +254,12 @@ def quantize_u8(x: torch.Tensor) -> torch.Tensor:
 def dibr_pair_half_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
                        depth_strength: float, convergence: float,
                        feather: float = 0.0, arrangement: str = "sbs") -> torch.Tensor:
-    """Plain version of `dibr_pair_half`: the finished u8 HWC frame."""
+    """Plain version of `dibr_pair_half`: the finished u8 HWC frame, or
+    [S, ...] frames for a stream axis (each row on its own)."""
+    kw = dict(ipd=ipd, depth_strength=depth_strength, convergence=convergence,
+              feather=feather, arrangement=arrangement)
+    if rgb_h.ndim == 4:
+        return torch.stack([dibr_pair_half_ref(r, d, **kw) for r, d in zip(rgb_h, dep_h)])
     left, right = dibr_pair_eyes_ref(
         rgb_h, dep_h, ipd=ipd, depth_strength=depth_strength,
         convergence=convergence, feather=feather)
@@ -251,20 +269,25 @@ def dibr_pair_half_ref(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
 
 
 def check_inputs(rgb_h: torch.Tensor, dep_h: torch.Tensor, arrangement: str = "sbs") -> None:
-    """Raise ValueError for anything the kernel does not take."""
+    """Raise ValueError for anything the kernel does not take: rgb [3,eh,ew]
+    with depth [eh,ew], or a stream axis, rgb [S,3,eh,ew] with depth
+    [S,eh,ew]."""
     if arrangement not in ARRANGEMENTS:
         raise ValueError(f"arrangement must be one of {ARRANGEMENTS}, got {arrangement!r}")
-    if rgb_h.ndim != 3 or rgb_h.shape[0] != 3 or dep_h.shape != rgb_h.shape[1:]:
-        raise ValueError(f"dibr kernel needs rgb [3,eh,ew] and depth [eh,ew], got "
-                         f"{tuple(rgb_h.shape)} and {tuple(dep_h.shape)}")
+    if (rgb_h.ndim not in (3, 4) or rgb_h.shape[-3] != 3
+            or dep_h.shape != rgb_h.shape[:-3] + rgb_h.shape[-2:]):
+        raise ValueError(f"dibr kernel needs rgb [3,eh,ew] and depth [eh,ew], or [S,3,eh,ew] "
+                         f"and [S,eh,ew], got {tuple(rgb_h.shape)} and {tuple(dep_h.shape)}")
     for name, t in (("rgb", rgb_h), ("depth", dep_h)):
         if t.dtype != torch.float32:
             raise ValueError(f"dibr kernel needs f32 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"dibr kernel needs a contiguous {name}")
-    eh, ew = dep_h.shape
+    eh, ew = dep_h.shape[-2:]
     if eh == 0 or ew == 0 or eh > 65535:
         raise ValueError(f"dibr kernel: unsupported eye size {eh}x{ew}")
+    if rgb_h.ndim == 4 and not 1 <= rgb_h.shape[0] <= 65535:
+        raise ValueError(f"dibr kernel: unsupported stream count {rgb_h.shape[0]}")
 
 
 def _on_cpu(rgb_h: torch.Tensor, dep_h: torch.Tensor) -> bool:
@@ -277,22 +300,28 @@ def _on_cpu(rgb_h: torch.Tensor, dep_h: torch.Tensor) -> bool:
     return False
 
 
+def _streams(rgb: torch.Tensor) -> int:
+    """Frames in one launch: the stream axis's length, else 1."""
+    return rgb.shape[0] if rgb.ndim == 4 else 1
+
+
 def dibr_pair_eyes(rgb: torch.Tensor, dep: torch.Tensor, *, ipd: float,
                    depth_strength: float,
                    convergence: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both eyes, unfeathered → (left, right) planar f32 [3, h, w].  CPU
-    tensors take `dibr_pair_eyes_ref`; CUDA tensors take the kernel or
-    raise."""
+    """Both eyes, unfeathered → (left, right) planar f32 [3, h, w], or
+    [S, 3, h, w] each for a stream axis.  CPU tensors take
+    `dibr_pair_eyes_ref` (row by row); CUDA tensors take the kernel, one
+    launch for all rows, or raise."""
     check_inputs(rgb, dep)
+    kw = dict(ipd=ipd, depth_strength=depth_strength, convergence=convergence)
     if _on_cpu(rgb, dep):
-        return dibr_pair_eyes_ref(rgb, dep, ipd=ipd, depth_strength=depth_strength,
-                                  convergence=convergence)
-    h, w = dep.shape
+        return dibr_pair_eyes_ref(rgb, dep, **kw)
+    h, w = dep.shape[-2:]
     left = torch.empty_like(rgb)
     right = torch.empty_like(rgb)
     stream = torch.cuda.current_stream(rgb.device).cuda_stream
     KERNEL.call("d2s_dibr_pair_eyes", rgb.data_ptr(), dep.data_ptr(),
-                left.data_ptr(), right.data_ptr(), h, w, float(ipd),
+                left.data_ptr(), right.data_ptr(), _streams(rgb), h, w, float(ipd),
                 float(depth_strength), float(convergence),
                 *tile_geometry(w, SEARCH_RADIUS, SEG_TARGET, WHOLE_ROW_SMEM), stream)
     return left, right
@@ -301,21 +330,22 @@ def dibr_pair_eyes(rgb: torch.Tensor, dep: torch.Tensor, *, ipd: float,
 def dibr_pair_half(rgb_h: torch.Tensor, dep_h: torch.Tensor, *, ipd: float,
                    depth_strength: float, convergence: float,
                    feather: float = 0.0, arrangement: str = "sbs") -> torch.Tensor:
-    """Both eyes → u8 [eh, 2·ew, 3] ("sbs") or [2·eh, ew, 3] ("tab").
-    CPU tensors take `dibr_pair_half_ref`; CUDA tensors take the kernel or
+    """Both eyes → u8 [eh, 2·ew, 3] ("sbs") or [2·eh, ew, 3] ("tab"), or
+    [S, ...] frames for a stream axis.  CPU tensors take `dibr_pair_half_ref`
+    (row by row); CUDA tensors take the kernel, one launch for all rows, or
     raise."""
     check_inputs(rgb_h, dep_h, arrangement)
     if _on_cpu(rgb_h, dep_h):
         return dibr_pair_half_ref(rgb_h, dep_h, ipd=ipd, depth_strength=depth_strength,
                                   convergence=convergence, feather=feather,
                                   arrangement=arrangement)
-    eh, ew = dep_h.shape
+    eh, ew = dep_h.shape[-2:]
     tab = arrangement == "tab"
-    shape = (2 * eh, ew, 3) if tab else (eh, 2 * ew, 3)
+    shape = dep_h.shape[:-2] + ((2 * eh, ew, 3) if tab else (eh, 2 * ew, 3))
     out = torch.empty(shape, dtype=torch.uint8, device=rgb_h.device)
     stream = torch.cuda.current_stream(rgb_h.device).cuda_stream
     KERNEL.call("d2s_dibr_pair_half", rgb_h.data_ptr(), dep_h.data_ptr(),
-                out.data_ptr(), eh, ew, float(ipd), float(depth_strength),
+                out.data_ptr(), _streams(rgb_h), eh, ew, float(ipd), float(depth_strength),
                 float(convergence), float(feather), int(tab),
                 *tile_geometry(ew, SEARCH_RADIUS, SEG_TARGET, WHOLE_ROW_SMEM), stream)
     return out

@@ -383,15 +383,48 @@ def stereo_compose(rgb: torch.Tensor, depth: torch.Tensor, ipd: float = 0.064,
         left = dibr_render(rgb, depth, -ipd / 2.0, depth_strength, convergence, roll=roll)
         right = dibr_render(rgb, depth, +ipd / 2.0, depth_strength, convergence, roll=roll)
     else:
-        # both eyes in one pass of kernel K1, planar f32, feather 0: the
-        # feather here is edge_feather's (per-axis power, then the product)
-        planar = rgb.to(torch.float32).permute(2, 0, 1).contiguous()
-        left, right = (e.permute(1, 2, 0) for e in dibr_pair_eyes(
-            planar, depth.to(torch.float32).contiguous(), ipd=ipd,
-            depth_strength=depth_strength, convergence=convergence))
+        left, right = _pair_eyes(rgb, depth, ipd, depth_strength, convergence)
+    return _arrange(left, right, display_mode, feather, fill_16_9)
+
+
+def _pair_eyes(rgb: torch.Tensor, depth: torch.Tensor, ipd: float, depth_strength: float,
+               convergence: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both eyes in one pass of kernel K1, planar f32, feather 0 (the
+    feather is edge_feather's: per-axis power, then the product): rgb
+    [..., H, W, 3] and depth [..., H, W] → two [..., H, W, 3], a leading
+    stream axis in one launch."""
+    planar = rgb.to(torch.float32).movedim(-1, -3).contiguous()
+    left, right = dibr_pair_eyes(planar, depth.to(torch.float32).contiguous(), ipd=ipd,
+                                 depth_strength=depth_strength, convergence=convergence)
+    return left.movedim(-3, -1), right.movedim(-3, -1)
+
+
+def _arrange(left: torch.Tensor, right: torch.Tensor, display_mode: str, feather: bool,
+             fill_16_9: bool) -> torch.Tensor:
+    """Per-eye feather and 16:9 bars (beside each eye, not around the pair),
+    then the display arrangement."""
     if feather:
         left, right = edge_feather(left), edge_feather(right)
     if fill_16_9:
-        # bars beside each eye, not around the pair
         left, right = pad_to_aspect(left), pad_to_aspect(right)
     return compose_display(left, right, display_mode).clamp(0.0, 255.0)
+
+
+def stereo_compose_streams(rgb: torch.Tensor, depth: torch.Tensor, ipd: float = 0.064,
+                           depth_strength: float = 1.0, convergence: float = 0.0,
+                           display_mode: str = "Half-SBS", quality: str = "high",
+                           feather: bool = False, fill_16_9: bool = False) -> torch.Tensor:
+    """`stereo_compose` over a stream axis: rgb [S,H,W,3] and depth [S,H,W]
+    → [S,H',W',3], each row as `stereo_compose` makes it.  Where a row takes
+    kernel K1 (high quality, every mode but Depth), all rows' eyes come from
+    one K1 launch over the stream axis; the fast compositor's K3 and the
+    Depth view take each row on its own."""
+    if display_mode not in DISPLAY_MODES:
+        raise ValueError(f"unknown display mode {display_mode!r}; one of {DISPLAY_MODES}")
+    if display_mode == "Depth" or quality != "high":
+        return torch.stack([stereo_compose(r, d, ipd, depth_strength, convergence,
+                                           display_mode, quality, feather, fill_16_9)
+                            for r, d in zip(rgb, depth)])
+    left, right = _pair_eyes(rgb, depth, ipd, depth_strength, convergence)
+    return torch.stack([_arrange(l_, r_, display_mode, feather, fill_16_9)
+                        for l_, r_ in zip(left, right)])

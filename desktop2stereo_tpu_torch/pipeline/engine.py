@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from desktop2stereo_tpu_torch.pipeline.metrics import FpsCounter, StageLatency
+from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest
 
 
 class Mailbox:
@@ -143,6 +144,8 @@ class FrameEngine:
         self._has_pending = False
         self._sink_seq = 0
         self._sink_busy = False
+        # set before start() to trace the compute thread (`--profile-dir`)
+        self.trace: Optional[TraceRequest] = None
 
     # ---- stages ----------------------------------------------------------
 
@@ -185,8 +188,13 @@ class FrameEngine:
     def _compute_loop(self) -> None:
         seq = -1
         pending = None  # (sbs, depth, event, t0, t_submit)
+        trace = self.trace
         try:
+            if trace is not None:
+                trace.begin()
             while not self.shutdown.is_set():
+                if trace is not None:
+                    trace.poll()
                 # no frame ready: flush the pending result before blocking,
                 # so a paced source's sink gets each frame as soon as it is done
                 item, seq = self.raw_box.get(timeout=0.0, last_seq=seq)
@@ -213,6 +221,9 @@ class FrameEngine:
         except BaseException as e:  # handed to run()/join(), which re-raise it
             self._error = e
             self.shutdown.set()
+        finally:
+            if trace is not None:
+                trace.end()
 
     def _finish(self, pending) -> None:
         sbs, depth, done, t0, t1 = pending

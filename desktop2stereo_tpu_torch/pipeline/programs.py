@@ -18,7 +18,12 @@ Port of `desktop2stereo_tpu/pipeline/programs.py` (`_build_step` and
 Each stage is its own method so that it can be timed on its own.  PyTorch
 runs them eagerly; there is no jit analog.  `ProgramCache` carries the state
 per (stream, output size): the EMA, and a stateful model's carry (VDA's
-temporal window).  A stateful model has `first(pixels) → (raw, carry)` and
+temporal window).  `BatchedProgramCache` (JAX `programs.py:612-671`) runs S
+streams as one batch: a `FrameProgram` with a stream axis takes [S, ...]
+through every stage, as `jax.vmap` gives the JAX stages one (the model at
+batch S, the depth post and EMA row by row, one K1 launch over the stream
+axis on the fused tail and on the generic tail's high quality), and carries
+the state per (S, output size).  A stateful model has `first(pixels) → (raw, carry)` and
 `step(pixels, carry) → (raw, carry')`; the model stage runs `first` on an
 empty carry (a new stream or output size) and `step` after it, as the JAX
 package's first and step programs do.  A stateless model runs `forward` and
@@ -46,7 +51,9 @@ from desktop2stereo_tpu_torch.ops.normalize import (
     bgra_to_rgb, normalize_for_model, process_frame_size)
 from desktop2stereo_tpu_torch.ops.resize import (
     patch_aligned_size, resize, resize_halved)
-from desktop2stereo_tpu_torch.ops.stereo import FEATHER_WIDTH, stereo_compose
+from desktop2stereo_tpu_torch.ops.stereo import (
+    FEATHER_WIDTH, stereo_compose, stereo_compose_streams)
+from desktop2stereo_tpu_torch.pipeline.profiling import annotate
 
 HALF_MODES = ("Half-SBS", "Half-TAB")
 QUALITIES = ("high", "fast")
@@ -57,18 +64,20 @@ class FrameState(NamedTuple):
     and the model's carry (`()` before frame 1, and always for a stateless
     model)."""
 
-    ema_depth: torch.Tensor  # [mh, mw] float32
+    ema_depth: torch.Tensor  # [mh, mw] float32, [S, mh, mw] with a stream axis
     model: Tuple = ()
 
 
 def init_state(height: int, width: int,
-               device: Optional[torch.device | str] = None) -> FrameState:
+               device: Optional[torch.device | str] = None, streams: int = 0) -> FrameState:
     """The state before frame 1 on `device`; None is the CUDA device policy's
-    (`cuda_policy()`, which raises without CUDA)."""
+    (`cuda_policy()`, which raises without CUDA).  `streams` S > 0 stacks S
+    such states on a leading stream axis."""
     if device is None:
         device = cuda_policy().device
-    return FrameState(ema_depth=torch.full((height, width), float("nan"),
-                                           dtype=torch.float32, device=device))
+    shape = (streams, height, width) if streams else (height, width)
+    return FrameState(ema_depth=torch.full(shape, float("nan"), dtype=torch.float32,
+                                           device=device))
 
 
 @dataclass(frozen=True)
@@ -138,14 +147,18 @@ def ema_shape(cfg: ProgramConfig, spec: ModelSpec, frame_h: int, frame_w: int) -
 
 
 class FrameProgram:
-    """The stages for one ProgramConfig and model; holds no frame state."""
+    """The stages for one ProgramConfig and model; holds no frame state.
+
+    `streams` 0 takes one frame [H, W, 4|3]; S > 0 takes a stream axis,
+    frames [S, H, W, 4|3], and every stage's tensors carry it in front."""
 
     def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
                  spec: Optional[ModelSpec] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+                 compute_dtype: torch.dtype = torch.bfloat16, streams: int = 0) -> None:
         check_supported(cfg)
         self.cfg = cfg
         self.model = model
+        self.streams = streams
         self.stateful = callable(getattr(model, "first", None)) and callable(
             getattr(model, "step", None))
         self.spec = spec or get_spec(cfg.model_name)
@@ -166,10 +179,15 @@ class FrameProgram:
     def preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[H,W,4|3] u8 BGRA → (rgb, model input [1,mh,mw,3]): rgb is the eye
         buffer [3,eh,ew] f32 on the fused tail, the frame [oh,ow,3] in the
-        compute dtype on the generic tail."""
-        if self.fused(frame_u8.shape[0], frame_u8.shape[1]):
+        compute dtype on the generic tail.  With a stream axis, [S,H,W,4|3]
+        → ([S,...], model input [S,mh,mw,3])."""
+        if self.fused(frame_u8.shape[-3], frame_u8.shape[-2]):
             return self._fused_preprocess(frame_u8)
         return self._shared_preprocess(frame_u8)
+
+    def _batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's batch: the stream axis, or one frame as a batch of 1."""
+        return x if self.streams else x[None]
 
     def _resize_for_model(self, x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
         """[N, oh, ow, C] → the model input's size: bilinear without
@@ -185,43 +203,64 @@ class FrameProgram:
         return normalize_for_model(mi / 255.0, self.spec.norm_family).to(self.compute_dtype)
 
     def _shared_preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        h0, w0 = frame_u8.shape[0], frame_u8.shape[1]
+        h0, w0 = frame_u8.shape[-3], frame_u8.shape[-2]
         oh, ow = self.output_size(h0, w0)
         rgb = bgra_to_rgb(frame_u8).to(self.compute_dtype)
         if (oh, ow) != (h0, w0):
             rgb = resize(rgb, (oh, ow), mode="bilinear", antialias=oh < h0)
-        mi = self._resize_for_model(rgb[None], oh, ow)
+        mi = self._resize_for_model(self._batch(rgb), oh, ow)
         return rgb, self._model_input(mi)
 
     def _fused_preprocess(self, frame_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        h0, w0 = frame_u8.shape[0], frame_u8.shape[1]
+        h0, w0 = frame_u8.shape[-3], frame_u8.shape[-2]
         oh, ow = self.output_size(h0, w0)
-        planar = bgra_to_rgb(frame_u8).permute(2, 0, 1).float()
+        planar = bgra_to_rgb(frame_u8).movedim(-1, -3).float()
         if (oh, ow) != (h0, w0):
             planar = resize(planar[..., None], (oh, ow), mode="bilinear",
                             antialias=oh < h0)[..., 0]
         mi = self._resize_for_model(planar.to(self.compute_dtype)[..., None], oh, ow)[..., 0]
-        model_in = self._model_input(mi.permute(1, 2, 0)[None])
+        model_in = self._model_input(self._batch(mi.movedim(-3, -1)))
         # pair-mean squeeze to the eye size: the reference viewer samples its
         # half-size viewports at texel-pair midpoints, i.e. (a+b)/2
         if self.tab:
-            rgb_h = (planar[:, 0::2] + planar[:, 1::2]) * 0.5
+            rgb_h = (planar[..., 0::2, :] + planar[..., 1::2, :]) * 0.5
         else:
-            rgb_h = (planar[:, :, 0::2] + planar[:, :, 1::2]) * 0.5
+            rgb_h = (planar[..., 0::2] + planar[..., 1::2]) * 0.5
         return rgb_h.contiguous(), model_in
 
-    def model_stage(self, model_in: torch.Tensor, carry: Tuple = ()) -> Tuple[torch.Tensor, Tuple]:
-        """→ (raw depth [mh, mw], the model's next carry).  A stateful model
-        runs `first` on an empty carry and `step` on its carry; a stateless
-        one passes the carry through."""
+    def model_stage(self, model_in: torch.Tensor, carry: Tuple = (),
+                    fresh: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tuple]:
+        """→ (raw depth [mh, mw], or [S, mh, mw] with a stream axis; the
+        model's next carry).  A stateful model runs `first` on an empty carry
+        and `step` on its carry; a stateless one passes the carry through.
+
+        `fresh` ([S] bool, stream axis only): rows without a new frame.  A
+        model whose carry has a stream axis (`carry_per_stream`, VDA's
+        caches [S, P, 31, C]) keeps those rows' carry as it was, bit for bit,
+        as JAX masks every leaf (`programs.py:490-499`); a carry that depends
+        on the shape alone (the BEiT tables) is one set for the batch and is
+        never masked, where JAX's mask cannot broadcast (ROADMAP C9)."""
         if not self.stateful:
-            return self.model(model_in)[0], carry
-        raw, carry = self.model.step(model_in, carry) if carry else self.model.first(model_in)
-        return raw[0], carry
+            raw = self.model(model_in)
+        elif not carry:
+            raw, carry = self.model.first(model_in)
+        else:
+            raw, new = self.model.step(model_in, carry)
+            if fresh is not None and getattr(self.model, "carry_per_stream", True):
+                new = tuple(torch.where(fresh.view(-1, *(1,) * (n.ndim - 1)), n, o)
+                            for n, o in zip(new, carry))
+            carry = new
+        return (raw if self.streams else raw[0]), carry
 
     def post_stage(self, raw_depth: torch.Tensor, ema_prev: torch.Tensor) -> torch.Tensor:
         """Depth post + EMA at model resolution; a carry of another shape
-        passes through (the stabilizer resets on a shape change)."""
+        passes through (the stabilizer resets on a shape change).  With a
+        stream axis each row on its own (the normalisation is per frame)."""
+        if self.streams:
+            return torch.stack([self._post_one(r, e) for r, e in zip(raw_depth, ema_prev)])
+        return self._post_one(raw_depth, ema_prev)
+
+    def _post_one(self, raw_depth: torch.Tensor, ema_prev: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         depth = post_process_depth(raw_depth.float(), metric=self.spec.metric,
                                    foreground_scale=cfg.foreground_scale,
@@ -234,15 +273,16 @@ class FrameProgram:
     @staticmethod
     def upsample_depth(depth_small: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
         """Model resolution → output resolution."""
-        if depth_small.shape == (oh, ow):
+        if depth_small.shape[-2:] == (oh, ow):
             return depth_small
         return resize(depth_small[..., None], (oh, ow), mode="bilinear")[..., 0]
 
     def stereo_stage(self, rgb: torch.Tensor, depth_small: torch.Tensor):
         """Generic tail: → (frame u8 HWC, depth at output resolution)."""
         cfg = self.cfg
-        depth = self.upsample_depth(depth_small, rgb.shape[0], rgb.shape[1])
-        sbs = stereo_compose(rgb.float(), depth, ipd=cfg.ipd,
+        depth = self.upsample_depth(depth_small, rgb.shape[-3], rgb.shape[-2])
+        compose = stereo_compose_streams if self.streams else stereo_compose
+        sbs = compose(rgb.float(), depth, ipd=cfg.ipd,
                              depth_strength=cfg.depth_strength,
                              convergence=cfg.convergence, display_mode=cfg.display_mode,
                              quality=cfg.quality, feather=cfg.edge_feather,
@@ -254,14 +294,14 @@ class FrameProgram:
         """Fused tail: → (frame u8 HWC, depth out, next EMA carry)."""
         cfg = self.cfg
         depth_small = self.post_stage(raw_depth, ema_prev)
-        eh, ew = rgb_h.shape[1], rgb_h.shape[2]
+        eh, ew = rgb_h.shape[-2], rgb_h.shape[-1]
         oh, ow = (2 * eh, ew) if self.tab else (eh, 2 * ew)
         if cfg.emit_depth == "full":
             depth = self.upsample_depth(depth_small, oh, ow)
             if self.tab:
-                dep_h = (depth[0::2] + depth[1::2]) * 0.5
+                dep_h = (depth[..., 0::2, :] + depth[..., 1::2, :]) * 0.5
             else:
-                dep_h = (depth[:, 0::2] + depth[:, 1::2]) * 0.5
+                dep_h = (depth[..., 0::2] + depth[..., 1::2]) * 0.5
         else:
             depth = depth_small
             dep_h = resize_halved(depth_small[..., None], (oh, ow),
@@ -273,40 +313,47 @@ class FrameProgram:
             arrangement="tab" if self.tab else "sbs")
         return sbs, depth, depth_small
 
-    def __call__(self, frame_u8: torch.Tensor, state: FrameState):
-        rgb, model_in = self.preprocess(frame_u8)
-        raw, carry = self.model_stage(model_in, state.model)
-        if self.fused(frame_u8.shape[0], frame_u8.shape[1]):
-            sbs, depth, small = self.post_stereo_stage(raw, state.ema_depth, rgb)
+    def __call__(self, frame_u8: torch.Tensor, state: FrameState,
+                 fresh: Optional[torch.Tensor] = None):
+        """One frame (or one step of S streams): each stage inside a
+        `d2s.<stage>` profiler and NVTX range."""
+        with annotate("d2s.preprocess"):
+            rgb, model_in = self.preprocess(frame_u8)
+        with annotate("d2s.model"):
+            raw, carry = self.model_stage(model_in, state.model, fresh)
+        if self.fused(frame_u8.shape[-3], frame_u8.shape[-2]):
+            with annotate("d2s.tail"):
+                sbs, depth, small = self.post_stereo_stage(raw, state.ema_depth, rgb)
         else:
-            small = self.post_stage(raw, state.ema_depth)
-            sbs, depth = self.stereo_stage(rgb, small)
+            with annotate("d2s.post"):
+                small = self.post_stage(raw, state.ema_depth)
+            with annotate("d2s.stereo"):
+                sbs, depth = self.stereo_stage(rgb, small)
             if self.cfg.emit_depth == "model":
                 depth = small
         return sbs, depth, FrameState(ema_depth=small, model=carry)
 
 
-class ProgramCache:
-    """A frame program with carried state per (stream, output size), and the
-    viewer's live switches.
+class _Switched:
+    """A FrameProgram behind the viewer's live switches, with its carried
+    states: the part `ProgramCache` and `BatchedProgramCache` share.
 
-    `program(frame_u8, stream=0) -> (sbs_u8 [H',W',3], depth)` on the model's
-    device; a frame given as a numpy array is uploaded first.  The setters
-    (`set_display_mode`, `cycle_display_mode`, `set_depth_strength`,
-    `adjust_depth_strength`, `reset_depth_strength`, `toggle_feather`) may run
-    on any thread; a switch is applied at the start of the next frame, and
-    the model and the carried states survive it."""
+    The setters (`set_display_mode`, `cycle_display_mode`,
+    `set_depth_strength`, `adjust_depth_strength`, `reset_depth_strength`,
+    `toggle_feather`) may run on any thread; a switch is applied at the start
+    of the next frame, and the model and the carried states survive it."""
 
     MAX_DEPTH_STRENGTH = 10.0  # the reference viewer's clamp
 
     def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
-                 spec: Optional[ModelSpec] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+                 spec: Optional[ModelSpec], compute_dtype: torch.dtype, streams: int) -> None:
         self._model = model
         self._compute_dtype = compute_dtype
-        self.program = FrameProgram(cfg, model, spec, compute_dtype)
+        self._streams = streams
+        self.program = FrameProgram(cfg, model, spec, compute_dtype, streams)
         self.cfg = cfg
         self.spec = self.program.spec
+        self.stateful = self.program.stateful
         self.device = next(model.parameters()).device
         self._states: Dict[Tuple[int, int, int], FrameState] = {}
         # (display mode, depth strength, edge feather) requested for the next
@@ -385,7 +432,8 @@ class ProgramCache:
                 return
             cfg = dataclasses.replace(self.cfg, display_mode=key[0],
                                       depth_strength=key[1], edge_feather=key[2])
-            self.program = FrameProgram(cfg, self._model, self.spec, self._compute_dtype)
+            self.program = FrameProgram(cfg, self._model, self.spec, self._compute_dtype,
+                                        self._streams)
             self.cfg = cfg
 
     # ---- frames ----------------------------------------------------------
@@ -395,20 +443,9 @@ class ProgramCache:
             frame_u8 = torch.from_numpy(frame_u8)
         return frame_u8.to(self.device, non_blocking=True)
 
-    @torch.inference_mode()
-    def __call__(self, frame_u8, stream: int = 0):
-        if self._pending is not None:
-            self._apply_pending()
-        frame = self._as_tensor(frame_u8)
-        h, w = frame.shape[0], frame.shape[1]
-        oh, ow = process_frame_size(h, w, self.cfg.output_height)
-        key = (stream, oh, ow)
-        state = self._states.get(key)
-        if state is None:
-            state = init_state(*ema_shape(self.cfg, self.spec, h, w), device=self.device)
-        sbs, depth, new_state = self.program(frame, state)
-        self._states[key] = new_state
-        return sbs, depth
+    def _init_state(self, h: int, w: int) -> FrameState:
+        return init_state(*ema_shape(self.cfg, self.spec, h, w), device=self.device,
+                          streams=self._streams)
 
     def reset(self) -> None:
         self._states.clear()
@@ -419,18 +456,19 @@ class ProgramCache:
 
     @torch.inference_mode()
     def warmup(self, frame_shape: Tuple[int, ...], steps: int = 2) -> Dict[str, float]:
-        """Run each stage once on a zero frame (first-call seconds per stage:
-        kernel builds and cuDNN/cuBLAS plan selection land here), then
-        `steps` whole frames (a stateful model's first frame, then steps);
-        every carried state is discarded after.  Keys:
-        pre_s, model_s, then tail_s (fused tail) or post_s and stereo_s
-        (generic tail)."""
+        """Run each stage once on a zero frame of `frame_shape` (one stream's
+        capture shape; S of them with a stream axis), first-call seconds per
+        stage (kernel builds and cuDNN/cuBLAS plan selection land here),
+        then `steps` whole frames (a stateful model's first frame, then
+        steps); every carried state is discarded after.  Keys: pre_s,
+        model_s, then tail_s (fused tail) or post_s and stereo_s (generic
+        tail)."""
         if self._pending is not None:
             self._apply_pending()
         p = self.program
-        dummy = torch.zeros(frame_shape, dtype=torch.uint8, device=self.device)
-        state = init_state(*ema_shape(self.cfg, self.spec, frame_shape[0], frame_shape[1]),
-                           device=self.device)
+        shape = ((self._streams,) if self._streams else ()) + tuple(frame_shape)
+        dummy = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        state = self._init_state(frame_shape[0], frame_shape[1])
         report: Dict[str, float] = {}
 
         def timed(name, fn, *args):
@@ -452,3 +490,74 @@ class ProgramCache:
         self._sync()
         self.reset()
         return report
+
+
+class ProgramCache(_Switched):
+    """A frame program with carried state per (stream, output size), and the
+    viewer's live switches.
+
+    `program(frame_u8, stream=0) -> (sbs_u8 [H',W',3], depth)` on the model's
+    device; a frame given as a numpy array is uploaded first."""
+
+    def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
+                 spec: Optional[ModelSpec] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(cfg, model, spec, compute_dtype, streams=0)
+
+    @torch.inference_mode()
+    def __call__(self, frame_u8, stream: int = 0):
+        if self._pending is not None:
+            self._apply_pending()
+        frame = self._as_tensor(frame_u8)
+        h, w = frame.shape[0], frame.shape[1]
+        oh, ow = process_frame_size(h, w, self.cfg.output_height)
+        key = (stream, oh, ow)
+        state = self._states.get(key)
+        if state is None:
+            state = self._init_state(h, w)
+        sbs, depth, new_state = self.program(frame, state)
+        self._states[key] = new_state
+        return sbs, depth
+
+
+class BatchedProgramCache(_Switched):
+    """S concurrent streams through one FrameProgram over a stream axis (JAX
+    `programs.py:612-671`), with the live switches `ProgramCache` has.
+
+    `program(frames [S,H,W,4|3] u8, fresh=None) -> (sbs [S,H',W',3] u8,
+    depth [S, ...])`: the model runs at batch S, one K1 launch covers the S
+    frames.  The carried state is per (S, output size): the EMA [S, mh, mw]
+    and the model's carry, which the first frame of a stateful model builds
+    for every row (VDA's caches [S, P, 31, C]; BEiT's and ZoeDepth's tables
+    one set for the batch).  `fresh` ([S] bool) marks the rows that hold a
+    new frame: a stale row is computed and its EMA advances, as in JAX, but
+    a per-stream model carry keeps its row bit-equal (`model_stage`)."""
+
+    def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
+                 spec: Optional[ModelSpec] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16, num_streams: int = 2) -> None:
+        if num_streams < 1:
+            raise ValueError(f"num_streams must be at least 1, got {num_streams}")
+        self.num_streams = num_streams
+        super().__init__(cfg, model, spec, compute_dtype, streams=num_streams)
+
+    @torch.inference_mode()
+    def __call__(self, frames, fresh=None):
+        if self._pending is not None:
+            self._apply_pending()
+        frames = self._as_tensor(frames)
+        if frames.ndim != 4 or frames.shape[0] != self.num_streams:
+            raise ValueError(f"BatchedProgramCache({self.num_streams} streams) takes frames "
+                             f"[{self.num_streams},H,W,C], got {tuple(frames.shape)}")
+        s, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+        oh, ow = process_frame_size(h, w, self.cfg.output_height)
+        key = (s, oh, ow)
+        state = self._states.get(key)
+        if state is None:
+            state = self._init_state(h, w)
+            fresh = None  # the first frame builds every row's carry
+        if fresh is not None:
+            fresh = torch.as_tensor(np.asarray(fresh, bool)).to(self.device, non_blocking=True)
+        sbs, depth, new_state = self.program(frames, state, fresh)
+        self._states[key] = new_state
+        return sbs, depth

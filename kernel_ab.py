@@ -84,6 +84,27 @@ def build_report(lib, out_dir: Path, tag: str):
     return kernels
 
 
+# where the K1 entry points take their stream count (the wrappers' argument
+# order)
+STREAMS_ARG = {"d2s_dibr_pair_half": 3, "d2s_dibr_pair_eyes": 4}
+
+
+def _one_stream_library():
+    from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
+
+    class OneStreamLibrary(CudaLibrary):
+        """A K1 source from before the stream axis (segments, no stream
+        count): the wrappers' calls with one stream, the count dropped."""
+
+        def call(self, name, *args):
+            i = STREAMS_ARG[name]
+            if args[i] != 1:
+                raise ValueError(f"{self.source.name} takes one stream a launch, not {args[i]}")
+            super().call(name, *args[:i], *args[i + 1:])
+
+    return OneStreamLibrary
+
+
 def main(argv) -> int:
     args = argv[1:]
     other = Path(args.pop(0)).resolve() if args and not args[0].startswith("--") else None
@@ -114,6 +135,7 @@ def main(argv) -> int:
     from desktop2stereo_tpu_torch.ops.kernels import warp as K3
     from desktop2stereo_tpu_torch.ops.kernels.build import CudaLibrary
 
+    OneStreamLibrary = _one_stream_library()
     policy = cuda_policy(0, allow_tf32=False)
     dev = policy.device
     card = cs.card_line()
@@ -132,6 +154,12 @@ def main(argv) -> int:
         if name == "dibr_pair.cu" and not new_style[name]:
             sigs = {"d2s_dibr_pair_half": [_P, _P, _P, _I, _I, _F, _F, _F, _D, _I, _P],
                     "d2s_dibr_pair_eyes": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]}
+        elif name == "dibr_pair.cu" and "int streams" not in text:
+            # segments but no stream axis: the entries take no stream count
+            sigs = {k: v[:STREAMS_ARG[k]] + v[STREAMS_ARG[k] + 1:] for k, v in sigs.items()}
+            libs[name] = OneStreamLibrary(str(other / name), sigs,
+                                          extra_flags=mod.KERNEL.extra_flags)
+            continue
         elif name == "dibr_fill.cu" and not new_style[name]:
             sigs = {"d2s_dibr_warp_fill_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P]}
         elif name == "attention.cu":  # an older source has no biased entry point

@@ -288,3 +288,63 @@ def test_build_bound_runs_dpt_beit_base_float_and_int8(monkeypatch):
             d1, carry1 = model.step(x, carry)
         assert carry1 is carry and len(carry) == 12 and carry[0].shape == (12, 7 * 11 + 3)
         assert d0.shape == (1, 64, 96) and torch.equal(d0, d1)
+
+
+def _stale_steps(tprog, per_stream):
+    """Two streams, batched, over three steps with the second row stale on
+    step 2 (fresh=[True, False]), against `per_stream(frame, s)`, a JAX
+    per-stream ProgramCache fed each row's frames (a stale row its frame
+    again: its EMA advances, as the batched row's does).  Each row within
+    the pipeline test's thresholds; the carry is the first step's tables,
+    never masked.  → the carry."""
+    feeds = (_frames(3), [np.ascontiguousarray(f[:, ::-1]) for f in _frames(3)])
+    rows = [feeds[0][0], feeds[1][0]]
+    kept = None
+    for t, fresh in enumerate((None, [True, False], [True, True])):
+        for s in range(2):
+            if fresh is None or fresh[s]:
+                rows[s] = feeds[s][t]
+        t_sbs, t_depth = (a.numpy() for a in tprog(np.stack(rows), fresh=fresh))
+        for s in range(2):
+            j_sbs, j_depth = (np.asarray(a) for a in per_stream(rows[s], s))
+            _assert_frames_match(j_sbs, j_depth, t_sbs[s], t_depth[s])
+        carry = tprog._states[(2, 180, 320)].model
+        assert kept is None or carry is kept
+        kept = carry
+    return kept
+
+
+def test_batched_program_carries_one_set_of_tables_past_a_stale_row(beit, jax_kernels):  # noqa: F811
+    """The batched BEiT takes a stale row (where JAX's batched cache raises,
+    ROADMAP C9, next test) and carries one set of [H, R] tables for the
+    batch, equal (expanded) to a JAX stream's dense biases."""
+    params, model = beit
+    first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
+    cfg = dict(CFG, model_name=PRESET, display_mode="Half-SBS")
+    jprog = J_programs.ProgramCache(J_programs.ProgramConfig(**cfg),
+                                    J_programs.BoundModel(params=params, first=first, step=step),
+                                    JSpec(**SPEC), compute_dtype=jnp.float32)
+    tprog = T_programs.BatchedProgramCache(T_programs.ProgramConfig(**cfg), model, TSpec(**SPEC),
+                                           compute_dtype=torch.float32, num_streams=2)
+    carry = _stale_steps(tprog, lambda frame, s: jprog(jnp.asarray(frame), stream=s))
+    assert len(carry) == LAYERS and all(c.shape == (HEADS, 58) for c in carry)
+    for c, jc in zip(carry, jprog._states[(0, 180, 320)].model):
+        assert rel(T_beit.expand_rel_pos(c, 3, 6).numpy(), jc) < F32_TOL
+
+
+def test_jax_batched_cache_cannot_take_a_stale_row(beit):
+    """ROADMAP C9: the JAX BatchedProgramCache masks every leaf of the carry
+    with the [S] `fresh` mask, and BEiT's per-shape [H, N, N] biases have no
+    stream axis, so its second step with a stale row raises."""
+    params, _ = beit
+    first, step = J_beit.make_beit_stream_fns(_jmodel(), JSpec(**SPEC), PRESET)
+    cfg = dict(CFG, model_name=PRESET, display_mode="Half-SBS", quality="fast")
+    jprog = J_programs.BatchedProgramCache(
+        J_programs.ProgramConfig(**cfg), J_programs.BoundModel(params=params, first=first,
+                                                               step=step),
+        JSpec(**SPEC), compute_dtype=jnp.float32, num_streams=2)
+    frames = jnp.asarray(np.stack([_frames(1)[0]] * 2))
+    jprog(frames)  # the first step builds the carry
+    with pytest.raises(ValueError, match="Incompatible shapes for broadcasting"):
+        jprog(frames, fresh=np.array([True, False]))
+

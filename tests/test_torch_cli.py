@@ -4,7 +4,8 @@ package's on the CPU.
 - the flags the two CLIs share have the same dest, default and choices
   (`--device` takes cuda/cpu/auto in the port);
 - `apply_settings_defaults` and `_sink_for_run_mode` resolve as JAX's;
-- every option the port does not have yet exits naming its ROADMAP item;
+- the options once refused (`--streams`, `--batched`, `--profile-dir`) run
+  on the CPU, and `--batched` refuses `--crop` and mixed frame shapes;
 - the remote topology's options run: `--source tcp[:PORT]` fed over
   loopback, `--sink rtmp` into a fake ffmpeg, `--sink xr` alone and in a tee
   (each port bound free and read back), and a tcp port out of range exits;
@@ -142,16 +143,80 @@ def tiny_build(monkeypatch):
     return calls
 
 
+class _CountingNull:
+    """A null sink that counts its frames and keeps their shapes."""
+
+    wants_depth = False
+
+    def __init__(self, sink):
+        self.sink, self.frames, self.shapes = sink, 0, set()
+
+    def push(self, sbs, depth, stats):
+        self.frames += 1
+        self.shapes.add(sbs.shape)
+
+    def close(self):
+        self.sink.close()
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--streams", "2"], "A6"),
-    (["--batched"], "A6"),
+    (["--streams", "2", "--batched"], "A6"),
     (["--profile-dir", "trace"], "A10"),
 ], ids=["streams", "batched", "profile_dir"])
 def test_unported_options_exit_naming_their_roadmap_item(tmp_path, monkeypatch, tiny_build,
                                                          argv, item):
+    """The options the port once refused, naming their ROADMAP item (A6:
+    --streams, --batched; A10: --profile-dir), run to the end on the CPU:
+    two streams (round-robin and batched) each deliver their frames into a
+    sink of their own; a profiled run writes a Chrome trace holding the
+    frame program's d2s.* ranges."""
+    import json
+
+    import desktop2stereo_tpu_torch.sinks as T_sinks
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match=item):
-        T_cli.run(argv + ["--size", "64x112", "--frames", "1"])
+    made_sinks, make_sink = [], T_sinks.make_sink
+
+    def counting(kind, **kw):
+        made_sinks.append(_CountingNull(make_sink(kind, **kw)))
+        return made_sinks[-1]
+
+    monkeypatch.setattr(T_sinks, "make_sink", counting)
+    rc = T_cli.run(argv + ["--device", "cpu", "--size", "64x112", "--frames", "2",
+                           "--sink", "null", "--stats-every", "0"])
+    assert rc == 0
+    assert len(made_sinks) == (2 if item == "A6" else 1)
+    assert all(s.frames >= 1 and s.shapes == {(64, 112, 3)} for s in made_sinks)
+    if item == "A10":
+        traces = list((tmp_path / "trace").glob("*.json"))
+        assert len(traces) == 1
+        names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+        assert {"d2s.preprocess", "d2s.model", "d2s.tail"} <= names
+
+
+def test_batched_refuses_crop(tmp_path, monkeypatch, tiny_build):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="--batched does not support --crop"):
+        T_cli.run(["--device", "cpu", "--size", "64x112", "--frames", "1", "--sink", "null",
+                   "--streams", "2", "--batched", "--crop", "auto"])
+
+
+def test_batched_refuses_mixed_frame_shapes(tmp_path, monkeypatch, tiny_build):
+    """Stream 1's source gives another frame size: the batched engine stops
+    with JAX's message, and the CLI re-raises it."""
+    monkeypatch.chdir(tmp_path)
+    make_source = T_sources.make_source
+
+    def other_size_for_stream_1(kind, **kw):
+        if kw.get("seed") == 1:
+            kw["size"] = (48, 96)
+        return make_source(kind, **kw)
+
+    monkeypatch.setattr(T_sources, "make_source", other_size_for_stream_1)
+    with pytest.raises(RuntimeError, match="uniform frame shapes"):
+        T_cli.run(["--device", "cpu", "--size", "64x112", "--frames", "2", "--sink", "null",
+                   "--streams", "2", "--batched", "--stats-every", "0"])
 
 
 @pytest.mark.parametrize("argv,port", [

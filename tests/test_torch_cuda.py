@@ -101,6 +101,35 @@ def test_dibr_kernel_matches_plain(dev, eh, ew, feather, arrangement):
     assert (diff > 0).float().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("eh,ew", [(2160, 1920), (50, 200), (9, 22)])
+def test_dibr_stream_axis_equals_single_launches(dev, eh, ew):
+    """K1 over a stream axis of 2 (one launch an entry) is bit-equal, row
+    for row, to one-frame launches; the eyes at twice the width, as the
+    generic tail runs them."""
+    rng = np.random.default_rng(eh + 7 * ew)
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01)
+    for w, eyes in ((ew, False), (2 * ew, True)):
+        rgb = torch.from_numpy(rng.random((2, 3, eh, w), dtype=np.float32) * 255).to(dev)
+        dep = torch.from_numpy(rng.random((2, eh, w), dtype=np.float32)).to(dev)
+        before = K1.KERNEL.launches
+        if eyes:
+            got = K1.dibr_pair_eyes(rgb, dep, **kw)
+            assert K1.KERNEL.launches == before + 1
+            for s in range(2):
+                one = K1.dibr_pair_eyes(rgb[s], dep[s], **kw)
+                assert all(torch.equal(g[s], o) for g, o in zip(got, one))
+        else:
+            for arrangement in ("sbs", "tab"):
+                got = K1.dibr_pair_half(rgb, dep, feather=0.02, arrangement=arrangement, **kw)
+                assert K1.KERNEL.launches == before + 1
+                before = K1.KERNEL.launches
+                for s in range(2):
+                    one = K1.dibr_pair_half(rgb[s], dep[s], feather=0.02,
+                                            arrangement=arrangement, **kw)
+                    assert torch.equal(got[s], one)
+                before = K1.KERNEL.launches
+
+
 @pytest.mark.parametrize("eh,ew", [(2160, 3840), (50, 200), (96, 256)])
 def test_dibr_eyes_kernel_matches_plain(dev, eh, ew):
     rng = np.random.default_rng(eh * ew)

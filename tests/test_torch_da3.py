@@ -665,3 +665,16 @@ def test_cli_refuses_int8_nested_before_building(tmp_path, monkeypatch):
                    "--sink", "null"])
     assert e.value.code == f"[d2s] {T_factory.NESTED_QUANT_MESSAGE}"
     assert drawn == []
+
+
+def test_batch_of_two_equals_each_image_alone(anyview):
+    """The batched multi-stream program runs the model at batch S
+    (`BatchedProgramCache`): each row of a batch of two equals that image
+    alone, within REL_TOL (each batch row one view)."""
+    _, model = anyview
+    x = _pixels((2, *HW, 3), 61)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+        for s in range(2):
+            one = model(torch.from_numpy(x[s:s + 1])).numpy()
+            assert _rel(got[s:s + 1], one) < REL_TOL

@@ -341,3 +341,16 @@ def test_build_bound_builds_depthpro(quant, monkeypatch):
 def test_depthpro_refuses_an_input_it_cannot_tile(dp, hw):
     with pytest.raises(ValueError, match="square input of at least 128 px"):
         dp["small"][2](torch.zeros(1, *hw, 3))
+
+
+def test_batch_of_two_equals_each_image_alone(dp):
+    """The batched multi-stream program runs the model at batch S
+    (`BatchedProgramCache`): each row of a batch of two equals that image
+    alone, within DP_TOL (35·S tiles through one trunk)."""
+    _, _, model = dp["small"]
+    size = CONFIGS["small"][1]
+    x = np.concatenate([_x(91, size), _x(92, size)])
+    got = port_depth(model, x)
+    assert got.shape == (2, 2 * size, 2 * size)
+    for s in range(2):
+        assert rel(got[s:s + 1], port_depth(model, x[s:s + 1])) < DP_TOL

@@ -101,6 +101,11 @@ def test_inpaint_taps_read_raw_depth():
     ((3, 8, 16), (8, 16), "side", "arrangement"),
     ((4, 8, 16), (8, 16), "sbs", r"\[3,eh,ew\]"),
     ((3, 8, 16), (8, 15), "sbs", r"\[3,eh,ew\]"),
+    ((2, 3, 8, 16), (8, 16), "sbs", r"\[S,eh,ew\]"),
+    ((2, 3, 8, 16), (3, 8, 16), "sbs", r"\[S,eh,ew\]"),
+    ((2, 4, 8, 16), (2, 8, 16), "sbs", r"\[S,3,eh,ew\]"),
+    ((1, 2, 3, 8, 16), (1, 2, 8, 16), "sbs", r"\[3,eh,ew\]"),
+    ((0, 3, 8, 16), (0, 8, 16), "sbs", "stream count"),
 ])
 def test_kernel_input_checks_raise(rgb, dep, arr, match):
     with pytest.raises(ValueError, match=match):
@@ -325,3 +330,27 @@ def test_column_walk_matches_plain_version_bit_for_bit(H, W, seg_target):
     want = K.dibr_pair_eyes_ref(rgb, dep, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --- the stream axis: S frames in one call ------------------------------------
+
+@pytest.mark.parametrize("H,W", [(50, 200), (9, 22)])
+@pytest.mark.parametrize("arrangement", ["sbs", "tab"])
+def test_stream_axis_rows_equal_single_frames(H, W, arrangement):
+    """[S, 3, eh, ew] through either entry equals each row on its own, bit
+    for bit (the plain versions take the batch row by row; chip_smoke holds
+    the kernel's stream axis to the same on the card)."""
+    frames = [_edgy_frame(H, W, seed=s) for s in (1, 2, 3)]
+    rgb = torch.stack([f[0] for f in frames])
+    dep = torch.stack([f[1] for f in frames])
+    kw = dict(ipd=0.064, depth_strength=2.0, convergence=0.01)
+    half = K.dibr_pair_half(rgb, dep, feather=0.02, arrangement=arrangement, **kw)
+    left, right = K.dibr_pair_eyes(rgb, dep, **kw)
+    want_shape = (2 * H, W, 3) if arrangement == "tab" else (H, 2 * W, 3)
+    assert half.shape == (3, *want_shape) and half.dtype == torch.uint8
+    assert left.shape == right.shape == (3, 3, H, W)
+    for s, (r, d) in enumerate(frames):
+        assert torch.equal(half[s], K.dibr_pair_half(r, d, feather=0.02,
+                                                     arrangement=arrangement, **kw))
+        one_l, one_r = K.dibr_pair_eyes(r, d, **kw)
+        assert torch.equal(left[s], one_l) and torch.equal(right[s], one_r)

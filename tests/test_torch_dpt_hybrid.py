@@ -153,3 +153,14 @@ def test_build_bound_runs_dpt_hybrid_midas_float_and_int8(monkeypatch):
         with torch.no_grad():
             depth = model(x)
         assert depth.shape == (1, 64, 96) and bool(torch.isfinite(depth).all())
+
+
+def test_batch_of_two_equals_each_image_alone(hybrid):
+    """The batched multi-stream program runs the model at batch S
+    (`BatchedProgramCache`): each row of a batch of two equals that image
+    alone, within F32_TOL."""
+    _, model = hybrid
+    x = np.concatenate([pixels(34, 48, 80), pixels(35, 48, 80)])
+    got = port_depth(model, x)
+    for s in range(2):
+        assert rel(got[s:s + 1], port_depth(model, x[s:s + 1])) < F32_TOL

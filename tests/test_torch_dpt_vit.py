@@ -286,3 +286,14 @@ def test_program_cache_matches_jax(vit, jax_kernels, family):  # noqa: F811
     head = (64, 96) if family == "dpt" else (64, 128)
     assert t_depth.shape == head
     assert tprog._states[(0, 180, 320)].ema_depth.shape == head
+
+
+def test_batch_of_two_equals_each_image_alone(vit):
+    """The batched multi-stream program runs the model at batch S
+    (`BatchedProgramCache`): each row of a batch of two equals that image
+    alone, within F32_TOL."""
+    _, model = vit
+    x = np.concatenate([pixels(6, 80, 112), pixels(7, 80, 112)])
+    got = port_depth(model, x)
+    for s in range(2):
+        assert rel(got[s:s + 1], port_depth(model, x[s:s + 1])) < F32_TOL

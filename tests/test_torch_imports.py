@@ -40,7 +40,8 @@ def test_port_has_the_slice_modules():
                  "sinks.video", "sinks.tee", "sinks.mjpeg", "sinks.viewer",
                  "sinks.window", "cli", "sources.net", "sinks.rtmp", "sinks.xr", "xr",
                  "xr.frame_server", "xr.net", "xr.injector", "tools", "tools.capture_agent",
-                 "service", "service.control"):
+                 "service", "service.control", "pipeline.multi", "pipeline.profiling",
+                 "tools.aot_compile", "tools.depth_visualize"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 

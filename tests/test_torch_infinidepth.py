@@ -334,3 +334,15 @@ def test_build_bound_builds_infinidepth(shallow, name, quant, monkeypatch):
     with torch.no_grad():
         d = model(torch.from_numpy(rgb01(7, 32, 48)))
     assert d.shape == (1, 32, 48) and bool(torch.isfinite(d).all())
+
+
+def test_batch_of_two_equals_each_image_alone(inf):
+    """The batched multi-stream program runs the model at batch S
+    (`BatchedProgramCache`): each row of a batch of two equals that image
+    alone, within INF_TOL."""
+    _, model = inf[sorted(ENCODERS)[0]]
+    x = np.concatenate([rgb01(131, 48, 80), rgb01(132, 48, 80)])
+    got = port_depth(model, x)
+    assert got.shape == (2, 48, 80)
+    for s in range(2):
+        assert rel(got[s:s + 1], port_depth(model, x[s:s + 1])) < INF_TOL

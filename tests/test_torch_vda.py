@@ -348,3 +348,42 @@ def test_engine_streams_the_carry_from_the_preloaded_frame(weights):
         np.testing.assert_array_equal(depth, want_depth.numpy())
     for a, b in zip(prog._states[(0, 180, 320)].model, direct._states[(0, 180, 320)].model):
         assert torch.equal(a, b)
+
+
+def test_batched_program_matches_jax_batched_with_stale_rows(weights, jax_kernels):  # noqa: F811
+    """Two streams through both BatchedProgramCaches over four steps, the
+    second row stale on step 2 and the first on step 4 (`fresh`): each row's
+    frame within the pipeline test's thresholds, the stacked caches
+    [2, P, 31, C] within REL_TOL of JAX's, and a stale row's caches
+    bit-equal across its step (its EMA still advances, as in JAX)."""
+    _, first, step = J_vda.make_vda_fns(J_vda.VideoDepthAnything.from_spec(TINY_SPEC))
+    bound = J_programs.BoundModel(params=weights[0], first=first, step=step)
+    kw = dict(CFG, display_mode="Half-SBS")
+    jprog = J_programs.BatchedProgramCache(J_programs.ProgramConfig(**kw), bound, JSpec(**SPEC),
+                                           compute_dtype=jnp.float32, num_streams=2)
+    tprog = T_programs.BatchedProgramCache(T_programs.ProgramConfig(**kw), weights[1],
+                                           TSpec(**SPEC), compute_dtype=torch.float32,
+                                           num_streams=2)
+    feeds = (_frames(4), [np.ascontiguousarray(f[:, ::-1]) for f in _frames(4)])
+    rows = [feeds[0][0], feeds[1][0]]
+    key = (2, 180, 320)
+    for t, fresh in enumerate((None, [True, False], [True, True], [False, True])):
+        for s in range(2):
+            if fresh is None or fresh[s]:
+                rows[s] = feeds[s][t]
+        before = None if fresh is None else [c.clone() for c in tprog._states[key].model]
+        ema = None if fresh is None else tprog._states[key].ema_depth.clone()
+        j_sbs, j_depth = (np.asarray(a) for a in jprog(jnp.asarray(np.stack(rows)), fresh=fresh))
+        t_sbs, t_depth = (a.numpy() for a in tprog(np.stack(rows), fresh=fresh))
+        for s in range(2):
+            _assert_frames_match(j_sbs[s], j_depth[s], t_sbs[s], t_depth[s])
+        carry = tprog._states[key].model
+        assert all(c.shape[0] == 2 and c.shape[2] == 31 for c in carry)
+        _assert_carry_matches(tprog._states[key], jprog._states[key])
+        for s in range(2):
+            if fresh is not None and not fresh[s]:
+                assert all(torch.equal(c[s], b[s]) for c, b in zip(carry, before))
+                assert not torch.equal(tprog._states[key].ema_depth[s], ema[s])
+            elif fresh is not None:
+                assert not all(torch.equal(c[s], b[s]) for c, b in zip(carry, before))
+

@@ -348,6 +348,29 @@ def test_program_cache_matches_jax(zoe, jax_kernels, jit_safe_zoe):  # noqa: F81
         kept = carry
 
 
+def test_batched_program_takes_a_stale_row_with_one_set_of_tables(zoe, jax_kernels,  # noqa: F811
+                                                                   jit_safe_zoe):
+    """Two streams through the port's BatchedProgramCache, the second row
+    stale on step 2 (where JAX's batched cache raises, ROADMAP C9), each row
+    against a JAX per-stream ProgramCache fed that row's frames; the carry is
+    one set of tables for the batch, built once and never masked."""
+    from test_torch_beit import _stale_steps
+
+    name = "zoedepth-nyu-kitti"
+    params, model = zoe[name]
+    spec = j_get_spec(name)
+    first, step = J_zoe.make_zoe_stream_fns(_jmodel(name), spec)
+    cfg = dict(CFG, model_name=name, display_mode="Half-SBS")
+    jprog = J_programs.ProgramCache(J_programs.ProgramConfig(**cfg),
+                                    J_programs.BoundModel(params=params, first=first, step=step),
+                                    spec, compute_dtype=jnp.float32)
+    tprog = T_programs.BatchedProgramCache(T_programs.ProgramConfig(**cfg), model,
+                                           T_reg.get_spec(name), compute_dtype=torch.float32,
+                                           num_streams=2)
+    carry = _stale_steps(tprog, lambda frame, s: jprog(jnp.asarray(frame), stream=s))
+    assert len(carry) == LAYERS and all(c.ndim == 2 and c.shape[0] == HEADS for c in carry)
+
+
 @pytest.mark.parametrize("quant", ["none", "int8"])
 @pytest.mark.parametrize("name", ["zoedepth-nyu", "zoedepth-kitti", "zoedepth-nyu-kitti"])
 def test_build_bound_builds_zoedepth(name, quant, monkeypatch):
