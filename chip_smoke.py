@@ -36,7 +36,8 @@ tokens, an f32 conv stem, an implicit MLP head over every pixel).
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-   which of cv2, PIL and PyYAML the host has;
+   which of cv2, PIL, PyYAML and the XR client's GL presenters' OpenGL,
+   glfw and xr (pyopenxr) the host has (no phase needs the last three);
 2. build: nvcc builds the five kernel sources, all at once;
 3. kernel parity on the card against the plain PyTorch versions; K2's
    table entry also against its dense-bias entry on the expanded bias, and
@@ -226,7 +227,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 48. `python -m desktop2stereo_tpu_torch.tools.aot_compile` for 2160x3840 in
     a process of its own with an empty build directory (D2S_BUILD_DIR):
     the five sources' nvcc seconds and the warm seconds; `depth_visualize`
-    on assets/golden.png on the card.
+    on assets/golden.png on the card;
+49. the XR client's render (`tools/xr_client.py:render_stereo`) in this
+    process on a seeded 4K RGB frame and a [294, 518] depth: Full-SBS and
+    Half-SBS at roll 0 launch exactly two K5 (one an eye) and no other
+    kernel, roll 0.1 none; each card frame in uint8 against the same call
+    with device "cpu" (at most 1 LSB on at most 0.1% of values); CUDA-event
+    ms (median of XR_TIMED) of the upload, the depth upsample, the warp of
+    both eyes, the arrangement and the download, and the render frames/s
+    (numpy frame in, numpy SBS out);
+50. the client end to end: the port's CLI in a process of its own on the
+    phase-16 settings with `--display-mode Mono --sink xr --port 0` (the
+    2D frame and its depth, as a headset user serves them), and
+    `xr_client.main(["--present", "png", "--frames", XR_E2E_FRAMES, ...])`
+    in this process: exit 0, exactly 2 K5 a frame, the PNGs [2160, 7680, 3],
+    frames/s first to last PNG (the PNG encode included); then `--theater
+    on --theater-size 480 270` for XR_THEATER_FRAMES frames, its compose ms;
+51. `xr_client.main(["--test", "--present", "png", "--theater", "on", ...])`
+    on the card: the white 1280x720 frame with zero depth, so every warped
+    eye rounds to 255 (zero parallax), 2 K5 a frame, the screen white in
+    each eye, and the first frame within 1 LSB of the same run with
+    `--device cpu`.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -241,7 +262,8 @@ trace_da3_full_outputs.json, trace_beit.json, trace_zoedepth.json,
 trace_depthpro.json and trace_infinidepth.json.  Each kernels entry's
 `launches_by_path` holds each path's count from its own run (the
 flagship's, DA3-LARGE's, the remote Half-SBS run's and the classic DPT
-paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths), and
+paths'; K1 eyes: generic high and remote Mono; int8: the int8 paths; K5:
+`dibr_render` in phase 10 and the XR client's runs in phases 49-51), and
 `launches` their sum; K1's stream axis has entries of its own,
 `dibr_pair_half_s2` and `dibr_pair_eyes_s2` (the batched paths' launches,
 timed at S = 2 in phase 41), and the round-robin path's launches join the
@@ -335,15 +357,16 @@ def card_line() -> str:
 
 def host_packages():
     """Version (or "absent") of what some sources and sinks import when they
-    are made: cv2 (mjpeg, viewer, video, window), PIL (png, image), and
-    PyYAML, which the port does not use."""
+    are made: cv2 (mjpeg, viewer, video, window), PIL (png, image), PyYAML,
+    which the port does not use, and the XR client's GL presenters' OpenGL
+    (PyOpenGL), glfw and xr (pyopenxr), which no phase needs."""
     import importlib
 
     out = {}
-    for name in ("cv2", "PIL", "yaml"):
+    for name in ("cv2", "PIL", "yaml", "OpenGL", "glfw", "xr"):
         try:
             out[name] = getattr(importlib.import_module(name), "__version__", "present")
-        except ImportError:
+        except Exception:  # ImportError, or a binding that fails to load
             out[name] = "absent"
     return out
 
@@ -3166,6 +3189,274 @@ def multi_stream_phases(np, torch, programs, build_bound, counters, frames, poli
     return out
 
 
+# The XR client (phases 49-51): the flagship's model-resolution depth as the
+# xr sink serves it, the stage timings' samples, and the client's runs
+XR_DEPTH = (294, 518)
+XR_TIMED = 10
+XR_E2E_FRAMES = 5
+XR_THEATER_FRAMES = 3
+XR_THEATER_SIZE = (480, 270)
+XR_SERVER_UP_S = 300.0
+
+
+def xr_depth(np, rng, h, w):
+    """A seeded [h, w] f32 depth in [0, 1]: a slope, two near objects, noise."""
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w], np.float32)[:, None, None]
+    d = (0.25 + 0.4 * xx + 0.3 * (((xx - 0.3) ** 2 + (yy - 0.5) ** 2) < 0.02)
+         + 0.2 * (((xx - 0.7) ** 2 + (yy - 0.4) ** 2) < 0.01))
+    return np.clip(d + rng.normal(0, 0.01, (h, w)), 0.0, 1.0).astype(np.float32)
+
+
+def png_frames(np, path):
+    from PIL import Image
+
+    return [np.array(Image.open(p)) for p in sorted(path.glob("frame_*.png"))]
+
+
+class XrServer:
+    """The port's CLI serving `--sink xr --port 0` in a process of its own;
+    `port` is read from its "streaming at tcp://HOST:PORT" line, and `stop()`
+    ends it through its stop file (killed if it outlasts the wait)."""
+
+    def __init__(self, argv, out_dir) -> None:
+        import os
+        import re
+        import threading
+
+        self.stop_file = out_dir / "xr_server.stop"
+        self.stop_file.unlink(missing_ok=True)
+        self.lines, self.port = [], None
+        found = threading.Event()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "desktop2stereo_tpu_torch.cli", *argv, "--stop-file",
+             str(self.stop_file)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)))
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                m = re.search(r"streaming at tcp://[^:\s]+:(\d+)", line)
+                if m and self.port is None:
+                    self.port = int(m.group(1))
+                    found.set()
+            found.set()
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        if not found.wait(XR_SERVER_UP_S) or self.port is None:
+            self.stop()
+            raise AssertionError("the xr server never said where it streams:\n"
+                                 + "\n".join(self.lines[-30:]))
+
+    def stop(self) -> int:
+        self.stop_file.touch()
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self.reader.join(30)
+        return rc
+
+
+def xr_client_phases(np, torch, counters, card, out_dir, dev, frame_shape=FRAME_SHAPE[:2]):
+    """49-51: the port's XR client (`tools/xr_client.py`) on the card."""
+    import shutil
+
+    from desktop2stereo_tpu_torch.tools import xr_client as XC
+
+    h, w = frame_shape
+    rng = np.random.default_rng(SEED + 49)
+    rgb = np.ascontiguousarray(synthetic_frames(np, 1, h, w, SEED + 49)[0][..., 2::-1])
+    depth = xr_depth(np, rng, *XR_DEPTH)
+    out = {"launches": {}}
+
+    # -- 49. the client's render at 4K on the card, in this process ----------
+    cases = (("Full-SBS", 0.0), ("Half-SBS", 0.0), ("Full-SBS", 0.1))
+    worst = {"lsb": 0, "share": 0.0}
+    render = {}
+    for mode, roll in cases:
+        name = f"{mode} roll {roll}"
+        zero_counts(counters)
+        got = XC.render_stereo(rgb, depth, IPD, STRENGTH, 0.01, mode=mode, roll=roll,
+                               device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        check_counts(f"xr-client render_stereo {name} at {h}x{w} (depth {XR_DEPTH[0]}x"
+                     f"{XR_DEPTH[1]})", counts, {"dibr_fill": 2 if roll == 0.0 else 0}, 1)
+        want_shape = (h, 2 * w if mode == "Full-SBS" else w - w % 2, 3)
+        if got.dtype != torch.uint8 or tuple(got.shape) != want_shape or got.device != dev:
+            raise AssertionError(f"render_stereo {name}: {got.dtype} {tuple(got.shape)} on "
+                                 f"{got.device}, want uint8 {want_shape} on {dev}")
+        t0 = time.perf_counter()
+        ref = XC.render_stereo(rgb, depth, IPD, STRENGTH, 0.01, mode=mode, roll=roll,
+                               device="cpu")
+        cpu_s = time.perf_counter() - t0
+        lsb, share = u8_diff(torch, got.cpu(), ref)
+        worst.update(lsb=max(worst["lsb"], lsb), share=max(worst["share"], share))
+        check_u8(f"xr client render_stereo {name}, card against --device cpu", lsb, share,
+                 f" (the CPU call {cpu_s:.1f} s)")
+        render[name] = dict(shape=list(want_shape), lsb=lsb, share=share, cpu_s=cpu_s,
+                            counts=counts)
+        if roll == 0.0:
+            out["launches"][f"xr_render_{mode}"] = counts["dibr_fill"]
+
+    # stage times: CUDA events around one call, median of XR_TIMED, in turns
+    rgb_d, dep_d = XC.to_device(rgb, dev), XC.to_device(depth, dev)
+    rgb_f = rgb_d.to(torch.float32)
+    dep_full = XC._resize_bilinear(dep_d, h, w)
+    eyes = [XC.warp_eye(rgb_f, dep_full, e * IPD / 2, STRENGTH, 0.01) for e in (-1, 1)]
+    sbs = {m: XC.arrange_sbs(*eyes, m) for m in ("Full-SBS", "Half-SBS")}
+    stages = time_calls(torch, {
+        "upload_rgb": lambda: XC.to_device(rgb, dev),
+        "upload_depth": lambda: XC.to_device(depth, dev),
+        "upsample": lambda: XC._resize_bilinear(dep_d, h, w),
+        "warp_both_eyes": lambda: [XC.warp_eye(rgb_f, dep_full, e * IPD / 2, STRENGTH, 0.01)
+                                   for e in (-1, 1)],
+        **{f"arrange_{m}": lambda m=m: XC.arrange_sbs(*eyes, m) for m in sbs},
+        **{f"download_{m}": lambda m=m: sbs[m].cpu() for m in sbs},
+    }, runs=XR_TIMED, reps=1)
+    fps = {}
+    for mode in ("Full-SBS", "Half-SBS"):
+        XC.render_stereo(rgb, depth, IPD, STRENGTH, 0.01, mode=mode, device=dev).cpu()
+        t0 = time.perf_counter()
+        for _ in range(XR_TIMED):
+            XC.render_stereo(rgb, depth, IPD, STRENGTH, 0.01, mode=mode,
+                             device=dev).cpu().numpy()
+        fps[mode] = XR_TIMED / (time.perf_counter() - t0)
+    del rgb_d, dep_d, rgb_f, dep_full, eyes, sbs
+    log(f"[xr-client] render at {h}x{w}, depth {XR_DEPTH[0]}x{XR_DEPTH[1]} (CUDA events "
+        f"around one call, median of {XR_TIMED}, the stages in turns): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + "; render frames/s (numpy frame in, numpy SBS out, host included, "
+        f"{XR_TIMED} frames): " + ", ".join(f"{m} {v:.2f}" for m, v in fps.items())
+        + f"; {card}")
+    out["render"] = dict(cases=render, stages_ms=stages, fps=fps, worst=worst)
+
+    # -- 50. the client end to end against the port's CLI in a process of its own
+    server = XrServer(["--settings", str(cli_settings(out_dir)), "--source", "synthetic",
+                       "--size", f"{h}x{w}", "--sink", "xr", "--port", "0", "--xr-no-input",
+                       "--display-mode", "Mono", "--duration", "900", "--stats-every", "0"],
+                      out_dir)
+    pushed, push_ms, composed = [], [], []
+    png_push, compose = XC.PngPresenter.push, XC.SoftTheaterCompositor.compose
+
+    def timed_push(self, frame):
+        t0 = time.perf_counter()
+        ok = png_push(self, frame)
+        pushed.append(time.perf_counter())
+        push_ms.append((pushed[-1] - t0) * 1e3)
+        return ok
+
+    def timed_compose(self, rgb_np, depth_np):
+        t0 = time.perf_counter()
+        res = compose(self, rgb_np, depth_np)
+        composed.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    XC.PngPresenter.push, XC.SoftTheaterCompositor.compose = timed_push, timed_compose
+    e2e = {}
+    try:
+        for name, frames, extra, want_shape in (
+                ("flat", XR_E2E_FRAMES, [], (h, 2 * w, 3)),
+                ("theater", XR_THEATER_FRAMES,
+                 ["--theater", "on", "--theater-size", *map(str, XR_THEATER_SIZE)],
+                 (XR_THEATER_SIZE[1], 2 * XR_THEATER_SIZE[0], 3))):
+            png_dir = out_dir / f"xr_client_{name}"
+            shutil.rmtree(png_dir, ignore_errors=True)
+            for kept in (pushed, push_ms, composed):
+                kept.clear()
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            rc = XC.main(["--host", "127.0.0.1", "--port", str(server.port), "--present", "png",
+                          "--frames", str(frames), "--out", str(png_dir), "--poll-timeout",
+                          "5", "--no-input", *extra])
+            wall_s = time.perf_counter() - t0
+            counts = read_counts(counters)
+            check_counts(" ".join(["xr-client main --present png", *extra, "--frames",
+                                   str(frames), "against the CLI --sink xr"]), counts,
+                         {"dibr_fill": 2}, frames)
+            pngs = png_frames(np, png_dir)
+            ok = rc == 0 and len(pngs) == frames and all(
+                p.shape == want_shape and p.dtype == np.uint8 for p in pngs)
+            span = pushed[-1] - pushed[0] if len(pushed) > 1 else 0.0
+            client_fps = (len(pushed) - 1) / span if span > 0 else 0.0
+            compose_ms = statistics.median(composed) if composed else None
+            png_ms = statistics.median(push_ms)
+            log(f"[xr-client] {name}: exit {rc}, {len(pngs)} PNGs of "
+                f"{pngs[0].shape if pngs else None} (want {frames} of {want_shape}); "
+                f"{client_fps:.2f} frames/s first to last PNG written (the PNG encode "
+                f"included: median {png_ms:.1f} ms a frame), {wall_s:.1f} s from main() to "
+                f"its return"
+                + (f"; compose (warp both eyes, theater, host raster) median "
+                   f"{compose_ms:.1f} ms" if compose_ms is not None else "")
+                + f" {'ok' if ok else 'FAIL'}; {card}")
+            if not ok:
+                raise AssertionError(f"xr client {name}: rc {rc}, PNGs "
+                                     f"{[p.shape for p in pngs]}, want {frames} x {want_shape}")
+            e2e[name] = dict(rc=rc, pngs=len(pngs), shape=list(want_shape), fps=client_fps,
+                             wall_s=wall_s, png_ms=png_ms, compose_ms=compose_ms,
+                             counts=counts)
+            out["launches"][f"xr_client_{name}"] = counts["dibr_fill"]
+            shutil.rmtree(png_dir, ignore_errors=True)
+    finally:
+        XC.PngPresenter.push, XC.SoftTheaterCompositor.compose = png_push, compose
+        server_rc = server.stop()
+    log(f"[xr-client] the server (python -m desktop2stereo_tpu_torch.cli --settings "
+        f"(DA-V2-Large @518) --source synthetic --size {h}x{w} --sink xr --port 0 "
+        f"--display-mode Mono) on port {server.port}: exit {server_rc} after its stop file")
+    if server_rc != 0:
+        raise AssertionError("the xr server failed:\n" + "\n".join(server.lines[-30:]))
+    out["e2e"] = e2e
+
+    # -- 51. --test: white 1280x720, zero depth, the theater, on the card ------
+    warped = []
+    warp_eye = XC.warp_eye
+
+    def kept_warp(*args, **kw):
+        res = warp_eye(*args, **kw)
+        warped.append((float(res.min()), float(res.max())))
+        return res
+
+    runs = {}
+    XC.warp_eye = kept_warp
+    try:
+        for device, frames in (("cuda", XR_THEATER_FRAMES), ("cpu", 1)):
+            png_dir = out_dir / f"xr_selftest_{device}"
+            shutil.rmtree(png_dir, ignore_errors=True)
+            zero_counts(counters)
+            rc = XC.main(["--test", "--present", "png", "--theater", "on", "--theater-size",
+                          *map(str, XR_THEATER_SIZE), "--frames", str(frames), "--out",
+                          str(png_dir), "--device", device])
+            runs[device] = (rc, read_counts(counters), png_frames(np, png_dir))
+            shutil.rmtree(png_dir, ignore_errors=True)
+    finally:
+        XC.warp_eye = warp_eye
+    (rc, counts, pngs), (cpu_rc, cpu_counts, cpu_pngs) = runs["cuda"], runs["cpu"]
+    check_counts(f"xr-client main --test --present png --theater on --frames "
+                 f"{XR_THEATER_FRAMES}", counts, {"dibr_fill": 2}, XR_THEATER_FRAMES)
+    tw, th = XR_THEATER_SIZE
+    white = all(254.5 <= lo <= hi < 255.5 for lo, hi in warped)  # each rounds to 255
+    ok = (rc == cpu_rc == 0 and len(pngs) == XR_THEATER_FRAMES and len(cpu_pngs) == 1
+          and all(p.shape == (th, 2 * tw, 3) for p in pngs + cpu_pngs) and white
+          and all(min(p[th // 2, tw // 2].min(), p[th // 2, tw + tw // 2].min()) > 180
+                  for p in pngs))
+    lsb, share = u8_diff(torch, torch.from_numpy(pngs[0]), torch.from_numpy(cpu_pngs[0])) \
+        if ok else (None, None)
+    log(f"[xr-client] selftest: exit {rc}, {len(pngs)} PNGs {[p.shape for p in pngs[:1]]}; "
+        f"every warped eye (card {XR_THEATER_FRAMES * 2}, CPU 2) rounds to 255 everywhere (zero "
+        f"depth, zero parallax: the unwarped white frame) {white}; each eye's screen centre "
+        f"white; "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("xr client --test on the card: exit, PNGs or the white screen off")
+    check_u8("xr client --test theater frame, card against --device cpu", lsb, share)
+    out["selftest"] = dict(rc=rc, pngs=len(pngs), counts=counts, lsb=lsb, share=share)
+    out["launches"]["xr_selftest"] = counts["dibr_fill"]
+    return out
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -3885,6 +4176,9 @@ def main() -> int:
                                           policy, dev, card, out_dir, timing, worst)
     multi = report["multi"]["paths"]
 
+    # -- 49-51. the XR client: render at 4K, end to end, the self-test -------------
+    report["xr_client"] = xr_client_phases(np, torch, counters, card, out_dir, dev)
+
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
         each read from its own run with the counts set to 0 before it)."""
@@ -3940,7 +4234,8 @@ def main() -> int:
               {**launches("warp", "generic_fast"),
                **multi_launches("warp", "batched_generic_fast")}),
         entry("dibr_fill", csrc + "dibr_fill.cu", pallas + "dibr.py:709", "dibr_fill",
-              {"dibr_render": render_counts["dibr_fill"]}),
+              {"dibr_render": render_counts["dibr_fill"],
+               **report["xr_client"]["launches"]}),
         entry("quant_matmul", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
               "quant_matmul_fc1", {**launches("quant_matmul", "int8", "da3_int8", "beit_int8",
                                               "depthpro_int8", "infinidepth_int8"),

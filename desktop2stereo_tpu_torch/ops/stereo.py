@@ -238,6 +238,12 @@ def dibr_geometry(depth: torch.Tensor, eye_offset: float, depth_strength: float 
             return _shift_2d(depth, offset_px * cos_t, offset_px * sin_t)
         return _sample_const_offset(depth, offset_px)
 
+    def div(x: torch.Tensor, s: float) -> torch.Tensor:
+        # the divisor on x's device: CUDA divides by a host scalar as a
+        # multiply by its reciprocal, up to 2 ulps off the CPU's quotient,
+        # and px then crosses W - 1 at the right edge on one device only
+        return x / x.new_full((), s)
+
     # 3-tap pre-smooth along the parallax direction at ±1.5 px
     d = (depth * 0.7 + sample_depth_at(-par_sign * 1.5) * 0.15
          + sample_depth_at(+par_sign * 1.5) * 0.15)
@@ -245,17 +251,17 @@ def dibr_geometry(depth: torch.Tensor, eye_offset: float, depth_strength: float 
     depth_shaped = depth_inv * (1.0 + 0.35 * (1.0 - d))
 
     # parallax shift in UV with a smoothstep falloff at both borders
-    u = ((torch.arange(W, dtype=dt, device=dev) + 0.5) / W)[None, :]
-    e1 = (u / edge_margin).clamp(0.0, 1.0)
+    u = div(torch.arange(W, dtype=dt, device=dev) + 0.5, W)[None, :]
+    e1 = div(u, edge_margin).clamp(0.0, 1.0)
     e1 = e1 * e1 * (3.0 - 2.0 * e1)
-    e2 = ((1.0 - u) / edge_margin).clamp(0.0, 1.0)
+    e2 = div(1.0 - u, edge_margin).clamp(0.0, 1.0)
     e2 = e2 * e2 * (3.0 - 2.0 * e2)
     shift_uv = eye_offset * (depth_shaped + convergence) * depth_strength * (e1 * e2)
     px = torch.arange(W, dtype=dt, device=dev)[None, :] - shift_uv * cos_t * W
 
     # soft disocclusion confidence from the 2-tap depth jump
     jump = (sample_depth_at(-par_sign * 2.0) - sample_depth_at(+par_sign * 2.0)).abs()
-    t = ((jump - 0.04) / (0.10 - 0.04)).clamp(0.0, 1.0)
+    t = div(jump - 0.04, 0.10 - 0.04).clamp(0.0, 1.0)
     conf = t * t * (3.0 - 2.0 * t)
     oob = (px < 0.0) | (px > W - 1.0)
     py = None

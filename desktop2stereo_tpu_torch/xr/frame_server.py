@@ -6,8 +6,7 @@ uploading (reference xr_viewer/implementation.py:1446-1651); this is that
 contract as a renderer-agnostic server: the pipeline pushes
 `update_frame(rgb, depth)` (reference viewer.py:2359) and a client polls
 `latest()` at its own display rate.  Single-slot and lock-guarded: a slow
-client never backpressures the pipeline.  (`geometry_for` comes with the
-XR client side, ROADMAP A10.)
+client never backpressures the pipeline.
 """
 
 from __future__ import annotations
@@ -86,3 +85,9 @@ class FrameServer:
     @property
     def frames_served(self) -> int:
         return self._seq
+
+    def geometry_for(self, aspect: float):
+        """Convenience: a default screen pose sized to the stream aspect."""
+        from desktop2stereo_tpu_torch.xr.geometry import ScreenPose
+
+        return ScreenPose().with_aspect(aspect)

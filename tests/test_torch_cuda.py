@@ -692,3 +692,43 @@ def test_f32_parts_stay_on_the_card_through_a_dtype_cast(dev, name):
     with torch.inference_mode():
         depth = model(x)
     assert depth.device == dev and bool(torch.isfinite(depth.float()).all())
+
+
+@pytest.mark.parametrize("roll", [0.0, 0.3])
+def test_dibr_geometry_on_the_card_is_the_cpus_bit_for_bit(dev, roll):
+    """The warp position and confidence `dibr_render` hands K5: a divisor
+    left on the host made CUDA multiply by its reciprocal, px crossed W - 1
+    at the right edge on the card only, and the confidence there flipped
+    (up to 41 LSB in a 4K client frame)."""
+    from desktop2stereo_tpu_torch.ops import stereo as S
+
+    rng = np.random.default_rng(3)
+    depth = torch.from_numpy(rng.random((64, 3840), dtype=np.float32))
+    for eye in (-0.032, 0.032):
+        card = S.dibr_geometry(depth.to(dev), eye, 2.0, 0.01, roll=roll)
+        cpu = S.dibr_geometry(depth, eye, 2.0, 0.01, roll=roll)
+        for got, want in zip(card, cpu):
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode,w", [("Full-SBS", 384), ("Half-SBS", 384), ("Half-SBS", 383)])
+def test_xr_client_render_on_the_card_like_the_cpu(dev, mode, w):
+    """The XR client's frame: K5 once an eye at roll 0 (none with a roll),
+    uint8 within 1 LSB of the same call on the CPU on at most 0.1% of values."""
+    from desktop2stereo_tpu_torch.tools import xr_client as XC
+
+    rng = np.random.default_rng(w)
+    rgb = (rng.random((216, w, 3)) * 255).astype(np.uint8)
+    depth = rng.random((63, 112)).astype(np.float32)
+    for roll, k5 in ((0.0, 2), (0.2, 0)):
+        before = K5.KERNEL.launches
+        got = XC.render_stereo(rgb, depth, 0.064, 2.0, 0.01, mode=mode, roll=roll, device=dev)
+        torch.cuda.synchronize()
+        assert K5.KERNEL.launches == before + k5
+        assert got.device == dev and got.dtype == torch.uint8
+        want = XC.render_stereo(rgb, depth, 0.064, 2.0, 0.01, mode=mode, roll=roll,
+                                device="cpu")
+        diff = (got.cpu().int() - want.int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3

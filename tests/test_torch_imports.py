@@ -41,7 +41,11 @@ def test_port_has_the_slice_modules():
                  "sinks.window", "cli", "sources.net", "sinks.rtmp", "sinks.xr", "xr",
                  "xr.frame_server", "xr.net", "xr.injector", "tools", "tools.capture_agent",
                  "service", "service.control", "pipeline.multi", "pipeline.profiling",
-                 "tools.aot_compile", "tools.depth_visualize"):
+                 "tools.aot_compile", "tools.depth_visualize", "xr.geometry", "xr.filters",
+                 "xr.effects", "xr.raster", "xr.glb", "xr.controller_models",
+                 "xr.environment", "xr.keyboard", "xr.overlay", "xr.laser", "xr.persist",
+                 "xr.theater", "xr.input_map", "xr.input_router", "xr.controls",
+                 "xr.session", "xr.gl_theater", "xr.headless_gl", "tools.xr_client"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 
