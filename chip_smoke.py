@@ -247,7 +247,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     on the card: the white 1280x720 frame with zero depth, so every warped
     eye rounds to 255 (zero parallax), 2 K5 a frame, the screen white in
     each eye, and the first frame within 1 LSB of the same run with
-    `--device cpu`.
+    `--device cpu`;
+52-56. the multi-GPU path (`desktop2stereo_tpu_torch/parallel/`): first,
+    in this process, K2 at one rank's [1, 778, 8, 64] and K4 at one rank's
+    four ViT-L shapes (qkv and fc1 column shards, proj and fc2 row shards in
+    int32 mode) against their plain versions (K4 exactly) and timed beside
+    them, their library call and their bound; then one spawned group of
+    TP = 2 ranks (NCCL with a card each where two cards are visible, else
+    both ranks on card 0 over gloo; a line says which), which takes the
+    weights phases 5, 12 and 34 drew through shared host memory. Each rank:
+    54. DP = 2 (a 2 x 1 mesh in the same world): two seeded model inputs,
+    its row bit-equal to the one-frame model's, 24 K2; 52. TP = 2, bf16,
+    DA-V2-Large @518 (294x518, 778 tokens): exactly 24 K2 at [1, 778, 8,
+    64], one held against `attention_ref` on the layer-0 activations, depth
+    against the unsharded model on the same card at phase 6's mean bound
+    (over the reference's range), the step ms (CUDA events, median of
+    PARALLEL_STEP_RUNS), weights and peak against the unsharded model's; 56.
+    the all-reduce of one row-parallel partial [1, 778, 1024] f32 (two a
+    layer), labelled with the backend; 53. TP = 2, int8: 24 K2 and 96 K4
+    (48 column-, 48 row-parallel calls), each of the four shard shapes exact
+    against `quant_dense_ref` on the layer-0 activations, depth against the
+    unsharded int8 model (bit-equal, or the difference printed); 55. TP = 2
+    + SP, dpt-dinov2-giant-kitti @518 (ViT-G SwiGLU, 40 layers, 12 heads a
+    rank): 40 K2, depth against the unsharded model, weights and peak
+    against the unsharded model's.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -272,7 +295,12 @@ own: `attention_relpos` (the table entry, launched by the BEiT paths),
 timed at BEiT-L's [1, 577, 16, 64] with an 18x32 grid's [16, 2208] bf16
 table, and `attention_bias` (the dense entry, launched by the dense-bias
 API in phase 31), timed there with the [16, 577, 577] bf16 bias; both
-beside SDPA with the dense bias as a float `attn_mask`.
+beside SDPA with the dense bias as a float `attn_mask`.  The multi-GPU
+path's launches (one rank's, phases 52-55) have entries of their own,
+timed at one rank's shapes: `attention_tp` (K2 at [1, 778, 8, 64]; its
+launches: TP bf16, TP int8, the giant's TP + SP at [1, 778, 12, 64], DP),
+`quant_matmul_tp_col` (timed at fc1's column shard) and
+`quant_matmul_tp_row` (fc2's row shard, int32 out).
 """
 
 from __future__ import annotations
@@ -2322,6 +2350,9 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
             if not ok:
                 raise AssertionError(f"{name} quant={quant}: build or output off")
             del m
+    # the giant's weights (this seed's draw, as the card's model holds them)
+    # for the multi-GPU phase 55
+    KEPT["giant"] = {k: v.to(torch.bfloat16) for k, v in cpu_net.state_dict().items()}
     cpu_net = None
     rep["cpu_builds"] = sweep
     out["dpt_dinov2"] = rep
@@ -3457,6 +3488,364 @@ def xr_client_phases(np, torch, counters, card, out_dir, dev, frame_shape=FRAME_
     return out
 
 
+# -- 52-56. the multi-GPU path ---------------------------------------------------
+
+TP = 2                               # the model axis of phases 52, 53 and 55
+TP_ATTN_SHAPE = (1, 778, 8, 64)      # K2 on one rank's heads: ViT-L @518 at tp = 2
+TP_LAYERS, GIANT_LAYERS = 24, 40     # K2 a rank and frame: ViT-L's layers, ViT-G's
+GIANT_TP_HEADS = 12                  # ViT-G's 24 heads at tp = 2
+# K4 on one rank's slice of ViT-L's four products at tp = 2: (name, role, K, F)
+TP_DENSE = (("qkv", "col", 1024, 1536), ("fc1", "col", 1024, 2048),
+            ("proj", "row", 512, 1024), ("fc2", "row", 2048, 1024))
+PARALLEL_DEADLINE_S = 600.0
+PARALLEL_STEP_RUNS = 7               # timed steps a sharded path (gloo steps take ~0.5-1.5 s)
+# CPU copies of weights drawn by earlier phases (the flagship's, its int8
+# form, dpt-dinov2-giant-kitti's), so that the ranks draw nothing
+KEPT = {}
+
+
+def parallel_rank(ctx, states, seed):
+    """One rank of phases 52-55, in a process of its own (`spawn`): the
+    world of TP ranks holds a 1 x TP mesh (`ctx`) and a TP x 1 mesh for
+    data parallelism.  Every rank builds each model whole from `states`
+    (on the meta device, then the shared host tensors), runs it whole on
+    its card as the reference, then shards it.  → every rank's report, by
+    rank (gathered)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from desktop2stereo_tpu_torch.core.registry import get_spec
+    from desktop2stereo_tpu_torch.core.runtime import make_mesh, set_tf32
+    from desktop2stereo_tpu_torch.models.factory import FAMILIES
+    from desktop2stereo_tpu_torch.ops.kernels import attention as K2
+    from desktop2stereo_tpu_torch.ops.kernels import quant_matmul as K4
+    from desktop2stereo_tpu_torch.ops.quant import activation_scale
+    from desktop2stereo_tpu_torch.parallel.introspect import count_launches
+    from desktop2stereo_tpu_torch.parallel.sharding import (
+        ColumnParallelQuantLinear, ParallelContext, RowParallelQuantLinear, parallel_frame_apply,
+        shard_model)
+
+    set_tf32(False)
+    torch.set_grad_enabled(False)
+    dev = ctx.device
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, *MODEL_SHAPE, 3), dtype=np.float32)).to(
+        dev, torch.bfloat16)
+    frames = torch.from_numpy(rng.standard_normal((2, *MODEL_SHAPE, 3), dtype=np.float32)).to(
+        torch.bfloat16)
+    rep = {"rank": ctx.rank, "backend": ctx.backend, "device": str(dev),
+           "world": dist.get_world_size()}
+
+    def build(name, state, quant=False):
+        spec = get_spec(name)
+        with torch.device("meta"):
+            net = FAMILIES[spec.family][0](spec, quant=quant)
+        net.load_state_dict(state, strict=True, assign=True)
+        return net.eval()
+
+    def fresh():
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def weight_bytes(net):
+        return sum(t.numel() * t.element_size()
+                   for t in itertools.chain(net.parameters(), net.buffers()))
+
+    def step_ms(fn):
+        """CUDA events around one call, median of PARALLEL_STEP_RUNS after 2
+        warm-up calls; the ranks start each sample together."""
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(PARALLEL_STEP_RUNS):
+            torch.cuda.synchronize(dev)
+            dist.barrier(group=ctx.mesh.model_group)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def depth_err(got, want):
+        """Phase 6's measure: both depths over the reference's range."""
+        want = want.float()
+        span = (want.max() - want.min()).clamp_min(1e-12)
+        err = ((got.float() - want) / span).abs()
+        return dict(mean_abs=err.mean().item(), max_abs=err.max().item(),
+                    finite=bool(torch.isfinite(got).all()), shape=list(got.shape),
+                    ok=bool(torch.isfinite(got).all()) and err.mean().item() <= REF_DEPTH_MEAN_ABS)
+
+    def whole_run(name, state, quant=False):
+        fresh()
+        net = build(name, state, quant).to(dev)
+        ref = net(x)
+        peak = torch.cuda.max_memory_allocated(dev)
+        return net, ref, dict(weight_bytes=weight_bytes(net), peak_bytes=peak,
+                              step_ms=step_ms(lambda: net(x)))
+
+    # -- 54. DP = 2 (a TP x 1 mesh in the same world), the whole model ----------
+    whole, ref, rep["whole"] = whole_run(FLAGSHIP_MODEL, states["flagship"])
+    ctx_dp = ParallelContext(make_mesh(TP, 1, dev))
+    dp_run = parallel_frame_apply(whole, ctx_dp)
+    got, launches = count_launches(dp_run, frames)
+    d = ctx_dp.data_index
+    single = whole(frames[d:d + 1].to(dev))
+    rep["dp"] = dict(data_index=d, launches=launches, equal=bool(torch.equal(got, single)),
+                     max_abs=(got.float() - single.float()).abs().max().item(),
+                     step_ms=step_ms(lambda: dp_run(frames)))
+    del whole, dp_run
+
+    # -- 52. TP = 2, bf16 ----------------------------------------------------------
+    fresh()
+    net = shard_model(build(FLAGSHIP_MODEL, states["flagship"]), ctx)
+    run = parallel_frame_apply(net, ctx)
+    att = net.backbone.layer[0].attention
+    seen = {}
+    hook = att.register_forward_pre_hook(lambda m, a: seen.setdefault("in", a[0]))
+    depth, launches = count_launches(run, x)
+    hook.remove()
+    q, k, v = (t.unflatten(-1, (att.num_heads, att.head_dim))
+               for t in att.qkv(seen["in"]).split(att.num_heads * att.head_dim, dim=-1))
+    k2_err = (K2.attention(q, k, v).float()
+              - K2.attention_ref(q.float(), k.float(), v.float())).abs().max().item()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the reduction a row-parallel product ends in: [1, 778, 1024] f32, two a layer
+    part = torch.ones(1, MODEL_SHAPE[0] // 14 * (MODEL_SHAPE[1] // 14) + 1, 1024, device=dev)
+    reduce_ms = []
+    for i in range(TIMED_RUNS + 3):  # median of TIMED_RUNS after 3 warm-up calls
+        torch.cuda.synchronize(dev)
+        dist.barrier(group=ctx.mesh.model_group)
+        t0 = time.perf_counter()
+        ctx.model_all_reduce(part)
+        torch.cuda.synchronize(dev)
+        if i >= 3:
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    rep["tp_bf16"] = dict(launches=launches, heads=att.num_heads, k2_shape=list(q.shape),
+                          k2_max_abs=k2_err, depth=depth_err(depth, ref),
+                          weight_bytes=weight_bytes(net), peak_bytes=peak,
+                          step_ms=step_ms(lambda: run(x)),
+                          all_reduce_ms=statistics.median(reduce_ms),
+                          all_reduce_shape=list(part.shape))
+    del net, run, seen, q, k, v, part
+
+    # -- 53. TP = 2, int8 -------------------------------------------------------------
+    whole_q, ref_q, rep["whole_int8"] = whole_run(FLAGSHIP_MODEL, states["int8"], quant=True)
+    del whole_q
+    fresh()
+    net = shard_model(build(FLAGSHIP_MODEL, states["int8"], quant=True), ctx)
+    run = parallel_frame_apply(net, ctx)
+    calls = {"col": 0, "row": 0}
+    inputs = {}
+    hooks = []
+    for m in net.modules():
+        role = ("col" if isinstance(m, ColumnParallelQuantLinear) else
+                "row" if isinstance(m, RowParallelQuantLinear) else None)
+        if role is not None:
+            hooks.append(m.register_forward_hook(
+                lambda m, a, o, role=role: calls.__setitem__(role, calls[role] + 1)))
+    layer0 = net.backbone.layer[0]
+    dense = {"qkv": layer0.attention.qkv, "proj": layer0.attention.proj,
+             "fc1": layer0.mlp.fc1, "fc2": layer0.mlp.fc2}
+    for name, m in dense.items():
+        hooks.append(m.register_forward_pre_hook(
+            lambda m, a, name=name: inputs.setdefault(name, a[0])))
+    depth_q, launches = count_launches(run, x)
+    for h in hooks:
+        h.remove()
+    shapes = {}
+    for name, role, _, _ in TP_DENSE:
+        m, xin = dense[name], inputs[name]
+        if role == "col":
+            args, kw = (xin, m.weight_q, m.scale, m.bias), {}
+        else:  # the int32 entry with the full-K scale, as tp_quant_dense calls it
+            absmax = xin.float().abs().amax(dim=-1, keepdim=True)
+            ctx.model_all_reduce(absmax, "max")
+            args = (xin, m.weight_q, m.scale)
+            kw = dict(row_scale=activation_scale(absmax), out_dtype=torch.int32)
+        got, want = K4.quant_dense(*args, **kw), K4.quant_dense_ref(*args, **kw)
+        shapes[name] = dict(role=role, x=list(xin.shape), weight_q=list(m.weight_q.shape),
+                            out=str(got.dtype), equal=bool(torch.equal(got, want)),
+                            max_abs=(got.double() - want.double()).abs().max().item())
+    rep["tp_int8"] = dict(launches=launches, calls=calls, k4=shapes,
+                          equal=bool(torch.equal(depth_q, ref_q)),
+                          max_abs=(depth_q.float() - ref_q.float()).abs().max().item(),
+                          differing=int((depth_q != ref_q).sum()), values=depth_q.numel(),
+                          depth=depth_err(depth_q, ref_q), weight_bytes=weight_bytes(net),
+                          peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          step_ms=step_ms(lambda: run(x)))
+    del net, run, inputs, dense, layer0, ref_q, depth_q
+
+    # -- 55. TP = 2 + SP, dpt-dinov2-giant-kitti -----------------------------------------
+    whole_g, ref_g, rep["whole_giant"] = whole_run(DPT_DINOV2_MODEL, states["giant"])
+    del whole_g
+    fresh()
+    net = shard_model(build(DPT_DINOV2_MODEL, states["giant"]), ctx)
+    run = parallel_frame_apply(net, ctx, sequence_parallel=True)
+    depth_g, launches = count_launches(run, x)
+    mlp = net.backbone.layer[0].mlp
+    rep["tp_sp_giant"] = dict(launches=launches,
+                              heads=net.backbone.layer[0].attention.num_heads, mlp=type(mlp).__name__,
+                              hidden=(mlp.weights_out if hasattr(mlp, "weights_out")
+                                      else mlp.fc2).in_features,
+                              depth=depth_err(depth_g, ref_g), weight_bytes=weight_bytes(net),
+                              peak_bytes=torch.cuda.max_memory_allocated(dev),
+                              step_ms=step_ms(lambda: run(x)))
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, rep)
+    return everyone
+
+
+def parallel_phases(np, torch, F, K2, K4, card, dev, policy, timing, worst):
+    """Phases 52-56: the multi-GPU path (`desktop2stereo_tpu_torch/parallel/`)
+    in one spawned group of TP ranks; the kernels at one rank's shapes
+    first, in this process.  → the report (each rank's, and the launches)."""
+    from desktop2stereo_tpu_torch.core.runtime import mesh_device
+    from desktop2stereo_tpu_torch.parallel.launch import spawn
+
+    out = {}
+    _, backend = mesh_device(None, TP, 0)
+    how = ("NCCL, one card a rank" if backend == "nccl" else
+           "gloo with both ranks on card 0 (gloo moves CUDA tensors through host memory)")
+    log(f"[parallel] {TP} ranks, {how}: {torch.cuda.device_count()} card(s) visible; {card}")
+    out["backend"], out["world"] = backend, TP
+
+    # K2 and K4 at one rank's shapes: against the plain versions, then timed
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    B, N, H, D = TP_ATTN_SHAPE
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t_.unflatten(-1, (H, D)) for t_ in qkv.split(H * D, dim=-1))
+    err = (K2.attention(q, k, v).float()
+           - K2.attention_ref(q.float(), k.float(), v.float())).abs().max().item()
+    worst["attention_tp"] = err
+    if err > ATTN_MAX_ABS:
+        raise AssertionError(f"attention at {list(TP_ATTN_SHAPE)}: max abs err {err:.3e}")
+    qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    t = time_both(torch, {"plain": lambda: K2.attention_ref(q, k, v),
+                          "kernel": lambda: K2.attention(q, k, v),
+                          "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)})
+    timing["attention_tp"] = dict(t, shape=f"{list(TP_ATTN_SHAPE)} bf16 qkv views (one rank "
+                                           f"of ViT-L @518 at tp = {TP})",
+                                  bound=bound_ms(policy.name, 4 * B * N * H * D * 2,
+                                                 4 * B * H * N * N * D, "bf16"))
+    del qkv, q, k, v, qh, kh, vh
+    M = MODEL_SHAPE[0] // 14 * (MODEL_SHAPE[1] // 14) + 1
+    for name, role, kin, fout in TP_DENSE:
+        x, wq, scale, bias = dense_inputs(np, torch, dev, M, kin, fout, torch.bfloat16, True,
+                                          seed=kin + fout + 52)
+        if role == "col":
+            args, kw = (x, wq, scale, bias), {}
+        else:  # the int32 entry, a row scale over a longer K (clips nothing)
+            args = (x, wq, scale)
+            kw = dict(row_scale=x.float().abs().amax(dim=-1, keepdim=True) / 127.0,
+                      out_dtype=torch.int32)
+        got, want = K4.quant_dense(*args, **kw), K4.quant_dense_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        key = f"quant_matmul_tp_{role}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        log(f"[parallel] quant_matmul {name} shard [{M},{kin}]x[{fout},{kin}] ({role}, "
+            f"{str(got.dtype)[6:]} out): max abs err {err:.3e} (tol {QUANT_MAX_ABS}) "
+            f"{'ok' if err <= QUANT_MAX_ABS and got.shape == want.shape else 'FAIL'}")
+        if err > QUANT_MAX_ABS or got.shape != want.shape:
+            raise AssertionError(f"quant_matmul {name} shard disagrees with its plain version")
+        xq8 = x.float().clamp(-127, 127).round().to(torch.int8)
+        wt = wq.t()
+        t = time_both(torch, {"plain": lambda: K4.quant_dense_ref(*args, **kw),
+                              "kernel": lambda: K4.quant_dense(*args, **kw),
+                              "library": lambda: torch._int_mm(xq8, wt)})
+        out_bytes = (4 if role == "row" else 2) * M * fout
+        timing[f"quant_matmul_tp_{name}"] = dict(
+            t, shape=f"{name} shard [{M},{kin}] bf16 x [{fout},{kin}] int8 ({role}, "
+                     f"{'int32 out, row_scale' if role == 'row' else 'bf16 out + bias'})",
+            bound=bound_ms(policy.name, 2 * M * kin + fout * kin + 8 * fout + out_bytes,
+                           2 * M * kin * fout, "int8"))
+        del x, wq, scale, bias, got, want, xq8, wt, args, kw
+    for name in ["attention_tp"] + [f"quant_matmul_tp_{n}" for n, *_ in TP_DENSE]:
+        log_timing(name, timing[name], card)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the three models' weights, kept from phases 5, 12 and 34, into shared
+    # host memory for the ranks
+    states = {key: {k: v.contiguous().share_memory_() for k, v in KEPT.pop(key).items()}
+              for key in ("flagship", "int8", "giant")}
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, 1, TP, "cuda", states, SEED, deadline_s=PARALLEL_DEADLINE_S)
+    out["group_s"] = time.perf_counter() - t0
+    del states
+    out["ranks"] = ranks
+    gb = 1e9
+    for r in ranks:
+        tag = f"rank {r['rank']} ({r['device']}, {r['backend']}, world {r['world']}; {card})"
+        w, dp, tp, q, g = (r["whole"], r["dp"], r["tp_bf16"], r["tp_int8"], r["tp_sp_giant"])
+        log(f"[parallel] 52. TP={TP} bf16 {FLAGSHIP_MODEL} @518, {tag}: K2 launches "
+            f"{tp['launches']} (want d2s_attention_fwd {TP_LAYERS}) at {tp['k2_shape']}, one against "
+            f"attention_ref max abs {tp['k2_max_abs']:.3e}; depth against the unsharded model "
+            f"mean {tp['depth']['mean_abs']:.3e} max {tp['depth']['max_abs']:.3e} of its range "
+            f"(tol mean {REF_DEPTH_MEAN_ABS}); step {tp['step_ms']:.3f} ms (unsharded "
+            f"{w['step_ms']:.3f}); weights {tp['weight_bytes'] / gb:.3f} GB (unsharded "
+            f"{w['weight_bytes'] / gb:.3f}), peak {tp['peak_bytes'] / gb:.3f} GB (unsharded "
+            f"{w['peak_bytes'] / gb:.3f})")
+        log(f"[parallel] 56. all-reduce of one row-parallel partial {tp['all_reduce_shape']} "
+            f"f32 ({backend}{', gloo-on-one-card, not NVLink' if backend == 'gloo' else ''}), "
+            f"{tag}: {tp['all_reduce_ms']:.3f} ms, {2 * tp['all_reduce_ms']:.3f} ms a layer "
+            f"(two a layer)")
+        if (tp["launches"] != {"d2s_attention_fwd": TP_LAYERS} or tp["heads"] != TP_ATTN_SHAPE[2]
+                or tp["k2_max_abs"] > ATTN_MAX_ABS or not tp["depth"]["ok"]):
+            raise AssertionError(f"TP bf16 on rank {r['rank']}: {tp}")
+        k4 = "; ".join(f"{n} {v['role']} x {v['x']} w {v['weight_q']} {v['out'][6:]} "
+                       f"{'exact' if v['equal'] else 'max abs %.3e' % v['max_abs']}"
+                       for n, v in q["k4"].items())
+        log(f"[parallel] 53. TP={TP} int8, {tag}: launches {q['launches']} (want "
+            f"d2s_attention_fwd {TP_LAYERS}, d2s_quant_dense {4 * TP_LAYERS}), column- / "
+            f"row-parallel calls "
+            f"{q['calls']['col']} / {q['calls']['row']}; K4 on the layer-0 activations: {k4}; "
+            f"depth against the unsharded int8 model: "
+            + ("bit-equal" if q["equal"] else
+               f"max abs {q['max_abs']:.3e}, {q['differing']} of {q['values']} values differ, "
+               f"mean {q['depth']['mean_abs']:.3e} of its range")
+            + f"; step {q['step_ms']:.3f} ms (unsharded {r['whole_int8']['step_ms']:.3f}); "
+            f"peak {q['peak_bytes'] / gb:.3f} GB (unsharded "
+            f"{r['whole_int8']['peak_bytes'] / gb:.3f})")
+        if (q["launches"] != {"d2s_attention_fwd": TP_LAYERS, "d2s_quant_dense": 4 * TP_LAYERS}
+                or q["calls"] != {"col": 2 * TP_LAYERS, "row": 2 * TP_LAYERS}
+                or not all(v["equal"] for v in q["k4"].values()) or not q["depth"]["ok"]):
+            raise AssertionError(f"TP int8 on rank {r['rank']}: {q}")
+        log(f"[parallel] 54. DP={TP} (two seeded frames), {tag}: data index "
+            f"{dp['data_index']}, launches {dp['launches']}, depth "
+            f"{'bit-equal to' if dp['equal'] else 'max abs %.3e from' % dp['max_abs']} the "
+            f"one-frame model's; step {dp['step_ms']:.3f} ms")
+        if not dp["equal"] or dp["launches"] != {"d2s_attention_fwd": TP_LAYERS}:
+            raise AssertionError(f"DP on rank {r['rank']}: {dp}")
+        wg = r["whole_giant"]
+        log(f"[parallel] 55. TP={TP} + SP {DPT_DINOV2_MODEL} @518, {tag}: K2 launches "
+            f"{g['launches']} (want d2s_attention_fwd {GIANT_LAYERS}) with {g['heads']} heads, "
+            f"{g['mlp']} hidden {g['hidden']} a rank; depth against the unsharded model mean "
+            f"{g['depth']['mean_abs']:.3e} max {g['depth']['max_abs']:.3e} of its range; step "
+            f"{g['step_ms']:.3f} ms (unsharded {wg['step_ms']:.3f}); weights "
+            f"{g['weight_bytes'] / gb:.3f} GB (unsharded {wg['weight_bytes'] / gb:.3f}), peak "
+            f"{g['peak_bytes'] / gb:.3f} GB (unsharded {wg['peak_bytes'] / gb:.3f})")
+        if (g["launches"] != {"d2s_attention_fwd": GIANT_LAYERS} or g["heads"] != GIANT_TP_HEADS
+                or not g["depth"]["ok"]):
+            raise AssertionError(f"TP + SP giant on rank {r['rank']}: {g}")
+    r0 = ranks[0]
+    out["launches"] = {"attention_tp": {"tp_bf16": r0["tp_bf16"]["launches"]["d2s_attention_fwd"],
+                                        "tp_int8": r0["tp_int8"]["launches"]["d2s_attention_fwd"],
+                                        "tp_sp_giant": r0["tp_sp_giant"]["launches"][
+                                            "d2s_attention_fwd"]},
+                       "attention_dp": r0["dp"]["launches"]["d2s_attention_fwd"],
+                       "quant_matmul_tp_col": r0["tp_int8"]["calls"]["col"],
+                       "quant_matmul_tp_row": r0["tp_int8"]["calls"]["row"]}
+    log(f"[parallel] the group: {out['group_s']:.1f} s, ranks started, built and run")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -4131,6 +4520,9 @@ def main() -> int:
             want["K4 quant_matmul"] = 2 * 4 * layers  # the row pass and the product a call
         traces[name] = trace(name, net, spec, flagship_cfg, staging, want)
     report["trace"] = traces
+    # the weights the multi-GPU phases (52-55) shard, kept on the host
+    KEPT["flagship"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    KEPT["int8"] = {k: v.cpu() for k, v in model_q.state_dict().items()}
     del model, model_q
     torch.cuda.empty_cache()
 
@@ -4178,6 +4570,10 @@ def main() -> int:
 
     # -- 49-51. the XR client: render at 4K, end to end, the self-test -------------
     report["xr_client"] = xr_client_phases(np, torch, counters, card, out_dir, dev)
+
+    # -- 52-56. the multi-GPU path: TP, TP int8, DP, TP + SP on the giant -----------
+    report["parallel"] = parallel_phases(np, torch, F, K2, K4, card, dev, policy, timing, worst)
+    par = report["parallel"]["launches"]
 
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
@@ -4240,6 +4636,14 @@ def main() -> int:
               "quant_matmul_fc1", {**launches("quant_matmul", "int8", "da3_int8", "beit_int8",
                                               "depthpro_int8", "infinidepth_int8"),
                                    **multi_launches("quant_matmul", "batched_int8")}),
+        # the multi-GPU path: one rank's launches (phases 52-55), timed at one
+        # rank's shapes
+        entry("attention_tp", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_tp", {**par["attention_tp"], "dp": par["attention_dp"]}),
+        entry("quant_matmul_tp_col", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
+              "quant_matmul_tp_fc1", {"tp_int8": par["quant_matmul_tp_col"]}),
+        entry("quant_matmul_tp_row", csrc + "quant_matmul.cu", pallas + "quant_matmul.py:122",
+              "quant_matmul_tp_fc2", {"tp_int8": par["quant_matmul_tp_row"]}),
     ]
     report.update(kernels=kernels, timing=timing, frames=FRAMES, paths=paths,
                   reference=refs, model_build_s=model_build_s, int8_build_s=int8_build_s,

@@ -77,9 +77,10 @@ def build_rel_pos_bias(table: torch.Tensor, gh: int, gw: int, pretrain_window: i
 
 def compute_rel_pos_tables(backbone: "BeitEncoder", gh: int, gw: int) -> List[torch.Tensor]:
     """Every layer's [H, R] table for one grid: what the streaming `first`
-    builds once per capture shape and `step` reuses."""
+    builds once per capture shape and `step` reuses (each layer's own head
+    count: H/tp heads under tensor parallelism)."""
     return [interpolate_rel_pos_table(layer.relative_position_bias.relative_position_bias_table,
-                                      gh, gw, backbone.pretrain_window, backbone.num_heads)
+                                      gh, gw, backbone.pretrain_window, layer.num_heads)
             for layer in backbone.layer]
 
 
@@ -93,11 +94,22 @@ class BeitRelativePositionBias(nn.Module):
 
 
 class BeitLayer(nn.Module):
+    """Pre-norm BEiT block.  The head count and width come from the module:
+    under tensor parallelism `query`, `key` and `value` are column-parallel,
+    `proj` and `fc2` row-parallel, and this rank holds `num_heads` = H/tp
+    heads with its table's head columns, so K2's table entry runs on the
+    local heads with an [H/tp, R] table (the JAX package builds the dense
+    bias and sends biased attention to XLA, which GSPMD shards; its
+    unbiased kernel runs per head shard at `ops/attention.py:71`).  The
+    three products split in contiguous head blocks, which here are whole
+    heads; the table, which JAX keeps whole, follows its heads."""
+
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int, pretrain_window: int,
                  quant: bool = False) -> None:
         super().__init__()
         D = hidden_size
         self.num_heads = num_heads
+        self.head_dim = D // num_heads
         self.pretrain_window = pretrain_window
         self.norm1 = nn.LayerNorm(D, eps=VIT_LN_EPS)
         self.query = _dense(D, D, quant)
@@ -113,15 +125,16 @@ class BeitLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, gh: int, gw: int,
                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, N, D = x.shape
+        B, N, _ = x.shape
         if table is None:  # the parity path; the frame program carries the tables
             table = interpolate_rel_pos_table(
                 self.relative_position_bias.relative_position_bias_table, gh, gw,
                 self.pretrain_window, self.num_heads)
         h = self.norm1(x)
-        q, k, v = (f(h).unflatten(-1, (self.num_heads, D // self.num_heads))
+        q, k, v = (f(h).unflatten(-1, (self.num_heads, self.head_dim))
                    for f in (self.query, self.key, self.value))
-        out = self.proj(multi_head_attention(q, k, v, rel_pos=(table, gh, gw)).reshape(B, N, D))
+        out = self.proj(multi_head_attention(q, k, v, rel_pos=(table, gh, gw)).reshape(
+            B, N, self.num_heads * self.head_dim))
         x = x + out * self.lambda_1.to(x.dtype)
         h = self.fc2(gelu(self.fc1(self.norm2(x))))
         return x + h * self.lambda_2.to(x.dtype)

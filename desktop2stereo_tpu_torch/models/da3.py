@@ -182,13 +182,19 @@ def _apply_rope(t: torch.Tensor, cos: torch.Tensor, sin_rot: torch.Tensor) -> to
 class DA3Attention(nn.Module):
     """Fused qkv, optional per-head LayerNorm on q and k, 2D RoPE, K2, proj.
     Under QK-norm or RoPE q and k reach K2 as fresh contiguous tensors; v
-    stays a strided view of the qkv product."""
+    stays a strided view of the qkv product.  The head count and width come
+    from the module: under tensor parallelism this rank holds `num_heads` =
+    H/tp heads of a head-split qkv and a row-parallel proj, and K2 runs on
+    its local heads (the JAX package: the shard_map of
+    `ops/attention.py:71`; the qkv split by heads, not contiguously as JAX
+    splits it, so a rank's q, k and v are whole heads).  QK-norm (over hd)
+    and RoPE (per head) act head by head, so they are local as they stand."""
 
     def __init__(self, hidden_size: int, num_heads: int, qk_norm: bool = False,
                  quant: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
-        hd = hidden_size // num_heads
+        self.head_dim = hd = hidden_size // num_heads
         self.qkv = _dense(hidden_size, 3 * hidden_size, quant)
         self.proj = _dense(hidden_size, hidden_size, quant)
         self.qk_norm = qk_norm
@@ -198,18 +204,23 @@ class DA3Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-        B, N, D = x.shape
-        q, k, v = (t.unflatten(-1, (self.num_heads, D // self.num_heads))
-                   for t in self.qkv(x).split(D, dim=-1))
+        B, N, _ = x.shape
+        width = self.num_heads * self.head_dim
+        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
+                   for t in self.qkv(x).split(width, dim=-1))
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         if rope is not None:
             q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
-        return self.proj(multi_head_attention(q, k, v).reshape(B, N, D))
+        return self.proj(multi_head_attention(q, k, v).reshape(B, N, width))
 
 
 class DA3Mlp(nn.Module):
-    """GELU fc1/fc2, or ViT-G's SwiGLU (dinov2's) in DA3's naming, w12 / w3."""
+    """GELU fc1/fc2, or ViT-G's SwiGLU (dinov2's) in DA3's naming, w12 / w3.
+    Under tensor parallelism `w12` is split pair by pair (the same hidden
+    indices of x1 and x2 on a rank; the JAX package splits it contiguously
+    and GSPMD pairs the halves), `fc1` column- and `fc2` / `w3` row-parallel
+    (the JAX int8 shard_maps: `ops/quant.py:129/152`)."""
 
     def __init__(self, hidden_size: int, mlp_dim: int, use_swiglu: bool = False,
                  quant: bool = False) -> None:

@@ -100,6 +100,10 @@ def _dense(in_features: int, out_features: int, quant: bool, bias: bool = True) 
 
 
 class Mlp(nn.Module):
+    """fc1 → GELU → fc2; under tensor parallelism fc1 is column- and fc2
+    row-parallel over the hidden width (the JAX package's GSPMD-sharded
+    Dense pair, or the int8 shard_maps of `ops/quant.py:129/152`)."""
+
     def __init__(self, hidden_size: int, mlp_dim: int, quant: bool = False) -> None:
         super().__init__()
         self.fc1 = _dense(hidden_size, mlp_dim, quant)
@@ -121,7 +125,11 @@ def swiglu(x: torch.Tensor, w_in: nn.Module, w_out: nn.Module) -> torch.Tensor:
 
 
 class SwiGLU(nn.Module):
-    """dinov2-giant FFN in HF's naming (`weights_in` / `weights_out`)."""
+    """dinov2-giant FFN in HF's naming (`weights_in` / `weights_out`).  Under
+    tensor parallelism `weights_in` holds the same hidden indices of x1 and
+    x2 (split pair by pair, where the JAX package splits the fused kernel
+    contiguously and lets GSPMD pair the halves), so `swiglu`'s chunk pairs
+    them as the whole layer does; `weights_out` is row-parallel."""
 
     def __init__(self, hidden_size: int, mlp_dim: int, quant: bool = False) -> None:
         super().__init__()
@@ -134,19 +142,29 @@ class SwiGLU(nn.Module):
 
 
 class Attention(nn.Module):
+    """Fused qkv, K2, proj.  The head count and width come from the module,
+    not from x: tensor parallelism (`parallel/sharding.py`) leaves this
+    rank `num_heads` = H/tp heads of a head-split qkv [3·D/tp, D] and a
+    row-parallel proj, and K2 runs on the local [B, N, H/tp, hd] q, k and v
+    (where the JAX package runs its kernel per head shard under the
+    shard_map of `ops/attention.py:71`).  The qkv is split by heads, not in
+    the two contiguous halves of JAX's `_tp_spec_for`, so that a rank's q,
+    k and v are whole heads and K2 needs no collective before it."""
+
     def __init__(self, hidden_size: int, num_heads: int, quant: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
         self.qkv = _dense(hidden_size, 3 * hidden_size, quant)
         self.proj = _dense(hidden_size, hidden_size, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, D = x.shape
-        hd = D // self.num_heads
+        B, N, _ = x.shape
+        width = self.num_heads * self.head_dim
         # strided views of the fused projection; the kernel reads them as is
-        q, k, v = (t.unflatten(-1, (self.num_heads, hd))
-                   for t in self.qkv(x).split(D, dim=-1))
-        out = multi_head_attention(q, k, v).reshape(B, N, D)
+        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
+                   for t in self.qkv(x).split(width, dim=-1))
+        out = multi_head_attention(q, k, v).reshape(B, N, width)
         return self.proj(out)
 
 
@@ -165,6 +183,26 @@ class Dinov2Layer(nn.Module):
         x = x + self.attention(self.norm1(x)) * self.layer_scale1.to(x.dtype)
         return x + self.mlp(self.norm2(x)) * self.layer_scale2.to(x.dtype)
 
+    def forward_sp(self, x: torch.Tensor, ctx, n: int) -> torch.Tensor:
+        """Sequence parallelism: x holds this rank's ceil(n/tp) tokens of the
+        residual stream (`ctx` a ParallelContext).  The normed tokens are
+        gathered to all n for the attention and the MLP; a row-parallel
+        last product reduce-scatters back to the local tokens, the output of
+        a unit that stays whole is sliced to them.  The port's counterpart
+        of the JAX `token_constraint` (`parallel/sharding.py:82` there)."""
+        for norm, unit, last, scale in (
+                (self.norm1, self.attention, self.attention.proj, self.layer_scale1),
+                (self.norm2, self.mlp, _last_product(self.mlp), self.layer_scale2)):
+            h = unit(ctx.gather_tokens(norm(x), n))
+            if not getattr(last, "scatter", False):
+                h = ctx.own_tokens(h, n)
+            x = x + h * scale.to(x.dtype)
+        return x
+
+
+def _last_product(mlp: nn.Module) -> nn.Module:
+    return mlp.fc2 if hasattr(mlp, "fc2") else mlp.weights_out
+
 
 class Dinov2Encoder(nn.Module):
     """ViT trunk returning the hidden states of `out_layers` (0-indexed, in
@@ -173,7 +211,11 @@ class Dinov2Encoder(nn.Module):
     semantics).  Layers after the last selected one feed nothing and are
     not built, as in the JAX module.  `quant` makes the four dense products
     of every layer int8 (`QuantLinear`, kernel K4); `use_swiglu` is ViT-G's
-    MLP."""
+    MLP.  `sequence_parallel` is None, or the ParallelContext of a
+    sequence-parallel call (`parallel/sharding.py:parallel_frame_apply` sets
+    it for one call): the residual stream then holds ceil(N/tp) tokens a
+    rank between the layers, and each selected state is gathered to all N
+    tokens for the neck."""
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int,
                  mlp_dim: int, out_layers: Tuple[int, ...], patch_size: int = 14,
@@ -190,12 +232,17 @@ class Dinov2Encoder(nn.Module):
             Dinov2Layer(hidden_size, num_heads, mlp_dim, quant, use_swiglu)
             for _ in range(n_run))
         self.layernorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.sequence_parallel = None
 
     def forward(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.embeddings(pixels)
+        sp, n = self.sequence_parallel, x.shape[1]
+        if sp is not None:
+            x = sp.own_tokens(x, n)
         outputs = []
         for i, layer in enumerate(self.layer):
-            x = layer(x)
+            x = layer(x) if sp is None else layer.forward_sp(x, sp, n)
             if i in self.out_layers:
-                outputs.append(self.layernorm(x) if i in self.normed else x)
+                h = x if sp is None else sp.gather_tokens(x, n)
+                outputs.append(self.layernorm(h) if i in self.normed else h)
         return tuple(outputs)

@@ -163,7 +163,11 @@ class BitBackbone(nn.Module):
 class DPTHybrid(nn.Module):
     """pixels [B,H,W,3] (normalized, mean = std = 0.5) → MiDaS disparity
     [B,h',w'] at the head's resolution.  `quant=True` makes the ViT layers'
-    products int8 (the BiT stem and the decoder stay float)."""
+    products int8 (the BiT stem and the decoder stay float).  Its ViT
+    layers sit at the top level, so `tp_scopes` names them for tensor
+    parallelism."""
+
+    tp_scopes = ("layer",)
 
     def __init__(self, patch_size: int = 16, bit_depths: Tuple[int, ...] = BIT_DEPTHS,
                  bit_hidden: Tuple[int, ...] = BIT_HIDDEN, bit_embed: int = BIT_EMBED,

@@ -101,12 +101,18 @@ def with_cls(tokens: torch.Tensor, cls: torch.Tensor,
 
 
 class ViTLayer(nn.Module):
-    """HF ViT block: pre-norm (eps 1e-12), fused qkv, no LayerScale."""
+    """HF ViT block: pre-norm (eps 1e-12), fused qkv, no LayerScale.  The
+    head count and width come from the module: under tensor parallelism
+    this rank holds `num_heads` = H/tp heads of a head-split qkv (not split
+    contiguously as JAX splits it, so a rank's q, k and v are whole heads),
+    K2 runs on them (the JAX package: the shard_map of
+    `ops/attention.py:71`), and proj and fc2 are row-parallel."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
                  quant: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
         self.norm1 = nn.LayerNorm(hidden_size, eps=VIT_LN_EPS)
         self.qkv = _dense(hidden_size, 3 * hidden_size, quant)
         self.proj = _dense(hidden_size, hidden_size, quant)
@@ -115,11 +121,11 @@ class ViTLayer(nn.Module):
         self.fc2 = _dense(mlp_dim, hidden_size, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, D = x.shape
-        hd = D // self.num_heads
-        q, k, v = (t.unflatten(-1, (self.num_heads, hd))
-                   for t in self.qkv(self.norm1(x)).split(D, dim=-1))
-        x = x + self.proj(multi_head_attention(q, k, v).reshape(B, N, D))
+        B, N, _ = x.shape
+        width = self.num_heads * self.head_dim
+        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
+                   for t in self.qkv(self.norm1(x)).split(width, dim=-1))
+        x = x + self.proj(multi_head_attention(q, k, v).reshape(B, N, width))
         return x + self.fc2(gelu(self.fc1(self.norm2(x))))
 
 
@@ -164,7 +170,10 @@ class ClassicDPTDecoder(nn.Module):
 class DPTViT(nn.Module):
     """pixels [B,H,W,3] (normalized) → MiDaS disparity [B,h',w'] at the
     head's resolution.  `quant=True` makes the four products of every ViT
-    layer int8 (`QuantLinear`, K4)."""
+    layer int8 (`QuantLinear`, K4).  Its ViT layers sit at the top level,
+    so `tp_scopes` names them for tensor parallelism."""
+
+    tp_scopes = ("layer",)
 
     def __init__(self, hidden_size: int, num_layers: int, num_heads: int, mlp_dim: int,
                  out_indices: Tuple[int, ...], neck_channels: Sequence[int],

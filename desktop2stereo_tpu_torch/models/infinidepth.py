@@ -110,11 +110,21 @@ def swiglu_width(ffn_hidden: int) -> int:
 
 
 class Dinov3Block(nn.Module):
+    """DINOv3 block: fused qkv with RoPE on the patch tokens, LayerScale,
+    a GELU or SwiGLU (w1, w2 → w3) MLP.  The head count and width come from
+    the module: under tensor parallelism this rank holds `num_heads` = H/tp
+    heads of a head-split qkv (not split contiguously as JAX splits it, so
+    a rank's q, k and v are whole heads) and K2 runs on them (the JAX
+    package: the shard_map of `ops/attention.py:71`); `w1` and `w2` are
+    column-parallel over the same hidden indices, `proj`, `w3` and `fc2`
+    row-parallel (the JAX int8 shard_maps: `ops/quant.py:129/152`)."""
+
     def __init__(self, hidden_size: int, num_heads: int, ffn_hidden: int,
                  use_swiglu: bool = False, quant: bool = False) -> None:
         super().__init__()
         D = hidden_size
         self.num_heads = num_heads
+        self.head_dim = D // num_heads
         self.use_swiglu = use_swiglu
         self.norm1 = nn.LayerNorm(D, eps=LN_EPS)
         self.qkv = _dense(D, 3 * D, quant)
@@ -132,11 +142,12 @@ class Dinov3Block(nn.Module):
         self.layer_scale2 = nn.Parameter(torch.ones(D))
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
-        B, N, D = x.shape
-        q, k, v = (t.unflatten(-1, (self.num_heads, D // self.num_heads))
-                   for t in self.qkv(self.norm1(x)).split(D, dim=-1))
+        B, N, _ = x.shape
+        width = self.num_heads * self.head_dim
+        q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
+                   for t in self.qkv(self.norm1(x)).split(width, dim=-1))
         attn = multi_head_attention(rope_apply(q, sin, cos), rope_apply(k, sin, cos), v)
-        x = x + self.proj(attn.reshape(B, N, D)) * self.layer_scale1.to(x.dtype)
+        x = x + self.proj(attn.reshape(B, N, width)) * self.layer_scale1.to(x.dtype)
         h = self.norm2(x)
         if self.use_swiglu:
             h = self.w3(F.silu(self.w1(h)) * self.w2(h))

@@ -10,6 +10,13 @@ dense entry), or BEiT's relative-position bias as `rel_pos=(table, gh, gw)`,
 one layer's [H, R] table for a gh × gw grid, which the kernel's table entry
 gathers itself, so that no [H, N, N] tensor exists.  The relative-position
 index helpers live here too, one copy for the plain version and the model.
+
+Tensor parallelism needs no dispatch here: where the JAX package runs its
+kernel per head shard under a `shard_map` (`ops/attention.py:46-74,
+105-137` there), a sharded layer of the port (`parallel/sharding.py`)
+already holds only its rank's heads and hands this function its local
+[B/dp, N, H/tp, 64] q, k and v (and BEiT's [H/tp, R] table slice); each
+rank's K2 launch sees nothing else.
 """
 
 from __future__ import annotations

@@ -85,12 +85,21 @@ def quant_dense_ref(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if out_dtype == torch.int32:
         return acc.to(torch.int32).reshape(*lead, F)
-    rescale = sx * scale.float()[None, :]
+    return epilogue(acc, sx, scale, bias, out_dtype).reshape(*lead, F)
+
+
+def epilogue(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's epilogue on accumulators acc [M, F] (int32, or exact
+    integers in f64) with row scales sx [M, 1]: f32(acc)·(sx·scale) + bias
+    rounded once (csrc/quant_matmul.cu: `__fmaf_rn`), the plain product
+    without a bias, then the cast to `out_dtype`."""
+    rescale = sx.float() * scale.float()[None, :]
     if bias is None:
         out = acc.float() * rescale
     else:
         out = _fma(acc.float(), rescale, bias.float()[None, :])
-    return out.to(out_dtype).reshape(*lead, F)
+    return out.to(out_dtype)
 
 
 def check_inputs(x2: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,

@@ -11,20 +11,23 @@ Port of `desktop2stereo_tpu/ops/quant.py`.  Symmetric, zero-point-free:
 
 Only the encoder's dense products go int8; the patch embedding, the
 LayerNorms, attention and the DPT decoder stay in the compute dtype.  The
-TPU dispatch devices (`probe`, `FORCE_KERNEL`, `supported`, the `shard_map`
-path `tp_quant_dense`) are not carried over: `quant_dense` takes CPU tensors
-to its plain version and CUDA tensors to the kernel.
+TPU dispatch devices (`probe`, `FORCE_KERNEL`, `supported`) are not carried
+over: `quant_dense` takes CPU tensors to its plain version and CUDA tensors
+to the kernel.  `tp_quant_dense` is the tensor-parallel product of a
+sharded encoder (`parallel/sharding.py`): K4 on this rank's slice, with the
+collectives the JAX `shard_map` path (`ops/quant.py:129, 152` there) leaves
+to `psum`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from desktop2stereo_tpu_torch.ops.kernels.quant_matmul import (  # noqa: F401
-    activation_scale, dynamic_quantize_rows, quant_dense, quantize_with)
+    K_ALIGN, activation_scale, dynamic_quantize_rows, epilogue, quant_dense, quantize_with)
 
 # Dense module names the encoder quantizes (the JAX package's whole set, so
 # that later families need no change here)
@@ -109,3 +112,54 @@ def quantize_state_dict(state: Dict[str, torch.Tensor],
         else:
             out[key] = t.float()
     return out
+
+
+def tp_quant_fits(k: int) -> bool:
+    """Whether K4 takes a product over k inputs (k a multiple of K_ALIGN):
+    where a rank's slice of a row-parallel layer does not fit, the layer
+    and its column-parallel partner stay whole (`parallel/sharding.py`)."""
+    return k > 0 and k % K_ALIGN == 0
+
+
+def tp_quant_dense(ctx, x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
+                   bias: Optional[torch.Tensor], role: str,
+                   scatter_tokens: bool = False) -> Optional[torch.Tensor]:
+    """The int8 product of a Megatron-sharded layer on this rank, or None
+    (declined) where the product K4 would see does not fit `tp_quant_fits`.
+
+    - role "col" (replaces the JAX shard_map at `ops/quant.py:129`): x is the
+      whole input [..., K], weight_q / scale / bias this rank's feature
+      slice; one K4 launch gives those features, bit-equal to the same
+      columns of the whole product (the row scales span the whole K either
+      way).  No collective.
+    - role "row" (replaces the shard_map at `ops/quant.py:152`): x is this
+      rank's slice of the inputs [..., K/tp], weight_q its [F, K/tp] slice,
+      scale and bias whole.  The activation scale must span the whole K:
+      the local row abs-max is all-reduced (MAX) over the model group, then
+      K4 runs in int32 mode with that `row_scale`, the accumulators are
+      all-reduced (SUM, exact and order-free) and the f32 epilogue runs
+      once, as `quant_dense_ref` runs it: bit-equal to one unsharded K4
+      launch.  With `scatter_tokens` (sequence parallelism) the sum is a
+      reduce-scatter over the N tokens of x (dim -2, padded to a multiple
+      of tp) and this rank's [..., ceil(N/tp), F] block comes back.
+    """
+    if role not in ("col", "row"):
+        raise ValueError(f"tp_quant_dense: role 'col' or 'row', not {role!r}")
+    K = x.shape[-1]
+    if not tp_quant_fits(K):
+        return None
+    if role == "col":
+        return quant_dense(x, weight_q, scale, bias)
+    absmax = x.float().abs().amax(dim=-1, keepdim=True)
+    ctx.model_all_reduce(absmax, "max")
+    sx = activation_scale(absmax)
+    acc = quant_dense(x, weight_q, scale, row_scale=sx, out_dtype=torch.int32)
+    if scatter_tokens:
+        n = x.shape[-2]
+        acc, sx = ctx.reduce_scatter_tokens(acc, n), ctx.own_tokens(sx, n)
+    else:
+        ctx.model_all_reduce(acc, "sum")
+    F = weight_q.shape[0]
+    lead = acc.shape[:-1]
+    return epilogue(acc.reshape(-1, F), sx.reshape(-1, 1), scale, bias,
+                    x.dtype).reshape(*lead, F)

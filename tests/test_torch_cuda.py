@@ -732,3 +732,59 @@ def test_xr_client_render_on_the_card_like_the_cpu(dev, mode, w):
                                 device="cpu")
         diff = (got.cpu().int() - want.int()).abs()
         assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+
+
+# ---- the multi-GPU path's kernels at one rank's shapes (ViT-L @518, tp = 2) ------------
+
+@pytest.mark.parametrize("name,role,K,F", [("qkv", "col", 1024, 1536), ("fc1", "col", 1024, 2048),
+                                           ("proj", "row", 512, 1024), ("fc2", "row", 2048, 1024)])
+def test_quant_dense_kernel_exact_on_tensor_parallel_shards(dev, name, role, K, F):
+    """A column-parallel shard (bf16 out, bias) and a row-parallel one (the
+    int32 entry with a row scale over the whole K) exactly as the plain
+    version computes them."""
+    from desktop2stereo_tpu_torch.ops.quant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(K + F)
+    x = torch.randn(778, K, generator=gen, device=dev).bfloat16()
+    wq, scale = quantize_weight(torch.randn(F, K, generator=gen, device=dev))
+    bias = torch.randn(F, generator=gen, device=dev)
+    if role == "col":
+        args, kw = (x, wq, scale, bias), {}
+    else:
+        args = (x, wq, scale)
+        kw = dict(row_scale=x.float().abs().amax(dim=-1, keepdim=True) / 127.0,
+                  out_dtype=torch.int32)
+    before = K4.KERNEL.launches
+    got = K4.quant_dense(*args, **kw)
+    assert K4.KERNEL.launches == before + 1
+    want = K4.quant_dense_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_attention_kernel_on_one_ranks_heads(dev):
+    """K2 at [1, 778, 8, 64]: the eight heads of one rank of ViT-L at tp = 2,
+    as views of its [1, 778, 1536] qkv shard."""
+    gen = torch.Generator(device=dev).manual_seed(52)
+    qkv = torch.randn(1, 778, 3 * 512, generator=gen, device=dev).bfloat16()
+    q, k, v = (t.unflatten(-1, (8, 64)) for t in qkv.split(512, dim=-1))
+    got = K2.attention(q, k, v)
+    want = K2.attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.shape == (1, 778, 8, 64)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def test_tensor_parallel_run_on_the_card(dev):
+    """Two ranks (NCCL with a card each, or gloo on card 0): DA-V2-Small at
+    TP = 2 against the whole model on the card; 12 K2 a rank (and 48 K4 in
+    int8, bit-equal to the whole int8 model)."""
+    import torch_parallel_ranks as ranks
+    from desktop2stereo_tpu_torch.parallel.launch import spawn
+
+    out = spawn(ranks.card_tp, 1, 2, "cuda", deadline_s=300.0)
+    for r in out:
+        assert r["none"]["launches"] == {"d2s_attention_fwd": 12}, r
+        assert r["none"]["finite"] and r["none"]["mean_rel"] < 0.03, r
+        assert r["int8"]["launches"] == {"d2s_attention_fwd": 12, "d2s_quant_dense": 48}, r
+        assert r["int8"]["equal"], r

@@ -45,7 +45,8 @@ def test_port_has_the_slice_modules():
                  "xr.effects", "xr.raster", "xr.glb", "xr.controller_models",
                  "xr.environment", "xr.keyboard", "xr.overlay", "xr.laser", "xr.persist",
                  "xr.theater", "xr.input_map", "xr.input_router", "xr.controls",
-                 "xr.session", "xr.gl_theater", "xr.headless_gl", "tools.xr_client"):
+                 "xr.session", "xr.gl_theater", "xr.headless_gl", "tools.xr_client",
+                 "parallel", "parallel.sharding", "parallel.launch", "parallel.introspect"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 
