@@ -270,7 +270,38 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     unsharded int8 model (bit-equal, or the difference printed); 55. TP = 2
     + SP, dpt-dinov2-giant-kitti @518 (ViT-G SwiGLU, 40 layers, 12 heads a
     rank): 40 K2, depth against the unsharded model, weights and peak
-    against the unsharded model's.
+    against the unsharded model's;
+57. K2's f32 body (`--fp32`, the converter's gate): its three entries
+    (`d2s_attention_f32_fwd`, `_bias_f32_`, `_relpos_f32_`) against their
+    f32 plain versions within F32_ATTN_MAX_ABS at the flagship's [1, 778, 16,
+    64] (qkv views and contiguous), BEiT-L's [1, 577, 16, 64] with its 18x32
+    table (f32 and bf16 tables, the table entry bit-equal to the dense entry
+    on the expansion), DepthPro's [35, 730, 16, 64] and ragged shapes;
+    registers, spills and resident blocks; times beside the plain version,
+    f32 SDPA (with the bias as a float mask) and the bound at the f32
+    CUDA-core peak;
+58. `--fp32` on the card: `cli.run` on the phase-16 settings with `--fp32`
+    for FP32_CLI_SECONDS (weights and compute f32, exactly 24 f32 K2 and one
+    K1 a frame, no bf16 K2, in the warm-up and the run; frames/s); then
+    DA-V2-Large @518 (one frame) and dpt-beit-large-512 @512 (first and
+    step, the f32 table entry): the f32 CPU models of phases 6 and 31
+    copied to the card, run on the same 216x384 frames and held against
+    those phases' CPU outputs to the FP32_REF_* bounds (tighter than phase
+    6's); the dense-bias API on the f32
+    BEiT's 24 carried tables, bit-equal to the table entry;
+59. the checkpoint tool (`desktop2stereo_tpu_torch/tools/convert.py`):
+    `port_depth`, the gate's pipeline, on the synthetic 1080p scene for the
+    two f32 models of phase 58, card against CPU, rel_err_max below
+    CONVERTER_MAX_REL, 24 f32 K2 each; `--model Video-Depth-Anything-Small
+    --verify --skip-download` in a process of its own with HF_HOME on a hub
+    layout holding phase 20's checkpoint (exit 0, the parameter count of the
+    converted tree); the jobs that need `transformers`: where the host lacks
+    it, `--make-random-snapshot`, `--verify-depth` and `--model-path` each
+    exit non-zero naming it; where it has it, the gate on a DA-V2-Small
+    random snapshot at 126 on the card must pass.  Every subprocess runs
+    with HF_HUB_OFFLINE=1 and `--skip-download`: nothing reaches a network.
+
+A line near the end gives the wall seconds of each phase group.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after; launches recorded into a CUDA graph
@@ -300,7 +331,13 @@ path's launches (one rank's, phases 52-55) have entries of their own,
 timed at one rank's shapes: `attention_tp` (K2 at [1, 778, 8, 64]; its
 launches: TP bf16, TP int8, the giant's TP + SP at [1, 778, 12, 64], DP),
 `quant_matmul_tp_col` (timed at fc1's column shard) and
-`quant_matmul_tp_row` (fc2's row shard, int32 out).
+`quant_matmul_tp_row` (fc2's row shard, int32 out).  K2's f32 body has
+three: `attention_f32` (timed at [1, 778, 16, 64]; launches: the `--fp32`
+CLI run, the f32 reference, the converter's DA-V2-Large), `attention_bias_f32`
+(timed at BEiT-L's shape with an f32 [16, 577, 577] bias; launched by the f32
+dense-bias API) and `attention_relpos_f32` (timed there with the f32 18x32
+table; launches: the f32 BEiT reference, the dense-bias API's comparison, the
+converter's BEiT).
 """
 
 from __future__ import annotations
@@ -701,12 +738,15 @@ def zero_counts(counters) -> None:
 
 
 def read_counts(counters) -> dict:
-    """Each kernel's launches, and K2's dense-bias and table entries' apart
-    (also counted under "attention")."""
+    """Each kernel's launches, and K2's dense-bias and table entries' and its
+    three f32 entries' apart (also counted under "attention")."""
     counts = {n: k.launches for n, k in counters.items()}
     entries = counters["attention"].entry_launches
     counts["attention_bias"] = entries.get("d2s_attention_bias_fwd", 0)
     counts["attention_relpos"] = entries.get("d2s_attention_relpos_fwd", 0)
+    counts["attention_f32"] = entries.get("d2s_attention_f32_fwd", 0)
+    counts["attention_bias_f32"] = entries.get("d2s_attention_bias_f32_fwd", 0)
+    counts["attention_relpos_f32"] = entries.get("d2s_attention_relpos_f32_fwd", 0)
     return counts
 
 
@@ -776,10 +816,14 @@ def ref_stats(torch, name, got, want, cpu_s=0.0):
     return ref
 
 
-def reference_check(torch, name, card_prog, cpu_prog, frame):
+def reference_check(torch, name, card_prog, cpu_prog, frame, keep=None):
+    """Phase 6's check of one frame; the CPU's output is appended to `keep`
+    where one is given."""
     got = tuple(t.cpu() for t in card_prog(frame))
     t0 = time.perf_counter()
     want = cpu_prog(frame)
+    if keep is not None:
+        keep.append(want)
     ref = ref_stats(torch, name, got, want, time.perf_counter() - t0)
     sbs_c, ok, cpu_s = got[0], ref["ok"], ref["cpu_s"]
     log(f"[reference] {name}, 216x384 frame, card bf16 vs CPU f32: depth mean "
@@ -835,14 +879,19 @@ class CliRun:
         self.counts = read_counts(self.counters)
         return rc
 
-    def check_launches(self, name, layers, warm_frames, biased=False):
+    def check_launches(self, name, layers, warm_frames, biased=False, f32=False):
         """`layers` K2 (all of them through the table entry where `biased`,
-        none through the dense-bias entry) and one K1 per frame run, none of
-        the others, in the warm-up (`warm_frames` frames) and in the run."""
+        none through the dense-bias entry; all through the f32 entries and
+        none through the bf16 ones with `f32`) and one K1 per frame run, none
+        of the others, in the warm-up (`warm_frames` frames) and in the run."""
         eng = self.engine
         run_counts = {n: self.counts[n] - self.warm_counts[n] for n in self.counts}
         want = {n: 0 for n in self.counts}
-        want.update(attention=layers, dibr_pair=1, attention_relpos=layers if biased else 0)
+        want.update(attention=layers, dibr_pair=1)
+        k2 = {(True, False): "attention_relpos", (True, True): "attention_relpos_f32",
+              (False, True): "attention_f32"}.get((biased, f32))
+        if k2:
+            want[k2] = layers
         log(f"[cli] {name}: launches in the warm-up " + ", ".join(
             f"{n} {c} (want {want[n] * warm_frames})" for n, c in self.warm_counts.items())
             + f"; in the run of {eng.frames} frames " + ", ".join(
@@ -2176,16 +2225,17 @@ class FamilyPaths:
             f"{build_s:.1f} s; peak device memory {rep['peak_mem_gb']:.2f} GB; {self.card}")
         return net, spec, cfg, rep, model_in
 
-    def reference(self, name, card_net, cfg, n_frames=1):
+    def reference(self, name, card_net, cfg, n_frames=1, keep=None):
         """Small frames through the card's program (bf16) and the CPU's
-        (f32, plain versions), each held to phase 6's thresholds."""
+        (f32, plain versions), each held to phase 6's thresholds; the CPU's
+        outputs are appended to `keep` where one is given."""
         torch, programs = self.torch, self.programs
         cpu_net, spec = self.build_bound(name, device="cpu", dtype=torch.float32, seed=SEED)
         card_prog = programs.ProgramCache(cfg, card_net, spec,
                                           compute_dtype=self.policy.compute_dtype)
         cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
         refs = [reference_check(torch, f"{name} @{cfg.depth_resolution} frame {i}", card_prog,
-                                cpu_prog, self.small[i]) for i in range(n_frames)]
+                                cpu_prog, self.small[i], keep) for i in range(n_frames)]
         return refs, cpu_net
 
 
@@ -2288,11 +2338,14 @@ def classic_dpt_phases(np, torch, programs, build_bound, drive, driven, trace, p
     del prog, carry, other, q, k, v, dense, by_dense, by_table
     rep["trace"] = trace("beit", net, spec, cfg, "engine",
                          {"K2 attention": rep["layers"], "K1 dibr_pair": 1})
-    rep["reference"], cpu_net = reference(BEIT_MODEL, net, cfg, n_frames=2)
+    want = []
+    rep["reference"], cpu_net = reference(BEIT_MODEL, net, cfg, n_frames=2, keep=want)
     # the batched program (phase 46's path): two streams, first then step
     rep["batched_reference"] = batched_reference(
         np, torch, programs, "beit", cfg, net, cpu_net, spec, policy,
         [fam.small, fam.small[::-1]])
+    KEPT["f32"][BEIT_MODEL] = dict(net=cpu_net, spec=spec, cfg=cfg, frames=fam.small,
+                                   want=want)
     del cpu_net
     out["beit"] = rep
 
@@ -3500,8 +3553,10 @@ TP_DENSE = (("qkv", "col", 1024, 1536), ("fc1", "col", 1024, 2048),
 PARALLEL_DEADLINE_S = 600.0
 PARALLEL_STEP_RUNS = 7               # timed steps a sharded path (gloo steps take ~0.5-1.5 s)
 # CPU copies of weights drawn by earlier phases (the flagship's, its int8
-# form, dpt-dinov2-giant-kitti's), so that the ranks draw nothing
-KEPT = {}
+# form, dpt-dinov2-giant-kitti's), so that the ranks draw nothing; under
+# "f32", phase 6's and phase 31's f32 CPU models with their configs, small
+# frames and outputs, which phases 58 and 59 hold the card's f32 runs against
+KEPT = {"f32": {}}
 
 
 def parallel_rank(ctx, states, seed):
@@ -3846,6 +3901,356 @@ def parallel_phases(np, torch, F, K2, K4, card, dev, policy, timing, worst):
     return out
 
 
+# ---- 57-59: K2 in f32, `--fp32` on the card, the checkpoint tool -------------------------
+
+# K2's f32 body against its f32 plain version on unit-normal inputs: summation
+# order and exp2f only
+F32_ATTN_MAX_ABS = 1e-4
+F32_RAGGED_SHAPE = (2, 130, 4, 64)   # either side of the f32 body's 32-row and 64-key tiles
+F32_RAGGED_GRID = (8, 16)            # 129 tokens, with a table
+FP32_CLI_SECONDS = 5.0
+# the card in f32 against the CPU in f32 on phase 6's 216x384 frame: the same
+# arithmetic in another summation order, so far inside phase 6's bf16 bounds
+FP32_REF_DEPTH_MEAN_ABS = 1e-3
+FP32_REF_SBS_MEAN_LSB = 0.5
+FP32_REF_SBS_SHARE_OVER_32 = 1e-3
+# the converter's pipeline, card f32 against CPU f32: the JAX gate test's
+# headroom on rel_err_max (tests/test_verify_depth_gate.py:70)
+CONVERTER_MAX_REL = 2e-3
+GATE_MODEL, GATE_RES = "Depth-Anything-V2-Small", 126
+CONVERT = [sys.executable, "-m", "desktop2stereo_tpu_torch.tools.convert"]
+
+
+def k2_f32_phase(np, torch, F, K2, card, dev, policy, timing, worst):
+    """57. K2's f32 body: its three entries against their plain versions at
+    the flagship's, BEiT-L's (with its 18x32 table) and DepthPro's shapes and
+    ragged ones, the table entry bit-equal to the dense entry on the
+    expansion; registers and spills; times beside the plain version, f32
+    SDPA and the bound at the f32 CUDA-core peak."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 57)
+
+    def qkv(shape, views):
+        B, N, H, D = shape
+        if views:  # the encoder's q/k/v views of one qkv projection
+            base = torch.randn(B, N, 3 * H * D, generator=gen, device=dev)
+            return [t.unflatten(-1, (H, D)) for t in base.split(H * D, dim=-1)]
+        return [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+
+    def check(label, got, want, key):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst[key] = max(worst.get(key, 0.0), err)
+        ok = err <= F32_ATTN_MAX_ABS and got.shape == want.shape and got.dtype == torch.float32
+        log(f"[parity] {label}: max abs err {err:.3e} (tol {F32_ATTN_MAX_ABS:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: K2's f32 body disagrees with its plain version")
+
+    for shape in (ATTN_SHAPE, BIAS_ATTN_SHAPE, DEPTHPRO_ATTN_SHAPE, F32_RAGGED_SHAPE):
+        for views in ((True, False) if shape == ATTN_SHAPE else (True,)):
+            q, k, v = qkv(shape, views)
+            check(f"attention_f32 {list(shape)} {'qkv views' if views else 'contiguous'}",
+                  K2.attention(q, k, v), K2.attention_ref(q, k, v), "attention_f32")
+    del q, k, v
+    # BEiT's layout: query, key and value are three contiguous products
+    for (gh, gw), (B, H) in (((18, 32), (1, 16)), (F32_RAGGED_GRID, (2, 4))):
+        N, R = gh * gw + 1, K2.relative_position_count(gh, gw)
+        q, k, v = qkv((B, N, H, 64), views=False)
+        for tdt in (torch.float32, torch.bfloat16):
+            table = (2.0 * torch.randn(H, R, generator=gen, device=dev)).to(tdt)
+            dense = K2.expand_rel_pos(table, gh, gw)
+            want = K2.attention_ref(q, k, v, dense.float())
+            by_table = K2.attention_relpos(q, k, v, table, gh, gw)
+            by_dense = K2.attention(q, k, v, dense)
+            label = f"{gh}x{gw} [{B},{N},{H},64] + {str(tdt)[6:]} table [{H},{R}]"
+            check(f"attention_relpos_f32 {label}", by_table, want, "attention_relpos_f32")
+            check(f"attention_bias_f32 {label}, expanded", by_dense, want, "attention_bias_f32")
+            if not torch.equal(by_table, by_dense):
+                raise AssertionError(f"{label}: the f32 table entry differs from the f32 dense "
+                                     f"entry on the expanded table")
+    log("[parity] the f32 table entry equals the f32 dense entry on the expanded table, bit "
+        "for bit, at both grids and both table dtypes")
+    info = {}
+    for entry, f32 in (("attention_f32", False), ("attention_bias_f32", False),
+                       ("attention_bias_f32", True), ("attention_relpos_f32", False),
+                       ("attention_relpos_f32", True)):
+        i = K2.kernel_info(entry, f32, BIAS_ATTN_SHAPE[1], K2.relative_position_count(18, 32))
+        info[f"{entry}{' f32 operand' if f32 else ''}"] = i
+        log(f"[kernel] {entry}{' (f32 bias or table)' if f32 else ''} at [1, 577, 16, 64]: "
+            f"{i['registers']} registers, {i['local_bytes']} local (spill) bytes a thread, "
+            f"{i['smem_bytes']} bytes of dynamic shared memory, {i['blocks_per_sm']} resident "
+            f"blocks an SM")
+        if i["local_bytes"] or i["blocks_per_sm"] < 2:
+            raise AssertionError(f"{entry}: spills or fewer than two blocks an SM: {i}")
+
+    def timed(key, shape, label, bias=None, table=None):
+        B, N, H, D = shape
+        q, k, v = qkv(shape, views=bias is None and table is None)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        nbytes, extra = 4 * B * N * H * D * 4, ""
+        if table is not None:
+            gh, gw = table
+            tab = 2.0 * torch.randn(H, K2.relative_position_count(gh, gw), generator=gen,
+                                    device=dev)
+            dense = K2.expand_rel_pos(tab, gh, gw)
+            fns = {"plain": lambda: K2.attention_relpos_ref(q, k, v, tab, gh, gw),
+                   "kernel": lambda: K2.attention_relpos(q, k, v, tab, gh, gw),
+                   "library": lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                     attn_mask=dense[None]),
+                   "dense": lambda: K2.attention(q, k, v, dense),
+                   "unbiased": lambda: K2.attention(q, k, v)}
+            nbytes += tab.numel() * 4
+            extra = f" + f32 table {list(tab.shape)} ({gh}x{gw})"
+        elif bias is not None:
+            dense = 2.0 * torch.randn(H, N, N, generator=gen, device=dev)
+            fns = {"plain": lambda: K2.attention_ref(q, k, v, dense),
+                   "kernel": lambda: K2.attention(q, k, v, dense),
+                   "library": lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                     attn_mask=dense[None])}
+            nbytes += dense.numel() * 4
+            extra = f" + f32 bias {list(dense.shape)}"
+        else:
+            fns = {"plain": lambda: K2.attention_ref(q, k, v),
+                   "kernel": lambda: K2.attention(q, k, v),
+                   "library": lambda: F.scaled_dot_product_attention(qh, kh, vh)}
+        t = time_both(torch, fns)
+        timing[key] = dict(t, shape=f"{list(shape)} f32 {label}{extra}",
+                           bound=bound_ms(policy.name, nbytes, 4 * B * H * N * N * D, "f32"))
+        log_timing(key, timing[key], card)
+        torch.cuda.empty_cache()
+
+    timed("attention_f32", ATTN_SHAPE, "qkv views")
+    timed("attention_f32_depthpro", DEPTHPRO_ATTN_SHAPE, "qkv views (DepthPro's tiles)")
+    timed("attention_bias_f32", BIAS_ATTN_SHAPE, "contiguous", bias=True)
+    timed("attention_relpos_f32", BIAS_ATTN_SHAPE, "contiguous", table=(18, 32))
+    return dict(kernel_info=info, worst={k: worst[k] for k in ("attention_f32",
+                                                                "attention_bias_f32",
+                                                                "attention_relpos_f32")})
+
+
+def fp32_phases(np, torch, programs, counters, card, out_dir, dev, layers, paths):
+    """58. `--fp32` on the card: the CLI flagship for FP32_CLI_SECONDS (24 f32
+    K2 a frame, no bf16 one); DA-V2-Large @518 and dpt-beit-large-512 @512 in
+    f32 on the card against the f32 CPU runs of phases 6 and 31 (their kept
+    models copied to the card, on the same frames); the dense-bias API on the
+    f32 BEiT's tables.  Returns the report
+    and the models, {name: (CPU model, card model, spec)}, for phase 59."""
+    import copy
+
+    from desktop2stereo_tpu_torch.ops.attention import multi_head_attention
+    from desktop2stereo_tpu_torch.ops.kernels import attention as K2
+
+    out, models = {}, {}
+    run = CliRun(counters)
+    rc = run(["--settings", str(cli_settings(out_dir)), "--source", "synthetic",
+              "--size", f"{FRAME_SHAPE[0]}x{FRAME_SHAPE[1]}", "--sink", "null", "--fp32",
+              "--duration", str(FP32_CLI_SECONDS), "--stop-file", str(out_dir / "stop.request"),
+              "--stats-every", "0"])
+    _, program, sink, _ = run.parts
+    eng = run.engine
+    want_shape = (FRAME_SHAPE[0], FRAME_SHAPE[1], 3)
+    dtypes = {p.dtype for p in program.program.model.parameters()}
+    if (rc != 0 or sink.frames < 1 or sink.last_shape != want_shape
+            or program.program.compute_dtype != torch.float32 or dtypes != {torch.float32}
+            or not eng.frames - 1 <= sink.frames + eng.out_box.dropped <= eng.frames):
+        raise AssertionError(f"cli --fp32: rc {rc}, {eng.frames} frames run, {sink.frames} "
+                             f"delivered of shape {sink.last_shape}, compute "
+                             f"{program.program.compute_dtype}, weights {dtypes}")
+    launches = run.check_launches("fp32 flagship", layers, CLI_WARM_FRAMES, f32=True)
+    final = eng.stats_final()
+    fps = eng.frames / run.wall_s
+    log(f"[fp32] python -m desktop2stereo_tpu_torch.cli --settings (DA-V2-Large @518, "
+        f"Half-SBS, Set FPS 1000) --source synthetic --size {FRAME_SHAPE[0]}x{FRAME_SHAPE[1]} "
+        f"--sink null --fp32 --duration {FP32_CLI_SECONDS}: exit {rc}; {eng.frames} frames run "
+        f"({eng.dropped} superseded), {sink.frames} delivered {sink.last_shape}; {fps:.2f} "
+        f"frames/s (the CLI's fps counter {final.fps:.2f}); weights and compute f32, TF32 "
+        f"matmul/cudnn {torch.backends.cuda.matmul.allow_tf32}/"
+        f"{torch.backends.cudnn.allow_tf32}; {card}")
+    out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames, fps=fps,
+                      fps_counter=final.fps, wall_s=run.wall_s, launches=launches)
+    paths["fp32_cli"] = dict(launches=launches["run"], fps=fps)
+
+    for key, name, biased in (("fp32_reference", FLAGSHIP_MODEL, False),
+                              ("fp32_beit_reference", BEIT_MODEL, True)):
+        # phase 6's (31's) f32 CPU model, config, frames and outputs: DA-V2-Large
+        # on one frame, BEiT first and then a step on the carried tables
+        kept = KEPT["f32"].pop(name)
+        cpu_net, spec, cfg, want = kept["net"], kept["spec"], kept["cfg"], kept["want"]
+        res, n_frames = cfg.depth_resolution, len(want)
+        t0 = time.perf_counter()
+        card_net = copy.deepcopy(cpu_net).to(dev)
+        copy_s = time.perf_counter() - t0
+        n = len(card_net.backbone.layer)
+        card_prog = programs.ProgramCache(cfg, card_net, spec, compute_dtype=torch.float32)
+        zero_counts(counters)
+        got = [tuple(t.cpu() for t in card_prog(f)) for f in kept["frames"][:n_frames]]
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        entry = "attention_relpos_f32" if biased else "attention_f32"
+        refs = []
+        for i in range(n_frames):
+            r = ref_stats(torch, name, got[i], want[i])
+            r["ok"] = (r["depth_mean_abs"] <= FP32_REF_DEPTH_MEAN_ABS
+                       and r["sbs_mean_lsb"] <= FP32_REF_SBS_MEAN_LSB
+                       and r["sbs_share_over_32"] <= FP32_REF_SBS_SHARE_OVER_32)
+            refs.append(r)
+            log(f"[fp32] {name} @{res} frame {i}, 216x384, card f32 vs CPU f32: depth mean "
+                f"{r['depth_mean_abs']:.3e} (tol {FP32_REF_DEPTH_MEAN_ABS:.0e}) max "
+                f"{r['depth_max_abs']:.3e}; sbs mean {r['sbs_mean_lsb']:.4f} LSB (tol "
+                f"{FP32_REF_SBS_MEAN_LSB}) max {r['sbs_max_lsb']:.0f}, >32 LSB "
+                f"{r['sbs_share_over_32']:.2e} (tol {FP32_REF_SBS_SHARE_OVER_32:.0e}); the "
+                f"CPU's output from phase {31 if biased else 6}, its model copied to the card "
+                f"in {copy_s:.1f} s {'ok' if r['ok'] else 'FAIL'}")
+        check_counts(f"fp32 {name} reference", counts,
+                     {"attention": n, entry: n, "dibr_pair": 1}, n_frames)
+        if not all(r["ok"] for r in refs):
+            raise AssertionError(f"fp32 {name}: the card's f32 run disagrees with the CPU's")
+        out[key] = dict(frames=refs, launches=counts, copy_s=copy_s)
+        paths[key] = dict(launches=counts)
+        models[name] = (cpu_net, card_net, spec)
+        if not biased:
+            continue
+        # the dense-bias API on the f32 model's carried tables, as phase 31 on
+        # the bf16 one: each expanded table through the f32 dense entry
+        # against the f32 table entry on the same q/k/v
+        (state,) = card_prog._states.values()
+        carry = state.model
+        gen = torch.Generator(device=dev).manual_seed(SEED + 58)
+        H, R = carry[0].shape
+        with torch.inference_mode():
+            q, k, v = (torch.randn(1, 18 * 32 + 1, H, 64, generator=gen, device=dev)
+                       for _ in range(3))
+            dense = [K2.expand_rel_pos(t, 18, 32) for t in carry]
+            zero_counts(counters)
+            by_dense = [multi_head_attention(q, k, v, bias=b) for b in dense]
+            by_table = [multi_head_attention(q, k, v, rel_pos=(t, 18, 32)) for t in carry]
+            torch.cuda.synchronize()
+            api = read_counts(counters)
+        equal = all(torch.equal(a, b) for a, b in zip(by_dense, by_table))
+        ok = equal and R == K2.relative_position_count(18, 32) and all(
+            t.dtype == torch.float32 and t.shape == (H, R) for t in carry)
+        check_counts("fp32 BEiT dense-bias API", api,
+                     {"attention": 2 * n, "attention_bias_f32": n, "attention_relpos_f32": n}, 1)
+        log(f"[fp32] the dense-bias API on the f32 model's {len(carry)} tables "
+            f"{list(carry[0].shape)} {str(carry[0].dtype)[6:]}: the f32 dense entry equals the "
+            f"f32 table entry {'bit for bit' if equal else 'NOT'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("fp32 BEiT: the dense-bias API and the table entry disagree")
+        paths["fp32_beit_dense_api"] = dict(launches=api)
+    return out, models
+
+
+def converter_phase(np, torch, counters, card, dev, models, out_dir, paths):
+    """59. The checkpoint tool: `port_depth` (the gate's pipeline) on the card
+    against the CPU, both f32, on the synthetic 1080p scene for DA-V2-Large
+    @518 and dpt-beit-large-512 @512; `--verify` in a process of its own on
+    phase 20's checkpoint in a hub layout; the jobs that need `transformers`
+    (absent: each exits naming it; present: the gate on a DA-V2-Small random
+    snapshot at 126, on the card)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from desktop2stereo_tpu_torch.core.registry import get_spec
+    from desktop2stereo_tpu_torch.models import safetensors_io
+    from desktop2stereo_tpu_torch.models.convert_hf import convert_vda
+    from desktop2stereo_tpu_torch.tools import convert
+
+    out = {}
+    img = convert._load_image(None)
+    for key, name, res, entry in (("converter_da_v2", FLAGSHIP_MODEL, 518, "attention_f32"),
+                                  ("converter_beit", BEIT_MODEL, BEIT_RES,
+                                   "attention_relpos_f32")):
+        cpu_net, card_net, spec = models[name]
+        n = len(card_net.backbone.layer)
+        t0 = time.perf_counter()
+        want = convert.port_depth(cpu_net, spec, img, res, "cpu")
+        cpu_s = time.perf_counter() - t0
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        got = convert.port_depth(card_net, spec, img, res, dev)
+        card_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+        rel_max = float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-6))
+        rel_mean = float(np.abs(got - want).mean() / max(float(np.abs(want).mean()), 1e-6))
+        ok = (got.shape == want.shape and bool(np.isfinite(got).all())
+              and rel_max < CONVERTER_MAX_REL)
+        log(f"[convert] port_depth {name} @{res} on the synthetic {img.shape[0]}x{img.shape[1]} "
+            f"scene, raw depth {list(got.shape)}: card f32 against CPU f32 rel_err_max "
+            f"{rel_max:.3e} (tol {CONVERTER_MAX_REL:.0e}), rel_err_mean {rel_mean:.3e}; card "
+            f"{card_s:.2f} s, CPU {cpu_s:.2f} s {'ok' if ok else 'FAIL'}; {card}")
+        check_counts(f"convert {name}", counts, {"attention": n, entry: n}, 1)
+        if not ok:
+            raise AssertionError(f"convert {name}: the card's pipeline disagrees with the CPU's")
+        out[key] = dict(rel_err_max=rel_max, rel_err_mean=rel_mean, shape=list(got.shape),
+                        card_s=card_s, cpu_s=cpu_s, launches=counts)
+        paths[key] = dict(launches=counts)
+    del models
+
+    spec = get_spec(CKPT_MODEL)
+    with tempfile.TemporaryDirectory(prefix="d2s_smoke_convert_") as tmp:
+        # phase 20's checkpoint, where the hub cache keeps a snapshot
+        snap = (Path(tmp) / "hub" / f"models--{spec.hf_repo.replace('/', '--')}" / "snapshots"
+                / "smoke")
+        snap.mkdir(parents=True)
+        arrays = vda_original_arrays(np, spec, SEED + 7)
+        safetensors_io.save_file(arrays, snap / "model.safetensors")
+        # the leaves of the converted tree: what the JAX tool's param_count counts
+        leaves = lambda t: (sum(map(leaves, t.values())) if isinstance(t, dict)  # noqa: E731
+                            else int(np.size(t)))
+        params = leaves(convert_vda(arrays, spec))
+        # USE_TF=0: transformers imports no TensorFlow where a host has one
+        env = dict(os.environ, HF_HOME=tmp, HOME=tmp, HF_HUB_OFFLINE="1", USE_TF="0")
+
+        def convert_run(*argv):
+            t0 = time.perf_counter()
+            proc = subprocess.run(CONVERT + list(argv), cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            return proc, time.perf_counter() - t0
+
+        proc, s = convert_run("--model", CKPT_MODEL, "--verify", "--skip-download")
+        want_line = (f"[convert] {CKPT_MODEL}: {snap / 'model.safetensors'} -> "
+                     f"{params / 1e6:.1f}M params OK")
+        ok = proc.returncode == 0 and want_line in proc.stdout
+        log(f"[convert] python -m desktop2stereo_tpu_torch.tools.convert --model {CKPT_MODEL} "
+            f"--verify --skip-download (HF_HOME: a hub layout holding phase 20's checkpoint): "
+            f"exit {proc.returncode} in {s:.1f} s; {proc.stdout.strip().splitlines()[-1:]} "
+            f"(want {params} parameters) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"convert --verify: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        out["verify"] = dict(rc=proc.returncode, seconds=s, params=params)
+
+        snap_dir = Path(tmp) / "snapshot"
+        if importlib.util.find_spec("transformers") is None:
+            jobs = {"--make-random-snapshot": ("--model", GATE_MODEL, "--make-random-snapshot",
+                                               str(snap_dir)),
+                    "--verify-depth": ("--model", GATE_MODEL, "--verify-depth", "--checkpoint",
+                                       str(snap_dir), "--skip-download"),
+                    "--model-path": ("--model-path", str(snap_dir))}
+            with ThreadPoolExecutor(len(jobs)) as pool:
+                runs = dict(zip(jobs, pool.map(lambda a: convert_run(*a), jobs.values())))
+            ok = all(p.returncode != 0 and "transformers" in p.stderr for p, _ in runs.values())
+            for job, (p, s) in runs.items():
+                log(f"[convert] {job} without transformers: exit {p.returncode} in {s:.1f} s, "
+                    f"{p.stderr.strip().splitlines()[-1:]}")
+            if not ok:
+                raise AssertionError("convert: a transformers job did not exit naming it")
+            out["transformers"] = dict(present=False, exits={j: p.returncode
+                                                              for j, (p, _) in runs.items()})
+        else:
+            proc, s = convert_run("--model", GATE_MODEL, "--make-random-snapshot",
+                                  str(snap_dir), "--verify-depth", "--skip-download",
+                                  "--depth-res", str(GATE_RES))
+            verdict = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout else {}
+            ok = proc.returncode == 0 and verdict.get("pass") is True
+            log(f"[convert] the gate on a {GATE_MODEL} random snapshot @{GATE_RES} on the card: "
+                f"exit {proc.returncode} in {s:.1f} s, {verdict} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"convert --verify-depth: {proc.stderr[-2000:]}")
+            out["transformers"] = dict(present=True, verdict=verdict)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "desktop2stereo_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no desktop2stereo_tpu_torch package beside {__file__}; "
@@ -3874,6 +4279,11 @@ def main() -> int:
     from desktop2stereo_tpu_torch.pipeline.engine import FrameEngine
 
     report = {}
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):  # the wall time of the phase group that ends here
+        marks.append((label, time.perf_counter()))
+
     # launch counters by kernel (K1's two entry points share one; read_counts
     # adds K2's dense-bias and table entries as "attention_bias" and
     # "attention_relpos")
@@ -3902,6 +4312,7 @@ def main() -> int:
         f"{name} {s:.2f} s" if s is not None else f"{name} already built"
         for name, s in built.items()) + f" (nvcc in parallel); all loaded in {build_s:.2f} s")
     report["build_s"] = build_s
+    mark("1-2 device and build")
 
     # -- 3. kernel parity ----------------------------------------------------
     worst = {"dibr_pair_half": 0.0, "dibr_pair_eyes": 0.0, "attention": 0.0,
@@ -4260,6 +4671,7 @@ def main() -> int:
     for name, tm in timing.items():
         log_timing(name, tm, card)
     torch.cuda.empty_cache()
+    mark("3-4 kernel parity and times")
 
     # -- 5. flagship path: Half-SBS, fused tail -------------------------------
     t0 = time.perf_counter()
@@ -4311,13 +4723,14 @@ def main() -> int:
     cpu_model, _ = build_bound(FLAGSHIP_MODEL, device="cpu", dtype=torch.float32, seed=SEED)
     refs = {}
 
-    def reference(name, cfg, card_net, cpu_net):
+    def reference(name, cfg, card_net, cpu_net, keep=None):
         card_prog = programs.ProgramCache(cfg, card_net, spec, compute_dtype=policy.compute_dtype)
         cpu_prog = programs.ProgramCache(cfg, cpu_net, spec, compute_dtype=torch.float32)
         refs[name] = reference_check(torch, f"{name}: {cfg.display_mode} {cfg.quality}",
-                                     card_prog, cpu_prog, small_frame)
+                                     card_prog, cpu_prog, small_frame, keep)
 
-    reference("main", flagship_cfg, model, cpu_model)
+    main_want = []
+    reference("main", flagship_cfg, model, cpu_model, main_want)
 
     # -- 7./8. generic tail, high and fast quality ----------------------------
     full_cfg = drive("generic_high", model, "Full-SBS", "high",
@@ -4376,6 +4789,8 @@ def main() -> int:
     pair = [small_frame, synthetic_frames(np, 1, 216, 384, SEED + 8)[0]]
     refs["batched"] = batched_reference(np, torch, programs, "main", flagship_cfg, model,
                                         cpu_model, spec, policy, [pair])
+    KEPT["f32"][FLAGSHIP_MODEL] = dict(net=cpu_model, spec=spec, cfg=flagship_cfg,
+                                       frames=[small_frame], want=main_want)
     del cpu_model
 
     # -- 12. int8 against bf16: one seed, one model input ---------------------
@@ -4520,6 +4935,7 @@ def main() -> int:
             want["K4 quant_matmul"] = 2 * 4 * layers  # the row pass and the product a call
         traces[name] = trace(name, net, spec, flagship_cfg, staging, want)
     report["trace"] = traces
+    mark("5-15 DA-V2-Large paths, references, traces")
     # the weights the multi-GPU phases (52-55) shard, kept on the host
     KEPT["flagship"] = {k: v.cpu() for k, v in model.state_dict().items()}
     KEPT["int8"] = {k: v.cpu() for k, v in model_q.state_dict().items()}
@@ -4531,17 +4947,21 @@ def main() -> int:
         "flagship": cli_flagship(np, counters, layers, card, out_dir),
         "crop": cli_crop(np, torch, counters, layers, card, out_dir),
     }
+    mark("16 the CLI")
 
     # -- 17. VDA flagship: Video-Depth-Anything-Large, 4K Half-SBS ----------
     report["vda"] = vda_phases(np, torch, programs, build_bound, drive, driven, trace, paths,
                                frames, policy, dev, card)
 
     # -- 20. a real-shape checkpoint on the card, and the CLI with it -------
+    mark("17-19 VDA")
     report["checkpoint"] = checkpoint_phase(np, torch, build_bound, counters, dev, card, out_dir)
+    mark("20 checkpoint")
 
     # -- 21-26. the Depth-Anything-3 family at 504 ----------------------------
     report["da3"] = da3_phases(np, torch, programs, build_bound, drive, driven, trace, paths,
                                frames, counters, policy, dev, card, out_dir)
+    mark("21-26 DA3")
 
     # -- 27-29. the remote topology; 30. the control panel ----------------------
     report["remote"] = remote_phases(np, counters, layers, card, out_dir)
@@ -4552,28 +4972,50 @@ def main() -> int:
             f"{report['cli']['flagship']['timed']['fps']:.2f} (phase 16a) in this call; ingest "
             f"{r['ingest_fps']:.2f} fps; the XR client {r['client']['fps']:.2f} frames/s; {card}")
     report["control"] = control_phase(card, out_dir)
+    mark("27-30 remote topology")
 
     # -- 31-37. the classic DPT family ------------------------------------------------
     report["classic_dpt"] = classic_dpt_phases(np, torch, programs, build_bound, drive, driven,
                                                trace, paths, frames, counters, policy, dev,
                                                card, out_dir)
+    mark("31-37 classic DPT")
 
     # -- 38-40. ZoeDepth, DepthPro and InfiniDepth --------------------------------------------
     report["last_families"] = last_families_phases(np, torch, F, programs, build_bound, drive,
                                                    driven, trace, paths, frames, counters,
                                                    policy, dev, card, out_dir, timing, worst)
+    mark("38-40 ZoeDepth, DepthPro, InfiniDepth")
 
     # -- 41-48. multi-stream serving, the profiler and the build tools ---------------
     report["multi"] = multi_stream_phases(np, torch, programs, build_bound, counters, frames,
                                           policy, dev, card, out_dir, timing, worst)
     multi = report["multi"]["paths"]
+    mark("41-48 multi-stream and tools")
 
     # -- 49-51. the XR client: render at 4K, end to end, the self-test -------------
     report["xr_client"] = xr_client_phases(np, torch, counters, card, out_dir, dev)
+    mark("49-51 XR client")
 
     # -- 52-56. the multi-GPU path: TP, TP int8, DP, TP + SP on the giant -----------
     report["parallel"] = parallel_phases(np, torch, F, K2, K4, card, dev, policy, timing, worst)
     par = report["parallel"]["launches"]
+    mark("52-56 the multi-GPU path")
+
+    # -- 57. K2 in f32; 58. `--fp32` on the card; 59. the checkpoint tool -----------
+    report["k2_f32"] = k2_f32_phase(np, torch, F, K2, card, dev, policy, timing, worst)
+    mark("57 K2 in f32")
+    report["fp32"], f32_models = fp32_phases(np, torch, programs, counters, card, out_dir, dev,
+                                             layers, paths)
+    mark("58 --fp32")
+    report["convert"] = converter_phase(np, torch, counters, card, dev, f32_models, out_dir,
+                                        paths)
+    del f32_models
+    mark("59 the checkpoint tool")
+    report["phase_seconds"] = {label: round(b - a, 1) for (_, a), (label, b)
+                               in zip(marks, marks[1:])}
+    log("[time] wall s by phase group: " + ", ".join(
+        f"{k} {v}" for k, v in report["phase_seconds"].items())
+        + f"; in all {marks[-1][1] - marks[0][1]:.1f} s")
 
     def entry(name, source, replaces, key, by_path):
         """`launches` sums the runs in `by_path` (path → that run's count,
@@ -4626,6 +5068,16 @@ def main() -> int:
               "attention_relpos", {**launches("attention_relpos", "beit", "beit_int8",
                                               "zoedepth"),
                                    **multi_launches("attention_relpos", "batched_beit")}),
+        # K2's f32 body: `--fp32` (the CLI and the small-frame references) and
+        # the converter's pipeline (phases 58-59)
+        entry("attention_f32", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_f32", launches("attention_f32", "fp32_cli", "fp32_reference",
+                                        "converter_da_v2")),
+        entry("attention_bias_f32", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_bias_f32", launches("attention_bias_f32", "fp32_beit_dense_api")),
+        entry("attention_relpos_f32", csrc + "attention.cu", pallas + "flash_attention.py:79",
+              "attention_relpos_f32", launches("attention_relpos_f32", "fp32_beit_reference",
+                                               "fp32_beit_dense_api", "converter_beit")),
         entry("warp", csrc + "warp.cu", pallas + "warp.py:93", "warp",
               {**launches("warp", "generic_fast"),
                **multi_launches("warp", "batched_generic_fast")}),

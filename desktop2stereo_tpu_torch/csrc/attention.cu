@@ -190,6 +190,31 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0, uint32_t a
 __device__ __forceinline__ float bias_at(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 __device__ __forceinline__ float bias_at(const float* p) { return __ldg(p); }
 
+// BEiT's relative-position index in its closed form (see the header), shared
+// by the bf16 and f32 table entries.  b_j for key c: 0 for the cls key and for
+// keys >= n (masked anyway).
+__device__ __forceinline__ int relpos_key_offset(int c, int n, int gw) {
+  if (c < 1 || c >= n) return 0;
+  const int y = (c - 1) / gw;
+  return y * (2 * gw - 1) + (c - 1 - y * gw);
+}
+
+// For query row `row` < n: a_i, its multiplier m_i (0 on the cls row, whose
+// patch keys all take R-3) and idx(i, 0), the entry of key 0.
+__device__ __forceinline__ void relpos_row(int row, int gh, int gw, int r_entries, int& a, int& m,
+                                           int& c0) {
+  if (row == 0) {
+    a = r_entries - 3;
+    m = 0;
+    c0 = r_entries - 1;
+  } else {
+    const int y = (row - 1) / gw;
+    a = (y + gh - 1) * (2 * gw - 1) + (row - 1 - y * gw) + gw - 1;
+    m = 1;
+    c0 = r_entries - 2;
+  }
+}
+
 // The kernel body.  BiasT: void (no bias), __nv_bfloat16 or float: a
 // contiguous [heads, n, n] bias, or with kRelPos a contiguous [heads, r]
 // table for a gh x gw grid.
@@ -268,28 +293,11 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap& qmap, const CUt
     const BiasT* trow = bias + static_cast<long long>(h) * r_entries;
 #pragma unroll 4
     for (int t = threadIdx.x; t < r_entries; t += 128) tab_s[t] = bias_at(trow + t) * LOG2E;
-    const int w2 = 2 * gw - 1;
-    for (int c = threadIdx.x; c < ntiles * BKV; c += 128) {
-      int off = 0;
-      if (c >= 1 && c < n) {
-        const int y = (c - 1) / gw;
-        off = y * w2 + (c - 1 - y * gw);
-      }
-      key_s[c] = off;
-    }
+    for (int c = threadIdx.x; c < ntiles * BKV; c += 128) key_s[c] = relpos_key_offset(c, n, gw);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = min(q0 + (warp % 4) * 16 + lane / 4 + 8 * r, n - 1);
-      if (row == 0) {
-        a_row[r] = r_entries - 3;
-        c0_row[r] = r_entries - 1;
-      } else {
-        const int y = (row - 1) / gw;
-        a_row[r] = (y + gh - 1) * w2 + (row - 1 - y * gw) + gw - 1;
-        m_row[r] = 1;
-        c0_row[r] = r_entries - 2;
-      }
-    }
+    for (int r = 0; r < 2; ++r)
+      relpos_row(min(q0 + (warp % 4) * 16 + lane / 4 + 8 * r, n - 1), gh, gw, r_entries, a_row[r],
+                 m_row[r], c0_row[r]);
     consumer_sync();
   }
 
@@ -550,25 +558,299 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* bia
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers, local (spill) bytes, dynamic shared memory and resident blocks
-// an SM of one instance at n tokens (and r table entries).
-template <typename BiasT, bool kRelPos>
-int info(int n, int r, int* out) {
-  const cudaError_t attr = prepare<BiasT, kRelPos>();
+// out[4]: registers, local (spill) bytes a thread, dynamic shared memory and
+// resident blocks an SM of kernel `fn` launched with `threads` and `smem`.
+int kernel_report(cudaError_t attr, const void* fn, int threads, size_t smem, int* out) {
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, kernel_entry<BiasT, kRelPos>());
+  cudaError_t e = cudaFuncGetAttributes(&fa, fn);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = kRelPos ? relpos_smem(n, r) : SMEM;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_entry<BiasT, kRelPos>(),
-                                                    THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.localSizeBytes);
   out[2] = static_cast<int>(smem);
   out[3] = blocks;
   return 0;
+}
+
+// The report of one instance at n tokens (and r table entries).
+template <typename BiasT, bool kRelPos>
+int info(int n, int r, int* out) {
+  return kernel_report(prepare<BiasT, kRelPos>(), kernel_entry<BiasT, kRelPos>(), THREADS,
+                       kRelPos ? relpos_smem(n, r) : SMEM, out);
+}
+
+
+// ---- The float32 entries ---------------------------------------------------------------
+//
+// softmax(Q K^T / sqrt(64) + bias) V in true f32 for f32 q/k/v (`--fp32`, the
+// converter's gate): FMA on the CUDA cores, no TF32 and no wgmma, so the
+// result is the plain f32 version's up to summation order.  The same three
+// bias modes as the bf16 entries: none, a dense [heads, n, n] bias (bf16 or
+// f32), or BEiT's [heads, r] table through the closed-form index above.
+//
+// Grid: (ceil(n / F_ROWS) query tiles, batch * heads).  A block of 128
+// threads owns 32 query rows of one (batch, head), four threads (a quad) a
+// row.  Lane `sub` of a quad holds 16 of the 64 dims of its row's q and of
+// its output accumulator in registers: the float4 chunks sub, sub + 4,
+// sub + 8 and sub + 12, so that in each step the quad's four lanes read 16
+// consecutive float4 of one K or V row (no bank conflict) and the eight
+// quads of a warp read the same addresses (broadcast).  K and V tiles of 64
+// keys are staged in shared memory by cp.async, two stages, the next tile in
+// flight while this one is used (rows >= n arrive as zeros).  For each step
+// of 16 keys a lane forms a partial dot product a key, the quad sums them
+// with two shuffles (every lane then holds the same f32 logits), the logits
+// are scaled (and biased) into log2 units as in the bf16 entries, and the
+// online softmax (running max and sum, rescaled accumulator) runs in f32 with
+// exp2f; then 16 FMAs a key fold P.V into the accumulator.  The output is a
+// fresh contiguous [batch, n, heads, 64] f32 tensor.
+//
+// Strides: no tensor map, so a zero stride is allowed; each row is read as
+// float4, so the pointers must be 16-byte aligned and every stride a
+// multiple of 4 elements (the entries refuse anything else), with the head
+// dim contiguous.
+//
+// What bounds it on the H100: 4 * n^2 * 64 FLOP a (batch, head) at the f32
+// CUDA-core peak (67 TFLOP/s): 0.037 ms at [1, 778, 16, 64].  A lane spends
+// one shared load (a broadcast float4) on four FMAs and two shuffles a key
+// on 32, so shared-memory and instruction throughput, not HBM, set its time.  It
+// is a simple first version (PERF.md holds its times); a lane holding two
+// rows would halve the shared loads per FMA.
+
+constexpr int F_ROWS = 32;                      // query rows a block
+constexpr int F_THREADS = 4 * F_ROWS;           // a quad a row
+constexpr int F_KT = 64;                        // keys a K/V tile
+constexpr int F_KB = 16;                        // keys an online-softmax step
+constexpr int F_STAGE = 2 * F_KT * HD;          // floats of a stage: its K and V tiles
+constexpr size_t F_SMEM = 2 * F_STAGE * sizeof(float);  // two stages: 64 KB
+
+// The f32 table entry's dynamic shared memory: the two stages, then the
+// head's table row (f32, R rounded up to 4) and every key's offset b_j.
+size_t relpos_smem_f32(int n, int r) {
+  return F_SMEM + (static_cast<size_t>(r) + 3) / 4 * 16 +
+         static_cast<size_t>((n + F_KT - 1) / F_KT) * F_KT * 4;
+}
+
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// BiasT: void (no bias), __nv_bfloat16 or float: a contiguous [heads, n, n]
+// bias, or with kRelPos a contiguous [heads, r] table for a gh x gw grid.
+// No launch bounds: with the block size alone ptxas holds the biased
+// instances to 128 registers (for a fourth block) and spills, and with two
+// blocks an SM stated it takes more registers than it needs; left free it
+// spills nothing and keeps three blocks an SM (two with a table's staging).
+template <typename BiasT, bool kRelPos>
+__global__ void attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v, float* __restrict__ o,
+                                     long long q_sb, long long q_sn, long long q_sh,
+                                     long long k_sb, long long k_sn, long long k_sh,
+                                     long long v_sb, long long v_sn, long long v_sh,
+                                     const BiasT* __restrict__ bias, int n, int heads,
+                                     float scale_log2, int r_entries, int gh, int gw) {
+  constexpr bool kBias = !std::is_void<BiasT>::value;
+  extern __shared__ __align__(16) float f_smem[];
+  float* tab_s = f_smem + 2 * F_STAGE;                                   // kRelPos
+  int* key_s = reinterpret_cast<int*>(tab_s + ((r_entries + 3) & ~3));  // kRelPos
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int sub = threadIdx.x & 3;
+  const int qrow = blockIdx.x * F_ROWS + threadIdx.x / 4;
+  const int row = min(qrow, n - 1);  // rows >= n compute row n-1 and store nothing
+  const int ntiles = (n + F_KT - 1) / F_KT;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+
+  // tile t's K and V rows into stage t & 1: 16 float4 a row, 1024 a tile
+  auto load_tile = [&](int t) {
+    float* st = f_smem + (t & 1) * F_STAGE;
+#pragma unroll
+    for (int i = 0; i < F_KT * HD / 4 / F_THREADS; ++i) {
+      const int e = threadIdx.x + i * F_THREADS;
+      const int key = e / (HD / 4), c = 4 * (e % (HD / 4));
+      const int j = t * F_KT + key;
+      const long long jr = j < n ? j : 0;
+      cp_async_16(st + key * HD + c, kb + jr * k_sn + c, j < n);
+      cp_async_16(st + F_KT * HD + key * HD + c, vb + jr * v_sn + c, j < n);
+    }
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  float qr[16];
+  const float* qp = q + b * q_sb + row * q_sn + h * q_sh + 4 * sub;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(qp + 16 * i);
+    qr[4 * i] = t.x;
+    qr[4 * i + 1] = t.y;
+    qr[4 * i + 2] = t.z;
+    qr[4 * i + 3] = t.w;
+  }
+
+  // The table entry: the head's row (times log2(e)) and every key's b_j,
+  // visible after the first tile's barrier; a_i, m_i and idx(i, 0) of the row.
+  int a_row = 0, m_row = 0, c0_row = 0;
+  if constexpr (kRelPos) {
+    const BiasT* trow = bias + static_cast<long long>(h) * r_entries;
+    for (int t = threadIdx.x; t < r_entries; t += F_THREADS) tab_s[t] = bias_at(trow + t) * LOG2E;
+    for (int c = threadIdx.x; c < ntiles * F_KT; c += F_THREADS)
+      key_s[c] = relpos_key_offset(c, n, gw);
+    relpos_row(row, gh, gw, r_entries, a_row, m_row, c0_row);
+  }
+  const BiasT* brow = nullptr;
+  if constexpr (kBias && !kRelPos) brow = bias + (static_cast<long long>(h) * n + row) * n;
+
+  float acc[16];
+#pragma unroll
+  for (int d = 0; d < 16; ++d) acc[d] = 0.0f;
+  float m_run = -INFINITY;  // running max of the log2-unit logits
+  float l_run = 0.0f;       // running sum of their exp2
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* k_t = f_smem + (t & 1) * F_STAGE;
+    const float* v_t = k_t + F_KT * HD;
+    // steps of F_KB keys; each one starts below n, so it holds a key < n
+    for (int jb = 0; jb < F_KT && t * F_KT + jb < n; jb += F_KB) {
+      float s[F_KB];
+#pragma unroll
+      for (int jj = 0; jj < F_KB; ++jj) {
+        const float4* kr = reinterpret_cast<const float4*>(k_t + (jb + jj) * HD) + sub;
+        float x = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 kv = kr[4 * i];
+          x = fmaf(qr[4 * i], kv.x, x);
+          x = fmaf(qr[4 * i + 1], kv.y, x);
+          x = fmaf(qr[4 * i + 2], kv.z, x);
+          x = fmaf(qr[4 * i + 3], kv.w, x);
+        }
+        s[jj] = x;
+      }
+      float mx = m_run;
+#pragma unroll
+      for (int jj = 0; jj < F_KB; ++jj) {
+        float x = s[jj];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const int key = t * F_KT + jb + jj;
+        if constexpr (kRelPos) {  // s' = s * scale * log2(e) + T[idx] * log2(e)
+          const int idx = key == 0 ? c0_row : a_row - m_row * key_s[key];
+          x = fmaf(x, scale_log2, tab_s[idx]);
+        } else if constexpr (kBias) {  // s' = s * scale * log2(e) + bias * log2(e)
+          x = fmaf(x, scale_log2, key < n ? bias_at(brow + key) * LOG2E : 0.0f);
+        } else {
+          x *= scale_log2;
+        }
+        s[jj] = key < n ? x : -INFINITY;
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float alpha = exp2f(m_run - mx);  // 0 on the first step
+      m_run = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < F_KB; ++jj) {
+        s[jj] = exp2f(s[jj] - mx);
+        sum += s[jj];
+      }
+      l_run = fmaf(l_run, alpha, sum);
+#pragma unroll
+      for (int d = 0; d < 16; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < F_KB; ++jj) {
+        const float4* vr = reinterpret_cast<const float4*>(v_t + (jb + jj) * HD) + sub;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 vv = vr[4 * i];
+          acc[4 * i] = fmaf(s[jj], vv.x, acc[4 * i]);
+          acc[4 * i + 1] = fmaf(s[jj], vv.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(s[jj], vv.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(s[jj], vv.w, acc[4 * i + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for tile t + 2
+  }
+
+  if (qrow >= n) return;
+  const float inv_l = 1.0f / l_run;
+  float* dst = o + ((static_cast<long long>(b) * n + qrow) * heads + h) * HD + 4 * sub;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(dst + 16 * i) = make_float4(
+        acc[4 * i] * inv_l, acc[4 * i + 1] * inv_l, acc[4 * i + 2] * inv_l, acc[4 * i + 3] * inv_l);
+}
+
+template <typename BiasT, bool kRelPos>
+const void* f32_kernel_entry() {
+  return reinterpret_cast<const void*>(attention_f32_kernel<BiasT, kRelPos>);
+}
+
+// Sets the instance's shared-memory limit and carveout once; its result thereafter.
+template <typename BiasT, bool kRelPos>
+cudaError_t prepare_f32() {
+  static const cudaError_t attr = [] {
+    const void* fn = f32_kernel_entry<BiasT, kRelPos>();
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM_MAX));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  return attr;
+}
+
+bool f32_operand_ok(const void* p, const long long* st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (st[0] | st[1] | st[2]) % 4 == 0;
+}
+
+// Launches the f32 instance; `bias` is the dense bias or the table, `r`,
+// `gh` and `gw` the table's (0 otherwise).
+template <typename BiasT, bool kRelPos>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const void* bias, int batch,
+               int n, int heads, const long long* qs, const long long* ks, const long long* vs,
+               float scale, int r, int gh, int gw, void* stream) {
+  const cudaError_t attr = prepare_f32<BiasT, kRelPos>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem = kRelPos ? relpos_smem_f32(n, r) : F_SMEM;
+  if (smem > SMEM_MAX || n < 1 || batch * heads > 65535 || !f32_operand_ok(q, qs) ||
+      !f32_operand_ok(k, ks) || !f32_operand_ok(v, vs) || reinterpret_cast<uintptr_t>(o) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + F_ROWS - 1) / F_ROWS, batch * heads);
+  attention_f32_kernel<BiasT, kRelPos><<<grid, F_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+      static_cast<const BiasT*>(bias), n, heads, scale * LOG2E, r, gh, gw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As `info`, for an f32 instance.
+template <typename BiasT, bool kRelPos>
+int info_f32(int n, int r, int* out) {
+  return kernel_report(prepare_f32<BiasT, kRelPos>(), f32_kernel_entry<BiasT, kRelPos>(),
+                       F_THREADS, kRelPos ? relpos_smem_f32(n, r) : F_SMEM, out);
 }
 
 }  // namespace
@@ -626,10 +908,53 @@ int d2s_attention_relpos_fwd(const void* q, const void* k, const void* v, void* 
                                                  scale, r, gh, gw, stream);
 }
 
+// The f32 entries: as d2s_attention_fwd, d2s_attention_bias_fwd and
+// d2s_attention_relpos_fwd, for f32 q/k/v (16-byte aligned pointers,
+// strides in multiples of 4 elements) and a contiguous f32 output.
+int d2s_attention_f32_fwd(const void* q, const void* k, const void* v, void* o, int batch, int n,
+                          int heads, long long q_sb, long long q_sn, long long q_sh,
+                          long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+                          long long v_sn, long long v_sh, float scale, void* stream) {
+  const long long qs[3] = {q_sb, q_sn, q_sh}, ks[3] = {k_sb, k_sn, k_sh},
+                  vs[3] = {v_sb, v_sn, v_sh};
+  return launch_f32<void, false>(q, k, v, o, nullptr, batch, n, heads, qs, ks, vs, scale, 0, 0, 0,
+                                 stream);
+}
+
+int d2s_attention_bias_f32_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                               int n, int heads, long long q_sb, long long q_sn, long long q_sh,
+                               long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+                               long long v_sn, long long v_sh, float scale, const void* bias,
+                               int bias_f32, void* stream) {
+  const long long qs[3] = {q_sb, q_sn, q_sh}, ks[3] = {k_sb, k_sn, k_sh},
+                  vs[3] = {v_sb, v_sn, v_sh};
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return bias_f32 ? launch_f32<float, false>(q, k, v, o, bias, batch, n, heads, qs, ks, vs, scale,
+                                             0, 0, 0, stream)
+                  : launch_f32<__nv_bfloat16, false>(q, k, v, o, bias, batch, n, heads, qs, ks,
+                                                     vs, scale, 0, 0, 0, stream);
+}
+
+int d2s_attention_relpos_f32_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                                 int n, int heads, long long q_sb, long long q_sn, long long q_sh,
+                                 long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+                                 long long v_sn, long long v_sh, float scale, const void* table,
+                                 int table_f32, int r, int gh, int gw, void* stream) {
+  const long long qs[3] = {q_sb, q_sn, q_sh}, ks[3] = {k_sb, k_sn, k_sh},
+                  vs[3] = {v_sb, v_sn, v_sh};
+  if (table == nullptr || gh < 1 || gw < 1 || n != gh * gw + 1 ||
+      r != (2 * gh - 1) * (2 * gw - 1) + 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return table_f32 ? launch_f32<float, true>(q, k, v, o, table, batch, n, heads, qs, ks, vs,
+                                             scale, r, gh, gw, stream)
+                   : launch_f32<__nv_bfloat16, true>(q, k, v, o, table, batch, n, heads, qs, ks,
+                                                     vs, scale, r, gh, gw, stream);
+}
+
 // out[4] = registers a thread, local bytes a thread (spills), dynamic shared
 // memory bytes and resident blocks an SM, for entry 0 (no bias), 1 (dense
-// bias) or 2 (table) with a bf16 (f32 = 0) or f32 operand, at n tokens and r
-// table entries.
+// bias) or 2 (table) of the bf16 kernel, or 3, 4 or 5 of the f32 one, with a
+// bf16 (f32 = 0) or f32 bias or table, at n tokens and r table entries.
 int d2s_attention_info(int entry, int f32, int n, int r, int* out) {
   switch (entry * 2 + (f32 != 0)) {
     case 0:
@@ -643,6 +968,17 @@ int d2s_attention_info(int entry, int f32, int n, int r, int* out) {
       return info<__nv_bfloat16, true>(n, r, out);
     case 5:
       return info<float, true>(n, r, out);
+    case 6:
+    case 7:
+      return info_f32<void, false>(n, r, out);
+    case 8:
+      return info_f32<__nv_bfloat16, false>(n, r, out);
+    case 9:
+      return info_f32<float, false>(n, r, out);
+    case 10:
+      return info_f32<__nv_bfloat16, true>(n, r, out);
+    case 11:
+      return info_f32<float, true>(n, r, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -694,3 +694,17 @@ def convert_infinidepth(state_dict: Any, spec: ModelSpec) -> Params:
     head: Params = {"mlp_0": _linear(sd, hp + "0"), "mlp_1": _linear(sd, hp + "2"),
                     "mlp_2": _linear(sd, hp + "4"), "mlp_out": _linear(sd, hp + "6")}
     return {"backbone": backbone, "basic_encoder": basic, "head": head}
+
+
+def param_count(model: Any) -> int:
+    """The elements of a built model's weights: the counterpart of the JAX
+    package's `param_count(params)` on the same registry model.  It counts
+    the state dict, every parameter and persistent buffer once: the leaves
+    of the JAX tree that `from_flax` loads, QuantLinear's `weight_q`, `scale`
+    and `bias` buffers included (the JAX QuantDense's `kernel_q`, `scale`
+    and `bias`).  Left out are non-persistent buffers and the per-shape
+    caches (RoPE tables, BEiT's interpolated relative-position tables, the
+    resize tables): they are derived at run time and no JAX leaf holds
+    them."""
+    seen = {id(t): t for t in model.state_dict(keep_vars=True).values()}
+    return sum(int(t.numel()) for t in seen.values())

@@ -1,12 +1,22 @@
 """Attention kernel (csrc/attention.cu) and its plain version.
 
 Replaces `desktop2stereo_tpu/ops/pallas/flash_attention.py:flash_attention`.
-Layout [B, N, H, hd] as in the JAX package.  The kernel takes bf16 q/k/v with
-hd = 64, a contiguous head dim and 16-byte aligned rows, reading q/k/v
-through their strides by TMA (the views of a fused qkv projection need no
-copy), and returns a fresh contiguous bf16 [B, N, H, 64].  An additive bias,
-shared by the batch and added to the scaled logits before the softmax, takes
-one of two entry points:
+Layout [B, N, H, hd] as in the JAX package, hd = 64 with a contiguous head
+dim; q/k/v are read through their strides (the views of a fused qkv
+projection need no copy), and the result is a fresh contiguous [B, N, H, 64]
+in q's dtype.  The kernel has two bodies, chosen by q's dtype:
+
+- bf16 q/k/v: TMA + wgmma (16-byte aligned rows, no zero stride: a TMA
+  tensor map takes none), f32 logits and softmax, bf16 probabilities;
+- f32 q/k/v (`--fp32`, the converter's gate): SIMT FMA on the CUDA cores in
+  true f32, no TF32 and no wgmma (16-byte aligned pointers and strides in
+  multiples of 4 elements, since rows are read as float4; a zero stride is
+  fine, as there is no tensor map), its own three `*_f32_fwd` entries.
+
+There is no cast between the two: an f32 call on CUDA runs the f32 body or
+raises, and any other dtype raises.  An additive bias, shared by the batch
+and added to the scaled logits before the softmax, takes one of two entry
+points of either body:
 
 - `attention(q, k, v, bias)`: a dense contiguous [H, N, N] bias in bf16 or
   f32 (`d2s_attention_bias_fwd`, the counterpart of the JAX package's
@@ -43,6 +53,12 @@ BIAS_DTYPES = (torch.bfloat16, torch.float32)
 _BQ, _BKV, _STAGES = 64, 128, 2
 RELPOS_SMEM_BASE = 1024 + _BQ * HEAD_DIM * 2 + 2 * _STAGES * _BKV * HEAD_DIM * 2 + 48
 SMEM_MAX = 232448
+# The f32 body's (csrc/attention.cu relpos_smem_f32): two stages of a 64-key
+# K and V tile in f32, then the table row and every key's offset.
+_F_KT = 64
+RELPOS_F32_SMEM_BASE = 2 * 2 * _F_KT * HEAD_DIM * 4
+
+QKV_DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QKV = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float]
@@ -50,10 +66,14 @@ KERNEL = CudaLibrary("attention.cu", {
     "d2s_attention_fwd": _QKV + [_P],
     "d2s_attention_bias_fwd": _QKV + [_P, _I, _P],
     "d2s_attention_relpos_fwd": _QKV + [_P, _I, _I, _I, _I, _P],
+    "d2s_attention_f32_fwd": _QKV + [_P],
+    "d2s_attention_bias_f32_fwd": _QKV + [_P, _I, _P],
+    "d2s_attention_relpos_f32_fwd": _QKV + [_P, _I, _I, _I, _I, _P],
     "d2s_attention_info": [_I, _I, _I, _I, _P],
 })
 
-ENTRIES = {"attention": 0, "attention_bias": 1, "attention_relpos": 2}
+ENTRIES = {"attention": 0, "attention_bias": 1, "attention_relpos": 2,
+           "attention_f32": 3, "attention_bias_f32": 4, "attention_relpos_f32": 5}
 
 
 # ---- BEiT's relative-position index ------------------------------------------------------
@@ -99,8 +119,11 @@ def expand_rel_pos(table: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
     return table[:, _index_on(gh, gw, table.device)].reshape(table.shape[0], n, n)
 
 
-def relpos_smem_bytes(n: int, r: int) -> int:
-    """The table entry's dynamic shared memory for N tokens and R entries."""
+def relpos_smem_bytes(n: int, r: int, f32: bool = False) -> int:
+    """The table entry's dynamic shared memory for N tokens and R entries,
+    of the bf16 body or (`f32`) the f32 one."""
+    if f32:
+        return RELPOS_F32_SMEM_BASE + -(-r // 4) * 16 + -(-n // _F_KT) * _F_KT * 4
     return RELPOS_SMEM_BASE + -(-r // 4) * 16 + -(-n // _BKV) * _BKV * 4
 
 
@@ -139,17 +162,22 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention kernel needs head dim {HEAD_DIM}, "
                          f"got {q.shape[-1]}")
     B, N, H, _ = q.shape
+    if q.dtype not in QKV_DTYPES or {k.dtype, v.dtype} != {q.dtype}:
+        raise ValueError(f"attention kernel needs bf16 or f32 q/k/v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    f32 = q.dtype == torch.float32
+    # 16-byte aligned rows: the bf16 body's TMA boxes and the f32 body's
+    # float4 loads; only a TMA tensor map refuses a zero stride
+    per_row = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         sb, sn, sh, sd = t.stride()
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel needs bf16 {name}, got {t.dtype}")
         if sd != 1:
             raise ValueError(f"attention kernel needs a contiguous head dim "
                              f"for {name}, strides {t.stride()}")
-        if (sb | sn | sh) % 8 or t.data_ptr() % 16:
+        if (sb | sn | sh) % per_row or t.data_ptr() % 16:
             raise ValueError(f"attention kernel needs 16-byte aligned rows for "
                              f"{name}: strides {t.stride()}, ptr {t.data_ptr()}")
-        if (sb == 0 < B - 1) or (sn == 0 < N - 1) or (sh == 0 < H - 1):
+        if not f32 and ((sb == 0 < B - 1) or (sn == 0 < N - 1) or (sh == 0 < H - 1)):
             raise ValueError(f"attention kernel needs distinct rows for {name} (a TMA "
                              f"tensor map takes no zero stride): strides {t.stride()}")
     if q.shape[1] == 0 or q.shape[0] * q.shape[2] > 65535:
@@ -177,9 +205,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not table.is_contiguous() or table.data_ptr() % 16:
             raise ValueError(f"attention kernel needs a contiguous, 16-byte aligned table: "
                              f"strides {table.stride()}, ptr {table.data_ptr()}")
-        if relpos_smem_bytes(N, R) > SMEM_MAX:
+        if relpos_smem_bytes(N, R, f32) > SMEM_MAX:
             raise ValueError(f"attention kernel: a {gh}x{gw} grid's table ({R} entries) and "
-                             f"key offsets take {relpos_smem_bytes(N, R)} bytes of shared "
+                             f"key offsets take {relpos_smem_bytes(N, R, f32)} bytes of shared "
                              f"memory, over the {SMEM_MAX}-byte budget of one block")
 
 
@@ -209,13 +237,15 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B,N,H,hd] (+ bias [H,N,N]) → [B,N,H,hd].  CPU tensors take
-    `attention_ref`; CUDA tensors take the kernel or raise."""
+    `attention_ref`; CUDA tensors take the kernel's body for q's dtype (bf16
+    or f32) or raise."""
     if _on_cpu("attention", *((q, k, v) if bias is None else (q, k, v, bias))):
         return attention_ref(q, k, v, bias)
     check_inputs(q, k, v, bias)
+    f32 = "_f32" if q.dtype == torch.float32 else ""
     if bias is None:
-        return _launch("d2s_attention_fwd", q, k, v)
-    return _launch("d2s_attention_bias_fwd", q, k, v, bias.data_ptr(),
+        return _launch(f"d2s_attention{f32}_fwd", q, k, v)
+    return _launch(f"d2s_attention_bias{f32}_fwd", q, k, v, bias.data_ptr(),
                    int(bias.dtype == torch.float32))
 
 
@@ -228,14 +258,16 @@ def attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, table: t
     if _on_cpu("attention_relpos", q, k, v, table):
         return attention_relpos_ref(q, k, v, table, gh, gw)
     check_inputs(q, k, v, rel_pos=(table, gh, gw))
-    return _launch("d2s_attention_relpos_fwd", q, k, v, table.data_ptr(),
+    f32 = "_f32" if q.dtype == torch.float32 else ""
+    return _launch(f"d2s_attention_relpos{f32}_fwd", q, k, v, table.data_ptr(),
                    int(table.dtype == torch.float32), table.shape[1], gh, gw)
 
 
 def kernel_info(entry: str, f32: bool = False, n: int = 0, r: int = 0) -> dict:
     """Registers and local (spill) bytes a thread, dynamic shared memory and
-    resident blocks an SM of one kernel instance (`entry` one of ENTRIES;
-    `f32` the bias's or table's dtype), at n tokens and r table entries.
+    resident blocks an SM of one kernel instance (`entry` one of ENTRIES,
+    the `*_f32` ones the f32 body's; `f32` the bias's or table's dtype), at
+    n tokens and r table entries.
     Needs the card: it builds and loads the library."""
     out = (ctypes.c_int * 4)()
     code = KERNEL.lib.d2s_attention_info(ENTRIES[entry], int(f32), n, r, out)

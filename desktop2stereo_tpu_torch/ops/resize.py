@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["resize", "resize_weights", "resize_halved", "patch_aligned_size"]
+__all__ = ["resize", "resize_weights", "resize_halved", "patch_aligned_size",
+           "resize_patch_aligned"]
 
 
 def _cubic_kernel(x: np.ndarray, a: float) -> np.ndarray:
@@ -215,3 +216,15 @@ def patch_aligned_size(h: int, w: int, target: int, patch: int) -> Tuple[int, in
         return up if abs(up - v) <= abs(v - down) else down
 
     return max(patch, nearest_multiple(sh, patch)), max(patch, nearest_multiple(sw, patch))
+
+
+def resize_patch_aligned(x: torch.Tensor, target: int, patch: int,
+                         antialias: bool = True) -> torch.Tensor:
+    """Aspect-preserving longest-side resize to `target`, each side snapped
+    to the patch grid, in one bicubic pass (antialiased, the reference's
+    CUDA path); NHWC / HWC.  `x` unchanged where the size already fits."""
+    h, w = x.shape[-3], x.shape[-2]
+    nh, nw = patch_aligned_size(h, w, target, patch)
+    if (nh, nw) == (h, w):
+        return x
+    return resize(x, (nh, nw), mode="bicubic", antialias=antialias)

@@ -60,7 +60,7 @@ def _bf16(shape):
 @pytest.mark.parametrize("case,match", [
     (lambda: (_bf16((1, 8, 2, 32)),) * 3, "head dim 64"),
     (lambda: (_bf16((1, 8, 2, 64)), _bf16((1, 9, 2, 64)), _bf16((1, 8, 2, 64))), "equal"),
-    (lambda: (torch.zeros(1, 8, 2, 64),) * 3, "bf16"),
+    (lambda: (torch.zeros(1, 8, 2, 64, dtype=torch.float16),) * 3, "bf16 or f32"),
     (lambda: (_bf16((1, 8, 64, 2)).transpose(-1, -2),) * 3, "contiguous head dim"),
     (lambda: (_bf16((1, 8, 2, 66))[..., :64],) * 3, "aligned"),
     (lambda: (_bf16((1, 1, 2, 64)).expand(1, 8, 2, 64),) * 3, "zero stride"),
@@ -73,6 +73,72 @@ def test_kernel_input_checks_raise(case, match):
 def test_kernel_input_checks_accept_qkv_views():
     qkv = _bf16((1, 778, 3 * 1024))
     K.check_inputs(*(t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1)))
+
+
+# ---- f32 q/k/v: the kernel's SIMT body (`--fp32`, the converter's gate) ------------------
+
+@pytest.mark.parametrize("mode", ["none", "bf16 bias", "f32 bias", "bf16 table", "f32 table"])
+def test_kernel_input_checks_accept_f32_qkv_with_each_bias_mode(mode):
+    """f32 q/k/v as the encoder's qkv views, with no bias, a dense [H, N, N]
+    bias or BEiT-L @512's 18x32 table, each in bf16 or f32."""
+    gh, gw = 18, 32
+    n = gh * gw + 1
+    qkv = torch.zeros(1, n, 3 * 1024)
+    q, k, v = (t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1))
+    dtype = torch.float32 if mode.startswith("f32") else torch.bfloat16
+    if mode == "none":
+        K.check_inputs(q, k, v)
+    elif mode.endswith("bias"):
+        K.check_inputs(q, k, v, torch.zeros(16, n, n, dtype=dtype))
+    else:
+        K.check_inputs(q, k, v, rel_pos=(torch.zeros(16, K.relative_position_count(gh, gw),
+                                                      dtype=dtype), gh, gw))
+
+
+@pytest.mark.parametrize("case,match", [
+    (lambda: (torch.zeros(1, 8, 2, 64), _bf16((1, 8, 2, 64)), torch.zeros(1, 8, 2, 64)),
+     "one dtype"),
+    (lambda: (torch.zeros(1, 8, 2, 64, dtype=torch.float64),) * 3, "bf16 or f32"),
+    (lambda: (torch.zeros(1, 8, 2, 66)[..., :64],) * 3, "aligned"),
+    (lambda: (torch.zeros(1, 8, 64, 2).transpose(-1, -2),) * 3, "contiguous head dim"),
+    (lambda: (torch.zeros(1, 8, 2, 68)[..., 1:65],) * 3, "aligned"),
+], ids=["mixed", "f64", "row-stride", "head-dim", "offset"])
+def test_kernel_input_checks_refuse_bad_f32_inputs(case, match):
+    with pytest.raises(ValueError, match=match):
+        K.check_inputs(*case())
+
+
+def test_kernel_input_checks_accept_an_f32_zero_stride():
+    """The f32 body reads rows as float4 through plain pointers: no tensor
+    map, so a broadcast (zero-stride) q/k/v is fine, where bf16 refuses it."""
+    t = torch.zeros(1, 1, 2, 64).expand(1, 8, 2, 64)
+    K.check_inputs(t, t, t)
+    with pytest.raises(ValueError, match="zero stride"):
+        K.check_inputs(*(_bf16((1, 1, 2, 64)).expand(1, 8, 2, 64),) * 3)
+
+
+def test_f32_table_shared_memory_at_beit_large():
+    """The f32 body's table entry at BEiT-L @512: two 32 KB stages, the 8.8 KB
+    f32 row and 10 key tiles of 64 offsets."""
+    assert K.relpos_smem_bytes(577, 2208, f32=True) == 65536 + 2208 * 4 + 10 * 64 * 4 == 76928
+
+
+@pytest.mark.parametrize("bias", [None, "dense", "table"])
+def test_f32_cpu_dispatch_takes_the_plain_version(bias):
+    """f32 CPU tensors take the plain versions exactly, launching nothing."""
+    gh, gw = 3, 4
+    q, k, v = map(torch.from_numpy, _qkv((2, gh * gw + 1, 2, 64), seed=7))
+    table = torch.from_numpy(_table(2, gh, gw, seed=8))
+    launches = K.KERNEL.launches
+    if bias == "table":
+        got = multi_head_attention(q, k, v, rel_pos=(table, gh, gw))
+        want = K.attention_relpos_ref(q, k, v, table, gh, gw)
+    else:
+        dense = K.expand_rel_pos(table, gh, gw) if bias else None
+        got = multi_head_attention(q, k, v, bias=dense)
+        want = attention_ref(q, k, v, dense)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert K.KERNEL.launches == launches
 
 
 @pytest.mark.parametrize("make", [

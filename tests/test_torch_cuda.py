@@ -788,3 +788,148 @@ def test_tensor_parallel_run_on_the_card(dev):
         assert r["none"]["finite"] and r["none"]["mean_rel"] < 0.03, r
         assert r["int8"]["launches"] == {"d2s_attention_fwd": 12, "d2s_quant_dense": 48}, r
         assert r["int8"]["equal"], r
+
+
+# ---- K2's f32 body (`--fp32`, the converter's gate) ------------------------------------------
+
+# f32 kernel against the f32 plain version: summation order and exp2f only
+F32_ATTN_MAX_ABS = 1e-4
+_F32_ENTRIES = ("d2s_attention_f32_fwd", "d2s_attention_bias_f32_fwd",
+                "d2s_attention_relpos_f32_fwd")
+
+
+def _entry_moves(before, entry):
+    """Assert that exactly one launch of `entry`, and none of any other K2
+    entry, was counted since `before`."""
+    after = K2.KERNEL.entry_launches
+    for name in set(after) | set(before):
+        assert after.get(name, 0) - before.get(name, 0) == (name == entry), name
+
+
+def _f32_layout(layout, B, N, H, gen, dev):
+    return [t.float() for t in _qkv_layout(layout, B, N, H, gen, dev)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv views", "heads-major"])
+@pytest.mark.parametrize("B,N,H", [(1, 778, 16), (2, 1, 3), (2, 31, 3), (2, 33, 3), (2, 63, 3),
+                                   (2, 64, 3), (2, 65, 3), (2, 129, 3), (2, 1370, 12)])
+def test_f32_attention_kernel_matches_plain(dev, B, N, H, layout):
+    """f32 q/k/v take the f32 body (one launch of its entry, none of the
+    bf16 ones) at the flagship's [1, 778, 16, 64], on either side of its
+    32-row query and 64-key tiles, and at 1370 tokens: within 1e-4 of the
+    f32 plain version, f32 out."""
+    gen = torch.Generator(device=dev).manual_seed(3000 + N)
+    q, k, v = (_f32_layout(layout, B, N, H, gen, dev) if layout != "qkv views" else
+               [t.unflatten(-1, (H, 64)) for t in torch.randn(
+                   B, N, 3 * H * 64, generator=gen, device=dev).split(H * 64, dim=-1)])
+    before = dict(K2.KERNEL.entry_launches)
+    got = K2.attention(q, k, v)
+    _entry_moves(before, "d2s_attention_f32_fwd")
+    want = K2.attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, H, 64) and got.is_contiguous() and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= F32_ATTN_MAX_ABS
+
+
+def test_f32_attention_kernel_reads_a_zero_stride(dev):
+    """No tensor map in the f32 body: a broadcast k/v (zero token stride)
+    is read as it is."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(1, 50, 2, 64, generator=gen, device=dev)
+    kv = torch.randn(1, 1, 2, 64, generator=gen, device=dev).expand(1, 50, 2, 64)
+    got = K2.attention(q, kv, kv)
+    torch.cuda.synchronize()
+    assert (got - K2.attention_ref(q, kv.contiguous(), kv.contiguous())).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [1, 31, 33, 64, 65, 130, 577])
+def test_f32_biased_attention_kernel_matches_plain(dev, N, bias_dtype):
+    gen = torch.Generator(device=dev).manual_seed(4000 + N)
+    q, k, v = _f32_layout("qkv views", 2, N, 4, gen, dev)
+    bias = (2.0 * torch.randn(4, N, N, generator=gen, device=dev)).to(bias_dtype)
+    before = dict(K2.KERNEL.entry_launches)
+    got = K2.attention(q, k, v, bias)
+    _entry_moves(before, "d2s_attention_bias_f32_fwd")
+    want = K2.attention_ref(q, k, v, bias.float())
+    torch.cuda.synchronize()
+    assert got.shape == (2, N, 4, 64) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= F32_ATTN_MAX_ABS
+    if N > 1:
+        assert (K2.attention_ref(q, k, v) - want).abs().max().item() > 0.1
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("grid", RELPOS_GRIDS, ids=[f"{h}x{w}" for h, w in RELPOS_GRIDS])
+def test_f32_relpos_attention_kernel_matches_plain_and_the_dense_entry(dev, grid, table_dtype):
+    """The f32 table entry: within 1e-4 of the plain version and equal bit
+    for bit to the f32 dense entry on the expanded bias (the same f32
+    operands and operations)."""
+    gh, gw = grid
+    N = gh * gw + 1
+    gen = torch.Generator(device=dev).manual_seed(5000 + N)
+    q, k, v = _f32_layout("contiguous", 2 if N < 200 else 1, N, 16 if N > 500 else 4, gen, dev)
+    table = (2.0 * torch.randn(q.shape[2], K2.relative_position_count(gh, gw), generator=gen,
+                               device=dev)).to(table_dtype)
+    before = dict(K2.KERNEL.entry_launches)
+    got = K2.attention_relpos(q, k, v, table, gh, gw)
+    _entry_moves(before, "d2s_attention_relpos_f32_fwd")
+    dense = K2.expand_rel_pos(table, gh, gw)
+    want = K2.attention_ref(q, k, v, dense.float())
+    same = K2.attention(q, k, v, dense)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= F32_ATTN_MAX_ABS
+    assert torch.equal(got, same)
+
+
+def test_f32_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 8, 2, 64, device=dev)
+    for args, match in (((q, q.bfloat16(), q), "one dtype"),
+                        ((q.half(),) * 3, "bf16 or f32"),
+                        ((torch.zeros(1, 8, 2, 66, device=dev)[..., :64],) * 3, "aligned")):
+        with pytest.raises(ValueError, match=match):
+            K2.attention(*args)
+
+
+def test_f32_attention_kernel_spills_nothing(dev):
+    for entry, f32 in (("attention_f32", False), ("attention_bias_f32", False),
+                       ("attention_bias_f32", True), ("attention_relpos_f32", False),
+                       ("attention_relpos_f32", True)):
+        info = K2.kernel_info(entry, f32, 577, K2.relative_position_count(18, 32))
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, (entry, f32, info)
+
+
+@pytest.mark.parametrize("name,layers,table", [("Depth-Anything-V2-Small", 12, False),
+                                               ("dpt-beit-base-384", 12, True)])
+def test_f32_models_on_the_card_like_the_cpu(dev, name, layers, table):
+    """`--fp32` on the card: a ViT-S DA-V2 and a BEiT-B from one seed through
+    ProgramCache in f32, two frames, against the CPU f32 run: every K2
+    launch is the f32 body's (the table entry's for BEiT), and depth and
+    frame are far inside chip_smoke.py's bf16 thresholds."""
+    from desktop2stereo_tpu_torch.core.runtime import cuda_policy
+    from desktop2stereo_tpu_torch.models.factory import build_bound
+    from desktop2stereo_tpu_torch.pipeline import programs as P
+
+    cuda_policy(0)  # the CLI's device policy: TF32 off for products and convolutions
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    card, spec = build_bound(name, device=dev, dtype=torch.float32, seed=0)
+    cpu, _ = build_bound(name, device="cpu", seed=0)
+    cfg = P.ProgramConfig(model_name=name, depth_resolution=256 if table else 266,
+                          output_height=216, display_mode="Half-SBS", ipd=0.064,
+                          depth_strength=2.0, convergence=0.0, foreground_scale=0.0,
+                          aa_strength=2.0, ema_alpha=0.9, temporal_smooth=True, quality="high",
+                          emit_depth="model")
+    card_prog = P.ProgramCache(cfg, card, spec, compute_dtype=torch.float32)
+    cpu_prog = P.ProgramCache(cfg, cpu, spec, compute_dtype=torch.float32)
+    before = dict(K2.KERNEL.entry_launches)
+    for frame in _moving_frames(2, 216, 384, seed=3):
+        sbs_c, depth_c = (t.cpu() for t in card_prog(frame))
+        sbs_r, depth_r = cpu_prog(frame)
+        assert sbs_c.shape == sbs_r.shape == (216, 384, 3) and torch.isfinite(depth_c).all()
+        s_err = (sbs_c.int() - sbs_r.int()).abs().float()
+        assert (depth_c - depth_r).abs().mean().item() <= 1e-3, name
+        assert s_err.mean().item() <= 0.5 and (s_err > 32).float().mean().item() <= 1e-3
+    entry = "d2s_attention_relpos_f32_fwd" if table else "d2s_attention_f32_fwd"
+    moved = {n: c - before.get(n, 0) for n, c in K2.KERNEL.entry_launches.items()}
+    assert {n: c for n, c in moved.items() if c} == {entry: 2 * layers}

@@ -1,8 +1,10 @@
 """The torch port imports neither JAX nor the JAX package.
 
-A CUDA host need not have JAX, flax, PyYAML, OpenCV or PIL, so every module
-of `desktop2stereo_tpu_torch` (and chip_smoke.py) must import without them:
-the sources and sinks that need cv2 or PIL import it when they are made.
+A CUDA host need not have JAX, flax, PyYAML, OpenCV, PIL, transformers or
+huggingface_hub, so every module of `desktop2stereo_tpu_torch` (and
+chip_smoke.py) must import without them: the sources and sinks that need cv2
+or PIL import it when they are made, and the converter's jobs import
+transformers and huggingface_hub when they run.
 Checked in a fresh interpreter, since this test process has JAX loaded.
 """
 
@@ -46,7 +48,8 @@ def test_port_has_the_slice_modules():
                  "xr.environment", "xr.keyboard", "xr.overlay", "xr.laser", "xr.persist",
                  "xr.theater", "xr.input_map", "xr.input_router", "xr.controls",
                  "xr.session", "xr.gl_theater", "xr.headless_gl", "tools.xr_client",
-                 "parallel", "parallel.sharding", "parallel.launch", "parallel.introspect"):
+                 "parallel", "parallel.sharding", "parallel.launch", "parallel.introspect",
+                 "tools.convert"):
         assert f"desktop2stereo_tpu_torch.{name}" in mods, name
 
 
@@ -57,7 +60,8 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'desktop2stereo_tpu', 'yaml', 'cv2', 'PIL'))\n"
+        "('jax', 'jaxlib', 'flax', 'desktop2stereo_tpu', 'yaml', 'cv2', 'PIL',\n"
+        " 'transformers', 'huggingface_hub'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -81,6 +81,22 @@ def test_sizes_match_jax(hw, target):
     assert T_norm.process_frame_size(*hw, target) == J_norm.process_frame_size(*hw, target)
 
 
+@pytest.mark.parametrize("shape,target,patch", [
+    ((1, 180, 320, 3), 126, 14),     # the converter gate's test image at 126 (16:9)
+    ((1, 240, 180, 3), 128, 16),     # a portrait 3:4 one on the patch-16 grid
+    ((1, 70, 126, 3), 126, 14),      # already patch-aligned at the target: unchanged
+])
+def test_resize_patch_aligned_matches_jax(shape, target, patch):
+    """The converter's one-shot bicubic antialiased resize to the patch grid."""
+    x = np.random.default_rng(5).random(shape, dtype=np.float32) * 255
+    got = T_resize.resize_patch_aligned(torch.from_numpy(x), target, patch)
+    want = J_resize.resize_patch_aligned(jnp.asarray(x), target, patch)
+    assert tuple(got.shape) == tuple(want.shape)
+    _close(got, want, 1e-3)  # 0..255 values: TOL scaled by the range
+    if shape[1:3] == T_resize.patch_aligned_size(*shape[1:3], target, patch):
+        assert torch.equal(got, torch.from_numpy(x))
+
+
 @pytest.mark.parametrize("family", ["imagenet", "half", "none"])
 def test_normalize_matches_jax(family):
     rng = np.random.default_rng(3)
