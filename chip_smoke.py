@@ -276,13 +276,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     f32 plain versions within F32_ATTN_MAX_ABS at the flagship's [1, 778, 16,
     64] (qkv views and contiguous), BEiT-L's [1, 577, 16, 64] with its 18x32
     table (f32 and bf16 tables, the table entry bit-equal to the dense entry
-    on the expansion), DepthPro's [35, 730, 16, 64] and ragged shapes;
-    registers, spills and resident blocks; times beside the plain version,
+    on the expansion), DepthPro's [35, 730, 16, 64] and ragged shapes on
+    either side of the body's 64-row and 64-key tiles; registers, spills,
+    shared memory and resident blocks of all five instances (no spill, at
+    least two blocks an SM); times beside the plain version,
     f32 SDPA (with the bias as a float mask) and the bound at the f32
     CUDA-core peak;
 58. `--fp32` on the card: `cli.run` on the phase-16 settings with `--fp32`
     for FP32_CLI_SECONDS (weights and compute f32, exactly 24 f32 K2 and one
-    K1 a frame, no bf16 K2, in the warm-up and the run; frames/s); then
+    K1 a frame, no bf16 K2, in the warm-up and the run; frames/s); one of its
+    4K frames traced on the CLI's own program as phase 15 traces (a
+    discarded warm-up frame first): device ms by kernel and group, K2's f32
+    body's share of the busy ms and the idle share; then
     DA-V2-Large @518 (one frame) and dpt-beit-large-512 @512 (first and
     step, the f32 table entry): the f32 CPU models of phases 6 and 31
     copied to the card, run on the same 216x384 frames and held against
@@ -551,6 +556,7 @@ def log_timing(name, tm, card) -> None:
 TRACE_GROUPS = (
     ("K1 dibr_pair", r"\bdibr_pair_kernel\b"),
     ("K2 attention", r"\battention_fwd_kernel(_relpos)?\b"),
+    ("K2 attention f32", r"\battention_f32_kernel\b"),
     ("K3 warp", r"\bwarp_kernel\b"),
     ("K4 quant_matmul", r"\b(quantize_rows_kernel|quant_gemm_kernel)\b"),
     ("K5 dibr_fill", r"\bdibr_fill_kernel\b"),
@@ -3906,7 +3912,9 @@ def parallel_phases(np, torch, F, K2, K4, card, dev, policy, timing, worst):
 # K2's f32 body against its f32 plain version on unit-normal inputs: summation
 # order and exp2f only
 F32_ATTN_MAX_ABS = 1e-4
-F32_RAGGED_SHAPE = (2, 130, 4, 64)   # either side of the f32 body's 32-row and 64-key tiles
+# either side of the f32 body's 64-row query and 64-key tiles: two whole
+# tiles and one token, and one token short of a tile
+F32_RAGGED_SHAPES = ((3, 129, 5, 64), (2, 63, 3, 64))
 F32_RAGGED_GRID = (8, 16)            # 129 tokens, with a table
 FP32_CLI_SECONDS = 5.0
 # the card in f32 against the CPU in f32 on phase 6's 216x384 frame: the same
@@ -3946,7 +3954,7 @@ def k2_f32_phase(np, torch, F, K2, card, dev, policy, timing, worst):
         if not ok:
             raise AssertionError(f"{label}: K2's f32 body disagrees with its plain version")
 
-    for shape in (ATTN_SHAPE, BIAS_ATTN_SHAPE, DEPTHPRO_ATTN_SHAPE, F32_RAGGED_SHAPE):
+    for shape in (ATTN_SHAPE, BIAS_ATTN_SHAPE, DEPTHPRO_ATTN_SHAPE, *F32_RAGGED_SHAPES):
         for views in ((True, False) if shape == ATTN_SHAPE else (True,)):
             q, k, v = qkv(shape, views)
             check(f"attention_f32 {list(shape)} {'qkv views' if views else 'contiguous'}",
@@ -4028,9 +4036,11 @@ def k2_f32_phase(np, torch, F, K2, card, dev, policy, timing, worst):
                                                                 "attention_relpos_f32")})
 
 
-def fp32_phases(np, torch, programs, counters, card, out_dir, dev, layers, paths):
+def fp32_phases(np, torch, programs, counters, card, out_dir, dev, layers, paths, trace):
     """58. `--fp32` on the card: the CLI flagship for FP32_CLI_SECONDS (24 f32
-    K2 a frame, no bf16 one); DA-V2-Large @518 and dpt-beit-large-512 @512 in
+    K2 a frame, no bf16 one), then one of its 4K frames traced through the
+    CLI's own program (`trace`, phase 15's); DA-V2-Large @518 and
+    dpt-beit-large-512 @512 in
     f32 on the card against the f32 CPU runs of phases 6 and 31 (their kept
     models copied to the card, on the same frames); the dense-bias API on the
     f32 BEiT's tables.  Returns the report
@@ -4069,6 +4079,15 @@ def fp32_phases(np, torch, programs, counters, card, out_dir, dev, layers, paths
     out["cli"] = dict(rc=rc, frames_run=eng.frames, delivered=sink.frames, fps=fps,
                       fps_counter=final.fps, wall_s=run.wall_s, launches=launches)
     paths["fp32_cli"] = dict(launches=launches["run"], fps=fps)
+    # one f32 4K frame as FrameEngine runs it, on the CLI's warm program
+    tr = trace("fp32", None, program.spec, None, "engine",
+               {"K2 attention f32": layers, "K1 dibr_pair": 1}, program=program)
+    k2 = tr["groups"]["K2 attention f32"]["ms"]
+    tr["k2_f32_share"] = k2 / tr["busy_ms"]
+    log(f"[trace] fp32 4K frame: K2's f32 body {k2:.3f} device ms of {tr['busy_ms']:.3f} busy "
+        f"({100 * tr['k2_f32_share']:.1f}%), idle share {tr['idle_share']:.3f} of a "
+        f"{tr['span_ms']:.3f} ms span; {card}")
+    out["trace"] = tr
 
     for key, name, biased in (("fp32_reference", FLAGSHIP_MODEL, False),
                               ("fp32_beit_reference", BEIT_MODEL, True)):
@@ -4838,12 +4857,15 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
-    def trace(name, net, net_spec, cfg, staging, want, spans=()):
+    def trace(name, net, net_spec, cfg, staging, want, spans=(), program=None):
         """One traced 4K frame of `net`, after a warm-up and 3 untraced
         frames (a stateful model's carry is warm: the traced frame runs
-        `step`), its kernel instances checked against `want`."""
-        program = programs.ProgramCache(cfg, net, net_spec, compute_dtype=policy.compute_dtype)
-        program.warmup(FRAME_SHAPE)
+        `step`), its kernel instances checked against `want`.  `program`:
+        a warm ProgramCache to trace in place of one built from `net`."""
+        if program is None:
+            program = programs.ProgramCache(cfg, net, net_spec,
+                                            compute_dtype=policy.compute_dtype)
+            program.warmup(FRAME_SHAPE)
         engine = None
         if staging == "engine":
             # as FrameEngine runs a frame: _dispatch uploads it through the
@@ -5005,7 +5027,7 @@ def main() -> int:
     report["k2_f32"] = k2_f32_phase(np, torch, F, K2, card, dev, policy, timing, worst)
     mark("57 K2 in f32")
     report["fp32"], f32_models = fp32_phases(np, torch, programs, counters, card, out_dir, dev,
-                                             layers, paths)
+                                             layers, paths, trace)
     mark("58 --fp32")
     report["convert"] = converter_phase(np, torch, counters, card, dev, f32_models, out_dir,
                                         paths)

@@ -516,7 +516,9 @@ def load(text: str) -> Any:
 
 # ---- writing ---------------------------------------------------------------
 
-_PLAIN_SAFE = re.compile(r"^[A-Za-z_][A-Za-z0-9_ .,/()+\-]*(?::[A-Za-z0-9_.,/()+\-]+)*$")
+# matched against the whole string (fullmatch): `$` would also match before a
+# final newline and write "A\n" plain, which reads back as "A"
+_PLAIN_SAFE = re.compile(r"[A-Za-z_][A-Za-z0-9_ .,/()+\-]*(?::[A-Za-z0-9_.,/()+\-]+)*")
 
 
 def _printable(o: int) -> bool:
@@ -563,7 +565,7 @@ def _scalar(value: Any) -> str:
             text = text.replace("e", ".0e", 1)  # PyYAML's float needs the dot
         return text
     if isinstance(value, str):
-        if (_PLAIN_SAFE.match(value) and not value.endswith(" ") and "  " not in value
+        if (_PLAIN_SAFE.fullmatch(value) and not value.endswith(" ") and "  " not in value
                 and resolve(value) == value):
             return value
         return _double_quoted(value)

@@ -591,21 +591,52 @@ int info(int n, int r, int* out) {
 // bias modes as the bf16 entries: none, a dense [heads, n, n] bias (bf16 or
 // f32), or BEiT's [heads, r] table through the closed-form index above.
 //
-// Grid: (ceil(n / F_ROWS) query tiles, batch * heads).  A block of 128
-// threads owns 32 query rows of one (batch, head), four threads (a quad) a
-// row.  Lane `sub` of a quad holds 16 of the 64 dims of its row's q and of
-// its output accumulator in registers: the float4 chunks sub, sub + 4,
-// sub + 8 and sub + 12, so that in each step the quad's four lanes read 16
-// consecutive float4 of one K or V row (no bank conflict) and the eight
-// quads of a warp read the same addresses (broadcast).  K and V tiles of 64
-// keys are staged in shared memory by cp.async, two stages, the next tile in
-// flight while this one is used (rows >= n arrive as zeros).  For each step
-// of 16 keys a lane forms a partial dot product a key, the quad sums them
-// with two shuffles (every lane then holds the same f32 logits), the logits
-// are scaled (and biased) into log2 units as in the bf16 entries, and the
-// online softmax (running max and sum, rescaled accumulator) runs in f32 with
-// exp2f; then 16 FMAs a key fold P.V into the accumulator.  The output is a
-// fresh contiguous [batch, n, heads, 64] f32 tensor.
+// Grid: (ceil(n / F_BQ) query tiles, batch * heads).  A block of 128
+// threads owns F_BQ = 64 query rows of one (batch, head) and walks the keys
+// in tiles of F_BKV = 64.  Both products are register-tiled outer products
+// on the CUDA cores: thread (rg, cg), rg = 0..7 and cg = 0..15 (a warp is two
+// rg of 16 cg, cg = lane % 16), owns rows 8rg..8rg+7 (F_TM = 8) of the block
+// and, for S = Q K^T, keys cg, cg+16, cg+32, cg+48 of the tile (8 x 4
+// logits), for O = P V, dims 4cg..4cg+3 (8 x 4 accumulators).  In each step
+// of four dims (keys for P V) a thread loads eight float4 of its rows and
+// four float4 of its keys (V rows) from shared memory and does 128 FMAs,
+// 10.7 a shared float4, with 32 independent sums in flight.  A warp's loads
+// are broadcasts of 2 rows, which share banks (8 rows x 68 = 0 mod 32), and
+// 16 distinct K (V) rows: 24 wavefronts a step of 128 FMA instructions a
+// thread.  Rows interleaved between the warp's halves (no shared bank) and
+// P in a buffer of its own (one block barrier a tile, not three) each timed
+// within 2% of this layout.
+//
+// Shared memory (F_SMEM, 84 KB): the Q tile [64][68] (rows padded by 4
+// floats), staged once; two stages, each a K tile [64][68] and a V tile
+// [64][64], filled by cp.async, the next tile in flight while this one is
+// used (rows >= n arrive as zeros); two ints a query row (below).  The
+// padding puts a warp's 16 K rows on distinct banks (68 = 4 mod 32).  For
+// each tile:
+//   - S from Q and the K tile; the logits scaled (and biased) into log2
+//     units as in the bf16 entries, keys >= n masked to -inf;
+//   - each row's max by shfl_xor over the 16 lanes sharing it; the online
+//     softmax in f32 with exp2f: O's rows and the thread's partial row sums
+//     (its own keys) rescaled by exp2(m_old - m_new);
+//   - P = exp2(s - m) written as [64 rows][68] over the K tile (dead once
+//     every warp has its logits), then O += P V from it and the V tile.
+// At the end the partial sums are added over the 16 lanes of a row, O is
+// normalised by 1/l and written as float4 rows.  The output is a fresh
+// contiguous [batch, n, heads, 64] f32 tensor.  The table and dense entries
+// are one template body and run the same steps, so the table entry equals
+// the dense entry on the expanded table bit for bit.  The table entry stages
+// the head's table row (times log2(e)), every key's b_j and the block's a_i
+// and idx(i, 0) in shared memory; the dense entry reads the bias from global
+// memory, each row's offset from shared memory, so that no row pointer holds
+// registers through the products.
+//
+// Occupancy: ptxas takes 202-254 registers a thread (the launch bound asks
+// for two blocks of 128 threads an SM, 255 at most), and two blocks of 84 KB
+// (95 KB with BEiT-L's 18x32 table staged) fit the SM's 228 KB: 8 warps an
+// SM.  At the flagship's [1, 778, 16, 64] the grid is 13 x 16 = 208 blocks
+// on 132 SMs, one wave.  A 4-row tile a thread (F_TM = 4: 256 threads, 16
+// warps an SM, held to 128 registers) times within 5% of it either way, but
+// ptxas spills its dense-bias instances at 128.
 //
 // Strides: no tensor map, so a zero stride is allowed; each row is read as
 // float4, so the pointers must be 16-byte aligned and every stride a
@@ -613,24 +644,32 @@ int info(int n, int r, int* out) {
 // dim contiguous.
 //
 // What bounds it on the H100: 4 * n^2 * 64 FLOP a (batch, head) at the f32
-// CUDA-core peak (67 TFLOP/s): 0.037 ms at [1, 778, 16, 64].  A lane spends
-// one shared load (a broadcast float4) on four FMAs and two shuffles a key
-// on 32, so shared-memory and instruction throughput, not HBM, set its time.  It
-// is a simple first version (PERF.md holds its times); a lane holding two
-// rows would halve the shared loads per FMA.
+// CUDA-core peak (67 TFLOP/s): 0.037 ms at [1, 778, 16, 64].  An SM retires
+// 4 FMA instructions and 1 shared wavefront (128 bytes) a clock; at 24
+// wavefronts per 128 FMA instructions the products need 75% of the shared
+// pipe at the FMA peak, and FMAs are ~85% of the instructions, so the FMA
+// units set its time.  It reaches about half that peak on a full card.
 
-constexpr int F_ROWS = 32;                      // query rows a block
-constexpr int F_THREADS = 4 * F_ROWS;           // a quad a row
-constexpr int F_KT = 64;                        // keys a K/V tile
-constexpr int F_KB = 16;                        // keys an online-softmax step
-constexpr int F_STAGE = 2 * F_KT * HD;          // floats of a stage: its K and V tiles
-constexpr size_t F_SMEM = 2 * F_STAGE * sizeof(float);  // two stages: 64 KB
+constexpr int F_BQ = 64;                        // query rows a block
+constexpr int F_BKV = 64;                       // keys a K/V tile
+constexpr int F_TM = 8;                         // query rows a thread
+constexpr int F_THREADS = (F_BQ / F_TM) * 16;   // 16 threads a row group: 4 keys (dims) each
+constexpr int F_MIN_BLOCKS = 2;                 // blocks an SM ptxas must allow
+constexpr int F_PAD = HD + 4;                   // row stride of the Q, K and P tiles (floats)
+constexpr int F_Q = F_BQ * F_PAD;               // floats of the Q tile
+constexpr int F_STAGE = F_BKV * F_PAD + F_BKV * HD;  // floats of a stage: its K and V tiles
+// the tiles, then 8 bytes a query row: the table's a_i and idx(i, 0), or the
+// dense bias's row offset
+constexpr size_t F_SMEM = (F_Q + 2 * F_STAGE + 2 * F_BQ) * sizeof(float);  // 85,504 bytes
+static_assert(F_BKV == HD, "O's 4-dim columns reuse S's 16 key columns");
+static_assert(F_BQ * F_PAD <= F_BKV * F_PAD, "P [F_BQ][F_PAD] must fit over a K tile");
 
-// The f32 table entry's dynamic shared memory: the two stages, then the
-// head's table row (f32, R rounded up to 4) and every key's offset b_j.
+// The f32 table entry's dynamic shared memory: the tiles, a_i and idx(i, 0)
+// of the block's rows, then the head's table row (f32, R rounded up to 4) and
+// every key's offset b_j.
 size_t relpos_smem_f32(int n, int r) {
   return F_SMEM + (static_cast<size_t>(r) + 3) / 4 * 16 +
-         static_cast<size_t>((n + F_KT - 1) / F_KT) * F_KT * 4;
+         static_cast<size_t>((n + F_BKV - 1) / F_BKV) * F_BKV * 4;
 }
 
 __device__ __forceinline__ void cp_async_16(float* dst, const float* src, bool valid) {
@@ -641,165 +680,227 @@ __device__ __forceinline__ void cp_async_16(float* dst, const float* src, bool v
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// kRows rows of 64 floats from `src` (row i at src + i * stride, rows at
+// or past `valid` as zeros) into shared memory at `dst`, row stride `pitch`;
+// each thread issues kRows * 16 / F_THREADS float4 copies.
+template <int kRows>
+__device__ __forceinline__ void stage_rows(float* dst, int pitch, const float* src,
+                                           long long stride, int valid) {
+  constexpr int kStep = F_THREADS / (HD / 4);  // rows apart of a thread's copies
+  const int r0 = threadIdx.x / (HD / 4), c = 4 * (threadIdx.x % (HD / 4));
+  const float* p = src + r0 * stride + c;
+#pragma unroll
+  for (int i = 0; i < kRows / kStep; ++i) {
+    const int row = r0 + i * kStep;
+    cp_async_16(dst + row * pitch + c, row < valid ? p : src, row < valid);
+    p += kStep * stride;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // BiasT: void (no bias), __nv_bfloat16 or float: a contiguous [heads, n, n]
 // bias, or with kRelPos a contiguous [heads, r] table for a gh x gw grid.
-// No launch bounds: with the block size alone ptxas holds the biased
-// instances to 128 registers (for a fourth block) and spills, and with two
-// blocks an SM stated it takes more registers than it needs; left free it
-// spills nothing and keeps three blocks an SM (two with a table's staging).
 template <typename BiasT, bool kRelPos>
-__global__ void attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                     const float* __restrict__ v, float* __restrict__ o,
-                                     long long q_sb, long long q_sn, long long q_sh,
-                                     long long k_sb, long long k_sn, long long k_sh,
-                                     long long v_sb, long long v_sn, long long v_sh,
-                                     const BiasT* __restrict__ bias, int n, int heads,
-                                     float scale_log2, int r_entries, int gh, int gw) {
+__global__ void __launch_bounds__(F_THREADS, F_MIN_BLOCKS)
+    attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, long long q_sb,
+                         long long q_sn, long long q_sh, long long k_sb, long long k_sn,
+                         long long k_sh, long long v_sb, long long v_sn, long long v_sh,
+                         const BiasT* __restrict__ bias, int n, int heads, float scale_log2,
+                         int r_entries, int gh, int gw) {
   constexpr bool kBias = !std::is_void<BiasT>::value;
   extern __shared__ __align__(16) float f_smem[];
-  float* tab_s = f_smem + 2 * F_STAGE;                                   // kRelPos
+  float* q_s = f_smem;                                                  // [F_BQ][F_PAD]
+  // per query row of the block: a_i and idx(i, 0) (kRelPos), or the offset of
+  // its bias row (kBias)
+  int* rowa_s = reinterpret_cast<int*>(f_smem + F_Q + 2 * F_STAGE);
+  int* rowc_s = rowa_s + F_BQ;
+  long long* rowoff_s = reinterpret_cast<long long*>(rowa_s);
+  float* tab_s = reinterpret_cast<float*>(rowc_s + F_BQ);               // kRelPos
   int* key_s = reinterpret_cast<int*>(tab_s + ((r_entries + 3) & ~3));  // kRelPos
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
-  const int sub = threadIdx.x & 3;
-  const int qrow = blockIdx.x * F_ROWS + threadIdx.x / 4;
-  const int row = min(qrow, n - 1);  // rows >= n compute row n-1 and store nothing
-  const int ntiles = (n + F_KT - 1) / F_KT;
+  const int lane = threadIdx.x % 32;
+  const int rg = 2 * (threadIdx.x / 32) + lane / 16;  // rows F_TM rg + i of the block
+  const int cg = lane % 16;                           // keys cg + 16j; dims 4cg..4cg+3
+  const int q0 = blockIdx.x * F_BQ;
+  const int ntiles = (n + F_BKV - 1) / F_BKV;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-
-  // tile t's K and V rows into stage t & 1: 16 float4 a row, 1024 a tile
-  auto load_tile = [&](int t) {
-    float* st = f_smem + (t & 1) * F_STAGE;
-#pragma unroll
-    for (int i = 0; i < F_KT * HD / 4 / F_THREADS; ++i) {
-      const int e = threadIdx.x + i * F_THREADS;
-      const int key = e / (HD / 4), c = 4 * (e % (HD / 4));
-      const int j = t * F_KT + key;
-      const long long jr = j < n ? j : 0;
-      cp_async_16(st + key * HD + c, kb + jr * k_sn + c, j < n);
-      cp_async_16(st + F_KT * HD + key * HD + c, vb + jr * v_sn + c, j < n);
-    }
-    cp_async_commit();
-  };
-  load_tile(0);
-
-  float qr[16];
-  const float* qp = q + b * q_sb + row * q_sn + h * q_sh + 4 * sub;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 t = *reinterpret_cast<const float4*>(qp + 16 * i);
-    qr[4 * i] = t.x;
-    qr[4 * i + 1] = t.y;
-    qr[4 * i + 2] = t.z;
-    qr[4 * i + 3] = t.w;
+  // kBias: each row's offset in the bias, read from shared memory where it is
+  // used, so that no row pointer holds registers through the products
+  if constexpr (kBias && !kRelPos) {
+    if (threadIdx.x < F_BQ)
+      rowoff_s[threadIdx.x] =
+          (static_cast<long long>(h) * n + min(q0 + static_cast<int>(threadIdx.x), n - 1)) * n;
   }
 
-  // The table entry: the head's row (times log2(e)) and every key's b_j,
-  // visible after the first tile's barrier; a_i, m_i and idx(i, 0) of the row.
-  int a_row = 0, m_row = 0, c0_row = 0;
+  // tile t's K rows into its stage's [F_BKV][F_PAD], its V rows into [F_BKV][64]
+  auto load_tile = [&](int t) {
+    float* st = f_smem + F_Q + (t & 1) * F_STAGE;
+    const int valid = n - t * F_BKV;
+    stage_rows<F_BKV>(st, F_PAD, kb + t * F_BKV * k_sn, k_sn, valid);
+    stage_rows<F_BKV>(st + F_BKV * F_PAD, HD, vb + t * F_BKV * v_sn, v_sn, valid);
+    cp_async_commit();
+  };
+  stage_rows<F_BQ>(q_s, F_PAD, q + b * q_sb + q0 * q_sn + h * q_sh, q_sn, n - q0);
+  load_tile(0);
+
+  // The table entry: the head's row (times log2(e)), every key's b_j and the
+  // block's a_i and idx(i, 0) (m_i is 0 on the cls row only), visible after
+  // the first tile's barrier.  A row >= n takes row n-1's (its output is
+  // dropped), as it takes row n-1's dense bias (above).
   if constexpr (kRelPos) {
     const BiasT* trow = bias + static_cast<long long>(h) * r_entries;
     for (int t = threadIdx.x; t < r_entries; t += F_THREADS) tab_s[t] = bias_at(trow + t) * LOG2E;
-    for (int c = threadIdx.x; c < ntiles * F_KT; c += F_THREADS)
+    for (int c = threadIdx.x; c < ntiles * F_BKV; c += F_THREADS)
       key_s[c] = relpos_key_offset(c, n, gw);
-    relpos_row(row, gh, gw, r_entries, a_row, m_row, c0_row);
+    if (threadIdx.x < F_BQ) {
+      int m_unused;
+      relpos_row(min(q0 + static_cast<int>(threadIdx.x), n - 1), gh, gw, r_entries,
+                 rowa_s[threadIdx.x], m_unused, rowc_s[threadIdx.x]);
+    }
   }
-  const BiasT* brow = nullptr;
-  if constexpr (kBias && !kRelPos) brow = bias + (static_cast<long long>(h) * n + row) * n;
 
-  float acc[16];
+  float acc[F_TM][4];   // O: rows F_TM rg + i, dims 4cg + j
+  float m_run[F_TM];    // running max of each row's log2-unit logits
+  float l_run[F_TM];    // this thread's share of each row's sum of their exp2
 #pragma unroll
-  for (int d = 0; d < 16; ++d) acc[d] = 0.0f;
-  float m_run = -INFINITY;  // running max of the log2-unit logits
-  float l_run = 0.0f;       // running sum of their exp2
+  for (int i = 0; i < F_TM; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load_tile(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* k_t = f_smem + (t & 1) * F_STAGE;
-    const float* v_t = k_t + F_KT * HD;
-    // steps of F_KB keys; each one starts below n, so it holds a key < n
-    for (int jb = 0; jb < F_KT && t * F_KT + jb < n; jb += F_KB) {
-      float s[F_KB];
+    cp_async_wait_all();
+    __syncthreads();  // tile t (and Q) landed; every warp is done with tile t - 1
+    if (t + 1 < ntiles) load_tile(t + 1);
+    float* k_t = f_smem + F_Q + (t & 1) * F_STAGE;
+    const float* v_t = k_t + F_BKV * F_PAD;
+    const int key0 = t * F_BKV;
+
+    // S = Q K^T: 16 steps of 4 dims, 16 F_TM FMAs a step
+    float s[F_TM][4];
 #pragma unroll
-      for (int jj = 0; jj < F_KB; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(k_t + (jb + jj) * HD) + sub;
-        float x = 0.0f;
+    for (int i = 0; i < F_TM; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 kv = kr[4 * i];
-          x = fmaf(qr[4 * i], kv.x, x);
-          x = fmaf(qr[4 * i + 1], kv.y, x);
-          x = fmaf(qr[4 * i + 2], kv.z, x);
-          x = fmaf(qr[4 * i + 3], kv.w, x);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 qa[F_TM], kv[4];
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i) qa[i] = ld4(q_s + (F_TM * rg + i) * F_PAD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ld4(k_t + (cg + 16 * j) * F_PAD + d);
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kv[j].w, s[i][j]);
         }
-        s[jj] = x;
-      }
-      float mx = m_run;
+    }
+
+    // scale and bias into log2 units, mask, and the online softmax
+    int koff[4];
+    if constexpr (kRelPos) {
 #pragma unroll
-      for (int jj = 0; jj < F_KB; ++jj) {
-        float x = s[jj];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-        const int key = t * F_KT + jb + jj;
+      for (int j = 0; j < 4; ++j) koff[j] = key_s[key0 + cg + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < F_TM; ++i) {
+      const int row = q0 + F_TM * rg + i;
+      // kBias: one row's four bias loads in flight at a time (the dense
+      // instances take the most registers)
+      if constexpr (kBias && !kRelPos) asm volatile("" ::: "memory");
+      float mx = m_run[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = key0 + cg + 16 * j;
+        float x = s[i][j];
         if constexpr (kRelPos) {  // s' = s * scale * log2(e) + T[idx] * log2(e)
-          const int idx = key == 0 ? c0_row : a_row - m_row * key_s[key];
+          const int idx = key == 0 ? rowc_s[F_TM * rg + i]
+                                   : rowa_s[F_TM * rg + i] - (row != 0) * koff[j];
           x = fmaf(x, scale_log2, tab_s[idx]);
         } else if constexpr (kBias) {  // s' = s * scale * log2(e) + bias * log2(e)
+          const BiasT* brow = bias + rowoff_s[F_TM * rg + i];
           x = fmaf(x, scale_log2, key < n ? bias_at(brow + key) * LOG2E : 0.0f);
         } else {
           x *= scale_log2;
         }
-        s[jj] = key < n ? x : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
+        s[i][j] = key < n ? x : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
       }
-      const float alpha = exp2f(m_run - mx);  // 0 on the first step
-      m_run = mx;
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = exp2f(m_run[i] - mx);  // 0 on the first tile
+      m_run[i] = mx;
       float sum = 0.0f;
 #pragma unroll
-      for (int jj = 0; jj < F_KB; ++jj) {
-        s[jj] = exp2f(s[jj] - mx);
-        sum += s[jj];
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = exp2f(s[i][j] - mx);
+        sum += s[i][j];
       }
-      l_run = fmaf(l_run, alpha, sum);
+      l_run[i] = fmaf(l_run[i], alpha, sum);
 #pragma unroll
-      for (int d = 0; d < 16; ++d) acc[d] *= alpha;
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+
+    __syncthreads();  // every warp has its logits: the K tile becomes P
+    float* p_s = k_t;  // [F_BQ][F_PAD]
 #pragma unroll
-      for (int jj = 0; jj < F_KB; ++jj) {
-        const float4* vr = reinterpret_cast<const float4*>(v_t + (jb + jj) * HD) + sub;
+    for (int i = 0; i < F_TM; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 vv = vr[4 * i];
-          acc[4 * i] = fmaf(s[jj], vv.x, acc[4 * i]);
-          acc[4 * i + 1] = fmaf(s[jj], vv.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(s[jj], vv.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(s[jj], vv.w, acc[4 * i + 3]);
+      for (int j = 0; j < 4; ++j) p_s[(F_TM * rg + i) * F_PAD + cg + 16 * j] = s[i][j];
+    __syncthreads();
+
+    // O += P V: 16 steps of 4 keys, 16 F_TM FMAs a step
+#pragma unroll
+    for (int c = 0; c < F_BKV; c += 4) {
+      float4 pa[F_TM], vv[4];
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i) pa[i] = ld4(p_s + (F_TM * rg + i) * F_PAD + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = ld4(v_t + (c + j) * HD + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i) {
+        const float p4[4] = {pa[i].x, pa[i].y, pa[i].z, pa[i].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][0] = fmaf(p4[j], vv[j].x, acc[i][0]);
+          acc[i][1] = fmaf(p4[j], vv[j].y, acc[i][1]);
+          acc[i][2] = fmaf(p4[j], vv[j].z, acc[i][2]);
+          acc[i][3] = fmaf(p4[j], vv[j].w, acc[i][3]);
         }
       }
     }
-    __syncthreads();  // the stage is free for tile t + 2
   }
 
-  if (qrow >= n) return;
-  const float inv_l = 1.0f / l_run;
-  float* dst = o + ((static_cast<long long>(b) * n + qrow) * heads + h) * HD + 4 * sub;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(dst + 16 * i) = make_float4(
-        acc[4 * i] * inv_l, acc[4 * i + 1] * inv_l, acc[4 * i + 2] * inv_l, acc[4 * i + 3] * inv_l);
+  for (int i = 0; i < F_TM; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int qrow = q0 + F_TM * rg + i;
+    if (qrow >= n) continue;
+    const float inv_l = 1.0f / l;
+    float* dst = o + ((static_cast<long long>(b) * n + qrow) * heads + h) * HD + 4 * cg;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc[i][0] * inv_l, acc[i][1] * inv_l, acc[i][2] * inv_l, acc[i][3] * inv_l);
+  }
 }
 
 template <typename BiasT, bool kRelPos>
@@ -838,8 +939,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const void*
   if (smem > SMEM_MAX || n < 1 || batch * heads > 65535 || !f32_operand_ok(q, qs) ||
       !f32_operand_ok(k, ks) || !f32_operand_ok(v, vs) || reinterpret_cast<uintptr_t>(o) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + F_ROWS - 1) / F_ROWS, batch * heads);
-  attention_f32_kernel<BiasT, kRelPos><<<grid, F_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + F_BQ - 1) / F_BQ, batch * heads);
+  attention_f32_kernel<BiasT, kRelPos>
+      <<<grid, F_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       static_cast<const BiasT*>(bias), n, heads, scale * LOG2E, r, gh, gw);

@@ -8,10 +8,11 @@ in q's dtype.  The kernel has two bodies, chosen by q's dtype:
 
 - bf16 q/k/v: TMA + wgmma (16-byte aligned rows, no zero stride: a TMA
   tensor map takes none), f32 logits and softmax, bf16 probabilities;
-- f32 q/k/v (`--fp32`, the converter's gate): SIMT FMA on the CUDA cores in
-  true f32, no TF32 and no wgmma (16-byte aligned pointers and strides in
-  multiples of 4 elements, since rows are read as float4; a zero stride is
-  fine, as there is no tensor map), its own three `*_f32_fwd` entries.
+- f32 q/k/v (`--fp32`, the converter's gate): register-tiled SIMT FMA on
+  the CUDA cores in true f32, no TF32 and no wgmma (16-byte aligned
+  pointers and strides in multiples of 4 elements, since rows are read as
+  float4; a zero stride is fine, as there is no tensor map), its own three
+  `*_f32_fwd` entries.
 
 There is no cast between the two: an f32 call on CUDA runs the f32 body or
 raises, and any other dtype raises.  An additive bias, shared by the batch
@@ -53,10 +54,13 @@ BIAS_DTYPES = (torch.bfloat16, torch.float32)
 _BQ, _BKV, _STAGES = 64, 128, 2
 RELPOS_SMEM_BASE = 1024 + _BQ * HEAD_DIM * 2 + 2 * _STAGES * _BKV * HEAD_DIM * 2 + 48
 SMEM_MAX = 232448
-# The f32 body's (csrc/attention.cu relpos_smem_f32): two stages of a 64-key
-# K and V tile in f32, then the table row and every key's offset.
-_F_KT = 64
-RELPOS_F32_SMEM_BASE = 2 * 2 * _F_KT * HEAD_DIM * 4
+# The f32 body's (csrc/attention.cu relpos_smem_f32): the 64-row Q tile and
+# two stages of a 64-key K tile, rows padded to 68 floats, and a 64-key V
+# tile, in f32, and two ints a query row (a_i, idx(i, 0)); then the table row
+# and every key's offset.
+_F_BQ, _F_BKV, _F_PAD = 64, 64, HEAD_DIM + 4
+RELPOS_F32_SMEM_BASE = 4 * (_F_BQ * _F_PAD + 2 * (_F_BKV * _F_PAD + _F_BKV * HEAD_DIM)
+                            + 2 * _F_BQ)
 
 QKV_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -123,7 +127,7 @@ def relpos_smem_bytes(n: int, r: int, f32: bool = False) -> int:
     """The table entry's dynamic shared memory for N tokens and R entries,
     of the bf16 body or (`f32`) the f32 one."""
     if f32:
-        return RELPOS_F32_SMEM_BASE + -(-r // 4) * 16 + -(-n // _F_KT) * _F_KT * 4
+        return RELPOS_F32_SMEM_BASE + -(-r // 4) * 16 + -(-n // _F_BKV) * _F_BKV * 4
     return RELPOS_SMEM_BASE + -(-r // 4) * 16 + -(-n // _BKV) * _BKV * 4
 
 

@@ -26,6 +26,12 @@ captured into a CUDA graph) and eager, at the shapes of `chip_smoke.py`:
   in chiprun_out/).
 - K2 within 2e-2 of this tree's, with SDPA beside it; K4 exactly, with
   `torch._int_mm` beside it; K3 within 1e-3.
+- K2's f32 body, where the other source has it (`d2s_attention_f32_fwd`):
+  a ptxas report of both versions, and both versions each within
+  `F32_ATTN_MAX_ABS` of the f32 plain version and timed beside f32 SDPA
+  and the bound at the flagship's [1, 778, 16, 64] (qkv views), BEiT-L's
+  [1, 577, 16, 64] with its 18x32 f32 table (SDPA with the expanded table
+  as a float mask) and DepthPro's [35, 730, 16, 64].
 
 The other DIBR sources may take the launch geometry as this tree's do, or
 not (the earlier thread-per-pixel ones), as their source declares; the other `quant_matmul.cu` may
@@ -345,6 +351,62 @@ def main(argv) -> int:
                             shape=f"[{h},{w},3] f32", max_abs_between=err)
         del img, px
 
+    # -- K2's f32 body -------------------------------------------------------
+    if "attention.cu" in present and "d2s_attention_f32_fwd" in libs["attention.cu"].signatures:
+        for tag, lib in (("this", K2.KERNEL), ("other", libs["attention.cu"])):
+            rep = build_report(lib, out_dir, tag)
+            result["builds"][f"{tag}:attention.cu"] = rep
+            for fn, k in rep.items():
+                if "f32" in fn:
+                    print(f"[build] {tag} attention.cu {fn}: {k}", flush=True)
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 57)
+        for key, shape, table in (("attention_f32", cs.ATTN_SHAPE, None),
+                                  ("attention_relpos_f32", cs.BIAS_ATTN_SHAPE, (18, 32)),
+                                  ("attention_f32_depthpro", cs.DEPTHPRO_ATTN_SHAPE, None)):
+            B, N, H, D = shape
+            if table is None:  # the encoder's q/k/v views of one qkv projection
+                base = torch.randn(B, N, 3 * H * D, generator=gen, device=dev)
+                q, k, v = (t.unflatten(-1, (H, D)) for t in base.split(H * D, dim=-1))
+            else:
+                q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            nbytes = 4 * B * N * H * D * 4
+            if table is None:
+                def call(q=q, k=k, v=v):
+                    return K2.attention(q, k, v)
+                want = K2.attention_ref(q, k, v)
+                library = lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+                label = f"{list(shape)} f32 qkv views"
+            else:
+                gh, gw = table
+                tab = 2.0 * torch.randn(H, K2.relative_position_count(gh, gw), generator=gen,
+                                        device=dev)
+                dense = K2.expand_rel_pos(tab, gh, gw)
+
+                def call(q=q, k=k, v=v, tab=tab, gh=gh, gw=gw):
+                    return K2.attention_relpos(q, k, v, tab, gh, gw)
+                want = K2.attention_ref(q, k, v, dense)
+                library = lambda qh=qh, kh=kh, vh=vh, m=dense[None]: (  # noqa: E731
+                    F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m))
+                nbytes += tab.numel() * 4
+                label = f"{list(shape)} f32 + f32 table [{H},{tab.shape[1]}] ({gh}x{gw})"
+
+            def other(call=call):
+                with using(K2, libs["attention.cu"]):
+                    return call()
+            errs = {name: (fn() - want).abs().max().item()
+                    for name, fn in (("this", call), ("other", other))}
+            if max(errs.values()) > cs.F32_ATTN_MAX_ABS:
+                raise AssertionError(f"{key}: a version is off its plain version: {errs}")
+            del want
+            rows[key] = dict(cs.time_both(torch, {"this": call, "other": other,
+                                                  "library": library}),
+                             shape=label, max_abs_vs_plain=errs,
+                             bound=cs.bound_ms(policy.name, nbytes, 4 * B * H * N * N * D,
+                                               "f32"))
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
+
     # -- K2 ------------------------------------------------------------------
     B, N, H, D = cs.ATTN_SHAPE
     if "attention.cu" in present:
@@ -394,7 +456,8 @@ def main(argv) -> int:
 
     for name, row in rows.items():
         e = row["eager"]
-        cols = [k for k in row if k not in ("eager", "shape", "bound", "max_abs_between")]
+        cols = [k for k in row if k not in ("eager", "shape", "bound", "max_abs_between",
+                                            "max_abs_vs_plain")]
         bound = (f"; bound {row['bound'][0]:.4f} ({row['bound'][1]}), this at "
                  f"{row['bound'][0] / row['this']:.0%} of it" if "bound" in row else "")
         print(f"[ab] {name} {row['shape']}: " + ", ".join(

@@ -118,9 +118,14 @@ def test_kernel_input_checks_accept_an_f32_zero_stride():
 
 
 def test_f32_table_shared_memory_at_beit_large():
-    """The f32 body's table entry at BEiT-L @512: two 32 KB stages, the 8.8 KB
-    f32 row and 10 key tiles of 64 offsets."""
-    assert K.relpos_smem_bytes(577, 2208, f32=True) == 65536 + 2208 * 4 + 10 * 64 * 4 == 76928
+    """The f32 body's table entry at BEiT-L @512: the 64-row Q tile and two
+    stages of a 64-key K tile (rows padded to 68 floats) and V tile, two
+    ints for each of the 64 query rows, the 8.8 KB f32 row and 10 key tiles
+    of 64 offsets; two blocks an SM's 228 KB."""
+    smem = K.relpos_smem_bytes(577, 2208, f32=True)
+    assert smem == (4 * (64 * 68 + 2 * (64 * 68 + 64 * 64)) + 2 * 64 * 4 + 2208 * 4
+                    + 10 * 64 * 4) == 96896
+    assert 2 * (smem + 1024) <= 233472
 
 
 @pytest.mark.parametrize("bias", [None, "dense", "table"])
@@ -139,6 +144,37 @@ def test_f32_cpu_dispatch_takes_the_plain_version(bias):
         want = attention_ref(q, k, v, dense)
     assert got.dtype == torch.float32 and torch.equal(got, want)
     assert K.KERNEL.launches == launches
+
+
+# N either side of the f32 body's 64-row query and 64-key tiles, each a
+# gh x gw + 1 token grid for the table
+F32_TILE_EDGES = {63: (2, 31), 64: (7, 9), 65: (8, 8), 129: (8, 16)}
+
+
+@pytest.mark.parametrize("bias", [None, "dense", "table"])
+@pytest.mark.parametrize("n", sorted(F32_TILE_EDGES))
+def test_f32_plain_version_at_the_tile_edges_matches_jax(n, bias):
+    """At N either side of the f32 body's tiles the f32 plain version, as an
+    f32 CPU call takes it (launching nothing), agrees with the JAX
+    `flash_attention` in interpret mode, or with `xla_attention` on JAX's
+    gather of the same bias."""
+    gh, gw = F32_TILE_EDGES[n]
+    q, k, v = _qkv((2, n, 2, 64), seed=n)
+    table = _table(2, gh, gw, seed=n + 1)
+    tq, tk, tv, tt = map(torch.from_numpy, (q, k, v, table))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    launches = K.KERNEL.launches
+    if bias is None:
+        got = multi_head_attention(tq, tk, tv)
+        want = flash_attention(jq, jk, jv, interpret=True)
+    elif bias == "dense":
+        got = multi_head_attention(tq, tk, tv, bias=K.expand_rel_pos(tt, gh, gw))
+        want = xla_attention(jq, jk, jv, bias=_jax_dense_bias(table, gh, gw))
+    else:
+        got = multi_head_attention(tq, tk, tv, rel_pos=(tt, gh, gw))
+        want = xla_attention(jq, jk, jv, bias=_jax_dense_bias(table, gh, gw))
+    assert K.KERNEL.launches == launches and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("make", [

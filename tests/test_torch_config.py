@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 import yaml
-from hypothesis import HealthCheck, given, settings as hsettings, strategies as st
+from hypothesis import HealthCheck, example, given, settings as hsettings, strategies as st
 
 import desktop2stereo_tpu.core.config as J_config
 import desktop2stereo_tpu.core.display as J_display
@@ -216,6 +216,7 @@ def test_reader_matches_safe_load_on_safe_dump_output(mapping, allow_unicode):
 
 @hsettings(max_examples=300, deadline=None, suppress_health_check=list(HealthCheck))
 @given(_MAPPINGS)
+@example({"0": "A\n"})
 def test_writer_reads_back_under_safe_load(mapping):
     text = yaml_subset.dump(mapping)
     assert _same(yaml.safe_load(text), mapping)
@@ -279,6 +280,28 @@ def test_save_settings_merge_matches_jax(settings_files, tmp_path, name):
     for key in base.extra:
         assert key in t_data, key
     _assert_settings_equal(T_config.load_settings(t_path), J_config.load_settings(j_path))
+
+
+@pytest.mark.parametrize("fields,extra", [
+    ({"model": "A\n"}, {}),
+    ({"run_mode": "a b\n"}, {}),
+    ({}, {"Model Names": ["A\n"]}),
+    ({}, {"Window Title": "title\r\n"}),
+], ids=["value", "value-with-space", "list-item", "foreign-crlf"])
+def test_save_settings_keeps_a_trailing_newline_as_jax(tmp_path, fields, extra):
+    """A string that ends in a line break is written quoted, so it reads
+    back whole, as the JAX package's `yaml.safe_dump` writes it."""
+    t_path, j_path = tmp_path / "t.yaml", tmp_path / "j.yaml"
+    T_config.save_settings(dataclasses.replace(T_config.Settings(**fields), extra=extra), t_path)
+    J_config.save_settings(dataclasses.replace(J_config.Settings(**fields), extra=extra), j_path)
+    t_data = yaml.safe_load(t_path.read_text(encoding="utf-8"))
+    assert _same(t_data, yaml.safe_load(j_path.read_text(encoding="utf-8")))
+    for key, value in extra.items():
+        assert _same(t_data[key], value)
+    t_back, j_back = T_config.load_settings(t_path), J_config.load_settings(j_path)
+    _assert_settings_equal(t_back, j_back)
+    assert all(getattr(t_back, k) == v for k, v in fields.items())
+    assert _same(t_back.extra, extra)
 
 
 def test_save_settings_to_a_new_file(tmp_path):

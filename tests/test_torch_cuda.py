@@ -812,12 +812,14 @@ def _f32_layout(layout, B, N, H, gen, dev):
 
 @pytest.mark.parametrize("layout", ["contiguous", "qkv views", "heads-major"])
 @pytest.mark.parametrize("B,N,H", [(1, 778, 16), (2, 1, 3), (2, 31, 3), (2, 33, 3), (2, 63, 3),
-                                   (2, 64, 3), (2, 65, 3), (2, 129, 3), (2, 1370, 12)])
+                                   (2, 64, 3), (2, 65, 3), (2, 127, 3), (2, 128, 3),
+                                   (2, 129, 3), (8, 129, 20), (2, 1370, 12)])
 def test_f32_attention_kernel_matches_plain(dev, B, N, H, layout):
     """f32 q/k/v take the f32 body (one launch of its entry, none of the
     bf16 ones) at the flagship's [1, 778, 16, 64], on either side of its
-    32-row query and 64-key tiles, and at 1370 tokens: within 1e-4 of the
-    f32 plain version, f32 out."""
+    64-row query and 64-key tiles, over more than one wave of blocks (480
+    at [8, 129, 20], 528 at 1370 tokens, two an SM on 132 SMs): within 1e-4
+    of the f32 plain version, f32 out."""
     gen = torch.Generator(device=dev).manual_seed(3000 + N)
     q, k, v = (_f32_layout(layout, B, N, H, gen, dev) if layout != "qkv views" else
                [t.unflatten(-1, (H, 64)) for t in torch.randn(
@@ -843,28 +845,37 @@ def test_f32_attention_kernel_reads_a_zero_stride(dev):
 
 
 @pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("N", [1, 31, 33, 64, 65, 130, 577])
+@pytest.mark.parametrize("N", [1, 31, 33, 63, 64, 65, 127, 128, 129, 130, 577])
 def test_f32_biased_attention_kernel_matches_plain(dev, N, bias_dtype):
+    """Either side of the f32 body's 64-row and 64-key tiles; at 577 tokens
+    16 heads a batch element give 320 blocks, more than one wave."""
     gen = torch.Generator(device=dev).manual_seed(4000 + N)
-    q, k, v = _f32_layout("qkv views", 2, N, 4, gen, dev)
-    bias = (2.0 * torch.randn(4, N, N, generator=gen, device=dev)).to(bias_dtype)
+    H = 16 if N > 500 else 4
+    q, k, v = _f32_layout("qkv views", 2, N, H, gen, dev)
+    bias = (2.0 * torch.randn(H, N, N, generator=gen, device=dev)).to(bias_dtype)
     before = dict(K2.KERNEL.entry_launches)
     got = K2.attention(q, k, v, bias)
     _entry_moves(before, "d2s_attention_bias_f32_fwd")
     want = K2.attention_ref(q, k, v, bias.float())
     torch.cuda.synchronize()
-    assert got.shape == (2, N, 4, 64) and got.dtype == torch.float32
+    assert got.shape == (2, N, H, 64) and got.dtype == torch.float32
     assert (got - want).abs().max().item() <= F32_ATTN_MAX_ABS
     if N > 1:
         assert (K2.attention_ref(q, k, v) - want).abs().max().item() > 0.1
 
 
+# with 63 and 65 tokens beside 7x9's 64 and 8x16's 129: either side of the
+# f32 body's 64-row and 64-key tiles
+F32_RELPOS_GRIDS = RELPOS_GRIDS + [(2, 31), (8, 8)]
+
+
 @pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("grid", RELPOS_GRIDS, ids=[f"{h}x{w}" for h, w in RELPOS_GRIDS])
+@pytest.mark.parametrize("grid", F32_RELPOS_GRIDS, ids=[f"{h}x{w}" for h, w in F32_RELPOS_GRIDS])
 def test_f32_relpos_attention_kernel_matches_plain_and_the_dense_entry(dev, grid, table_dtype):
     """The f32 table entry: within 1e-4 of the plain version and equal bit
     for bit to the f32 dense entry on the expanded bias (the same f32
-    operands and operations)."""
+    operands and operations); at 32x32 (1025 tokens, 16 heads) 272 blocks,
+    more than one wave."""
     gh, gw = grid
     N = gh * gw + 1
     gen = torch.Generator(device=dev).manual_seed(5000 + N)
