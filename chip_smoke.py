@@ -2977,9 +2977,10 @@ def cli_multi_phases(np, counters, layers, card, out_dir):
     shutil.rmtree(trace_dir, ignore_errors=True)
     run = CliRun(counters)
     rc = run(base + ["--duration", str(PROFILE_CLI_SECONDS), "--profile-dir", str(trace_dir)])
-    files = sorted(trace_dir.glob("*.json"))
-    if rc != 0 or len(files) != 1:
-        raise AssertionError(f"cli --profile-dir: rc {rc}, trace files {files}")
+    spans = sorted(trace_dir.glob("*.spans.json"))
+    files = sorted(set(trace_dir.glob("*.json")) - set(spans))
+    if rc != 0 or len(files) != 1 or len(spans) != 1:
+        raise AssertionError(f"cli --profile-dir: rc {rc}, trace files {files}, span logs {spans}")
     size_mb = files[0].stat().st_size / 1e6
     events = json.loads(files[0].read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
@@ -4875,7 +4876,7 @@ def main() -> int:
 
             def frame():
                 t0 = time.perf_counter()
-                engine._finish((*engine._dispatch(frames[1]), t0, t0))
+                engine._finish((*engine._dispatch(frames[1]), (0, 0), t0))
         else:
             def frame():  # pageable upload from numpy, .cpu() downloads
                 sbs, depth = program(frames[1])

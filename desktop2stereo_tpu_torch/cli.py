@@ -39,7 +39,9 @@ seed i, `<ring>_i` shm rings, the same image or video) into N sinks of the
 stream's newest frame a launch (the frames must share one shape, and
 `--crop` is refused).  `--profile-dir DIR` writes a torch.profiler Chrome
 trace of the run after the warm-up into DIR, taken on the engine's compute
-thread.
+thread, and beside it the engine's span log as JSON (`<trace>.spans.json`:
+every span, each frame's latency in parts, and the offset that places the
+spans on the trace).
 """
 
 from __future__ import annotations
@@ -124,8 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between stats lines (0 = quiet)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run (Chrome trace "
-                        "JSON, CPU and CUDA activity) into this dir; starts "
-                        "after the warm-up so kernel builds stay out of it")
+                        "JSON, CPU and CUDA activity) into this dir, and the "
+                        "engine's span log beside it; starts after the "
+                        "warm-up so kernel builds stay out of it")
     p.add_argument("--streams", type=int, default=1,
                    help="serve N concurrent feeds through one pipeline "
                         "(per-stream state; png/video/mjpeg sinks get "
@@ -474,7 +477,7 @@ def run(args=None) -> int:
             time.sleep(0.05)
     finally:
         if engine.trace is not None:
-            print(f"[d2s] profiler trace -> {engine.trace.finish(TRACE_WRITE_S)}")
+            _write_trace(engine)
         shutdown.set()
         # watchdog: hard-exit if native threads refuse to unwind
         # (reference main.py:325-339)
@@ -503,6 +506,18 @@ def run(args=None) -> int:
     print(f"[d2s] done: {final.frames} frames ({final.dropped} dropped), "
           f"avg {final.fps:.1f} FPS, 1% low {final.fps_1pct_low:.1f}")
     return 0
+
+
+def _write_trace(engine) -> None:
+    """Wait for the engine's profiler trace, then write its span log beside
+    it (the per-frame split, with the offset that places each span on the
+    trace); print both paths."""
+    from desktop2stereo_tpu_torch.pipeline.profiling import export_spans
+
+    path = engine.trace.finish(TRACE_WRITE_S)
+    print(f"[d2s] profiler trace -> {path}")
+    if path is not None:
+        print(f"[d2s] span log -> {export_spans(engine.spans, path)}")
 
 
 def _warm_line(program, shape) -> None:
@@ -578,7 +593,7 @@ def _run_multi(args, settings, source0, program, sink0) -> int:
         stats = engine.run(duration=args.duration)
         if engine.trace is not None:
             # the compute thread writes it as it leaves, maybe after run()
-            print(f"[d2s] profiler trace -> {engine.trace.finish(TRACE_WRITE_S)}")
+            _write_trace(engine)
     finally:
         for obj in sources + sinks:
             try:

@@ -29,6 +29,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from desktop2stereo_tpu_torch.pipeline.profiling import PROCESS_LOG, annotate
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 # $D2S_BUILD_DIR moves the built libraries (a cold build beside a warm one)
@@ -61,9 +63,11 @@ class CudaLibrary:
     `signatures` maps each exported C function to its argument types; every
     function returns an int (a cudaError_t).  `entry_launches` counts kernel
     launches made through `call` by entry point (K2's biased and unbiased
-    entries apart), except those recorded into a CUDA graph capture; a
-    wrapper adds to it where it launches.  `launches` is their sum, and
-    callers set it to 0 before a run they want to count.
+    entries apart), and `captured_launches` those recorded into a CUDA
+    graph capture instead, which run at each replay; a wrapper adds to
+    `entry_launches` where it launches.  `launches` is the sum of
+    `entry_launches`, and callers set it to 0 before a run they want to
+    count, which clears both.
     """
 
     def __init__(self, source: str, signatures: Dict[str, Sequence],
@@ -72,6 +76,7 @@ class CudaLibrary:
         self.signatures = dict(signatures)
         self.extra_flags = tuple(extra_flags)
         self.entry_launches: Dict[str, int] = {}
+        self.captured_launches: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -85,6 +90,7 @@ class CudaLibrary:
         if n != 0:
             raise ValueError(f"launch counts can only be reset to 0, not {n}")
         self.entry_launches.clear()
+        self.captured_launches.clear()
 
     def _flags(self) -> tuple:
         return ARCH_FLAGS + BASE_FLAGS + self.extra_flags
@@ -150,18 +156,20 @@ class CudaLibrary:
             msg = lib.d2s_error_string(code).decode()
             raise RuntimeError(f"{self.source.name}:{name} failed: "
                                f"cudaError {code} ({msg})")
-        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
-            self.entry_launches[name] = self.entry_launches.get(name, 0) + 1
+        capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        counts = self.captured_launches if capturing else self.entry_launches
+        counts[name] = counts.get(name, 0) + 1
 
 
 def build_all() -> Dict[str, Optional[float]]:
     """Build (where missing) and load the five kernel sources' libraries
-    (K2, K1, K3, K5, K4), one nvcc per source, all started together;
+    (K2, K1, K3, K5, K4), one nvcc per source, all started together, in
+    the span `d2s.setup.kernels` of the process's span log;
     → {source name: nvcc seconds, None where it was already built}."""
     from desktop2stereo_tpu_torch.ops.kernels import (
         attention, dibr, dibr_fill, quant_matmul, warp)
 
     libs = [attention.KERNEL, dibr.KERNEL, warp.KERNEL, dibr_fill.KERNEL, quant_matmul.KERNEL]
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with annotate("d2s.setup.kernels", log=PROCESS_LOG), ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.lib, libs))
     return {k.source.name: k.build_seconds for k in libs}

@@ -4,9 +4,9 @@ The JAX package proves that its Pallas kernels survive a sharded trace by
 counting `pallas_call` equations in the jaxpr (`parallel/introspect.py:
 count_prims` there).  The port has no graph to inspect: each kernel
 wrapper counts its own launches (`ops/kernels/build.py:CudaLibrary.
-entry_launches`, one per launch, none for a launch recorded into a CUDA
-graph), so a call's launches on this rank are the counts after it less the
-counts before.  CPU tensors take the plain versions and launch nothing.
+entry_launches`, one per launch; a launch recorded into a CUDA graph is
+counted apart, in `captured_launches`), so a call's launches on this rank
+are the counts after it less the counts before.  CPU tensors take the plain versions and launch nothing.
 """
 
 from __future__ import annotations

@@ -11,6 +11,15 @@ its upload has completed) and a `non_blocking` host→device copy; and
 device→host copies of the outputs into pinned memory, enqueued right after
 the frame is dispatched and waited on through a CUDA event in `_finish`.  A
 CPU program takes the frame as is.
+
+Each frame is one id, `(feed, capture sequence number)`, shared by its
+spans in `engine.spans` (`pipeline/profiling.py`): `d2s.grab` (capture
+thread), the `taken` mark, `d2s.dispatch` with `d2s.staging` and
+`d2s.call` (the program's stage ranges inside), `d2s.finish` (compute
+thread) and `d2s.sink` (sink thread).  The capture time `t0` is the start
+of `d2s.grab` in `time.perf_counter()` seconds, the last element of every
+mailbox item, and the sink gets it and the frame's id in `stats` (`"t0"`,
+`"frame"`); `stats()["latency"]` is fed from the same spans.
 """
 
 from __future__ import annotations
@@ -23,8 +32,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from desktop2stereo_tpu_torch.pipeline import profiling
 from desktop2stereo_tpu_torch.pipeline.metrics import FpsCounter, StageLatency
-from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest
+from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest, annotate
 
 
 class Mailbox:
@@ -80,7 +90,6 @@ class EngineStats:
     latency: dict
     frames: int
     dropped: int
-    latency_median: Optional[dict] = None
 
 
 class _HostStaging:
@@ -132,8 +141,10 @@ class FrameEngine:
                              f"frames are staged on); {type(program).__name__} has none")
         self.device = torch.device(program.device)
         self._staging = _HostStaging(self.device) if self.device.type == "cuda" else None
-        self.raw_box = Mailbox()
-        self.out_box = Mailbox()
+        self.raw_box = Mailbox()  # items (frame, frame id, t0)
+        self.out_box = Mailbox()  # items (sbs, depth, frame id, t0)
+        self.spans = profiling.engine_log()
+        self._captured = 0  # capture sequence numbers handed out
         self.latency = StageLatency()
         self.fps = FpsCounter()
         self.frames = 0
@@ -149,17 +160,25 @@ class FrameEngine:
 
     # ---- stages ----------------------------------------------------------
 
+    def _next_frame(self) -> profiling.FrameId:
+        fid = (0, self._captured)
+        self._captured += 1
+        return fid
+
     def _capture_loop(self) -> None:
+        profiling.bind(self.spans)
         interval = 1.0 / self.target_fps if self.target_fps > 0 else 0.0
         try:
             while not self.shutdown.is_set():
-                t0 = time.perf_counter()
-                frame = self.source.grab()
+                fid = self._next_frame()
+                with annotate("d2s.grab", (fid,)) as grab:
+                    frame = self.source.grab()
                 if frame is None:
                     self.capture_done.set()  # drain what is in flight
                     break
-                self.raw_box.put((frame, t0))
-                self.latency.record("capture", time.perf_counter() - t0)
+                t0 = grab.start / 1e9
+                self.raw_box.put((frame, fid, t0))
+                self.latency.record("capture", grab.seconds)
                 if interval:
                     sleep = interval - (time.perf_counter() - t0)
                     if sleep > 0:
@@ -175,10 +194,14 @@ class FrameEngine:
             # a source may hand out a read-only view (the TCP source's frames
             # are its received bytes), which torch.from_numpy does not take
             frame = np.require(frame, requirements="CW")
-            sbs, depth = self.program(torch.from_numpy(frame))
+            with annotate("d2s.call"):
+                sbs, depth = self.program(torch.from_numpy(frame))
             return sbs, depth if self.wants_depth else None, None
         with torch.inference_mode():
-            sbs, depth = self.program(self._staging.upload(frame))
+            with annotate("d2s.staging"):
+                x = self._staging.upload(frame)
+            with annotate("d2s.call"):
+                sbs, depth = self.program(x)
             sbs_h = _to_host_async(sbs)
             depth_h = _to_host_async(depth) if self.wants_depth else None
             done = torch.cuda.Event()
@@ -186,8 +209,9 @@ class FrameEngine:
         return sbs_h, depth_h, done
 
     def _compute_loop(self) -> None:
+        profiling.bind(self.spans)
         seq = -1
-        pending = None  # (sbs, depth, event, t0, t_submit)
+        pending = None  # ((sbs, depth, event, frame id, t0), its d2s.dispatch span)
         trace = self.trace
         try:
             if trace is not None:
@@ -199,7 +223,7 @@ class FrameEngine:
                 # so a paced source's sink gets each frame as soon as it is done
                 item, seq = self.raw_box.get(timeout=0.0, last_seq=seq)
                 if item is None and pending is not None:
-                    self._finish(pending)
+                    self._finish_pending(pending)
                     pending = None
                     self._has_pending = False
                 if item is None:
@@ -207,16 +231,17 @@ class FrameEngine:
                 if item is None:
                     self._consumed_seq = seq
                     continue
-                frame, t0 = item
-                t1 = time.perf_counter()
-                out = self._dispatch(frame)
+                frame, fid, t0 = item
+                self.spans.mark("taken", (fid,))
+                with annotate("d2s.dispatch", (fid,)) as dispatched:
+                    out = self._dispatch(frame)
                 if pending is not None:  # finish frame N-1 while N runs
-                    self._finish(pending)
-                pending = (*out, t0, t1)
+                    self._finish_pending(pending)
+                pending = ((*out, fid, t0), dispatched)
                 self._has_pending = True
                 self._consumed_seq = seq
             if pending is not None:
-                self._finish(pending)
+                self._finish_pending(pending)
                 self._has_pending = False
         except BaseException as e:  # handed to run()/join(), which re-raise it
             self._error = e
@@ -225,33 +250,41 @@ class FrameEngine:
             if trace is not None:
                 trace.end()
 
+    def _finish_pending(self, pending) -> None:
+        result, dispatched = pending
+        with annotate("d2s.finish", dispatched.frames) as finished:
+            self._finish(result)
+        self.latency.record("depth+compose", (finished.end - dispatched.start) / 1e9)
+
     def _finish(self, pending) -> None:
-        sbs, depth, done, t0, t1 = pending
+        """Wait for a dispatched frame, `pending` (sbs, depth, event, frame
+        id, t0), and hand it to the sink thread."""
+        sbs, depth, done, fid, t0 = pending
         if done is not None:
             done.synchronize()
         sbs_np = sbs.numpy()
         depth_np = depth.numpy() if depth is not None else None
-        self.latency.record("depth+compose", time.perf_counter() - t1)
-        self.out_box.put((sbs_np, depth_np, t0))
+        self.out_box.put((sbs_np, depth_np, fid, t0))
         self.frames += 1
         self.fps.tick()
 
     def _sink_loop(self) -> None:
+        profiling.bind(self.spans)
         seq = -1
         try:
             while not self.shutdown.is_set():
                 item, seq = self.out_box.get(timeout=0.1, last_seq=seq)
                 if item is None:
                     continue
-                sbs_np, depth, t0 = item
-                t1 = time.perf_counter()
+                sbs_np, depth, fid, t0 = item
                 self._sink_busy = True
                 try:
-                    self.sink.push(sbs_np, depth, self.stats())
+                    with annotate("d2s.sink", (fid,)) as pushed:
+                        self.sink.push(sbs_np, depth, {**self.stats(), "t0": t0, "frame": fid})
                 finally:
                     self._sink_busy = False
                     self._sink_seq = seq
-                self.latency.record("sink", time.perf_counter() - t1)
+                self.latency.record("sink", pushed.seconds)
         except BaseException as e:  # handed to run()/join(), which re-raise it
             self._error = e
             self.shutdown.set()
@@ -266,7 +299,8 @@ class FrameEngine:
         """Enqueue a frame captured before start() (the CLI's shape probe),
         so it is processed as frame 0, through the same staging as every
         other frame, rather than lost."""
-        self.raw_box.put((frame, t0 if t0 is not None else time.perf_counter()))
+        self.raw_box.put((frame, self._next_frame(),
+                          t0 if t0 is not None else time.perf_counter()))
 
     def start(self) -> None:
         for name, fn in (("capture", self._capture_loop),
@@ -331,5 +365,4 @@ class FrameEngine:
         s = self.fps.stats()
         return EngineStats(fps=s["fps"], fps_1pct_low=s["fps_1pct_low"],
                            frame_ms=s["frame_ms"], latency=self.latency.snapshot(),
-                           frames=self.frames, dropped=self.dropped,
-                           latency_median=self.latency.medians())
+                           frames=self.frames, dropped=self.dropped)

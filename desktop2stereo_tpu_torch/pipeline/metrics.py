@@ -13,34 +13,20 @@ from typing import Deque, Dict, Optional
 
 
 class StageLatency:
-    """Last value, EMA and bounded history of latency per named stage."""
+    """The EMA of each named stage's latency (its first sample as it is)."""
 
-    def __init__(self, history: int = 4096) -> None:
+    def __init__(self) -> None:
         self._lock = threading.Lock()
         self._ema: Dict[str, float] = {}
-        self._hist: Dict[str, Deque[float]] = {}
-        self._history = history
 
     def record(self, stage: str, seconds: float, ema_alpha: float = 0.9) -> None:
         with self._lock:
             prev = self._ema.get(stage)
             self._ema[stage] = seconds if prev is None else prev * ema_alpha + seconds * (1 - ema_alpha)
-            self._hist.setdefault(stage, deque(maxlen=self._history)).append(seconds)
 
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._ema)
-
-    def medians(self) -> Dict[str, float]:
-        with self._lock:
-            out = {}
-            for stage, hist in self._hist.items():
-                xs = sorted(hist)
-                n = len(xs)
-                if n:
-                    mid = n // 2
-                    out[stage] = xs[mid] if n % 2 else 0.5 * (xs[mid - 1] + xs[mid])
-            return out
 
 
 class FpsCounter:

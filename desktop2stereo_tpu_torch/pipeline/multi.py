@@ -22,6 +22,11 @@ slot and uploads the slot once; each launch's outputs come back in one
 device→host copy into pinned memory (the [S, ...] batch sliced per stream
 on the host), waited on through a CUDA event.  A CPU program takes the
 frames as they are.
+
+The spans are `FrameEngine`'s, in `engine.spans`, a frame's id `(stream,
+capture sequence number)`; a batched step's `d2s.dispatch` and
+`d2s.finish` belong to the frames of its fresh rows, one id a row.  Each
+sink gets its frame's capture time and id in `stats` (`"t0"`, `"frame"`).
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ import numpy as np
 import torch
 
 from desktop2stereo_tpu_torch.pipeline.engine import Mailbox, _HostStaging, _to_host_async
+from desktop2stereo_tpu_torch.pipeline import profiling
 from desktop2stereo_tpu_torch.pipeline.metrics import FpsCounter
-from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest
+from desktop2stereo_tpu_torch.pipeline.profiling import TraceRequest, annotate
 
 
 class _Stream:
@@ -47,14 +53,22 @@ class _Stream:
         # copy for a sink that never reads it
         self.wants_depth = bool(getattr(sink, "wants_depth", True))
         self.staging = _HostStaging(device) if device.type == "cuda" else None
-        self.raw = Mailbox()
-        self.out = Mailbox()
+        self.raw = Mailbox()  # items (frame, frame id, t0)
+        self.out = Mailbox()  # items (sbs, depth, frame id, t0)
         self.raw_seq = -1
         self.out_seq = -1
-        self.pending = None  # (sbs, depth, done event, t0) awaiting the host
+        self.captured = 0  # capture sequence numbers handed out
+        # ((sbs, depth, done event, frame id, t0), its d2s.dispatch span)
+        # awaiting the host
+        self.pending = None
         self.frames = 0
         self.fps = FpsCounter()
         self.done = threading.Event()
+
+    def next_frame(self) -> profiling.FrameId:
+        fid = (self.idx, self.captured)
+        self.captured += 1
+        return fid
 
 
 def _copy_out(device: torch.device, sbs: torch.Tensor, depth: Optional[torch.Tensor]):
@@ -96,21 +110,25 @@ class MultiStreamEngine:
                                        for i, (src, snk) in enumerate(zip(sources, sinks))]
         self._threads: List[threading.Thread] = []
         self._error: Optional[BaseException] = None
+        self.spans = profiling.engine_log()
         # set before start() to trace the compute thread (`--profile-dir`)
         self.trace: Optional[TraceRequest] = None
 
     # ---- per-stream capture / sink loops ---------------------------------
 
     def _capture_loop(self, st: _Stream) -> None:
+        profiling.bind(self.spans)
         interval = 1.0 / self.target_fps if self.target_fps > 0 else 0.0
         try:
             while not self.shutdown.is_set():
-                t0 = time.perf_counter()
-                frame = st.source.grab()
+                fid = st.next_frame()
+                with annotate("d2s.grab", (fid,)) as grab:
+                    frame = st.source.grab()
                 if frame is None:
                     st.done.set()
                     return
-                st.raw.put((frame, t0))
+                t0 = grab.start / 1e9
+                st.raw.put((frame, fid, t0))
                 if interval:
                     slack = interval - (time.perf_counter() - t0)
                     if slack > 0:
@@ -120,13 +138,16 @@ class MultiStreamEngine:
             self.shutdown.set()
 
     def _sink_loop(self, st: _Stream) -> None:
+        profiling.bind(self.spans)
         try:
             while not self.shutdown.is_set():
                 item, st.out_seq = st.out.get(timeout=0.1, last_seq=st.out_seq)
                 if item is None:
                     continue
-                sbs_np, depth, _t0 = item
-                st.sink.push(sbs_np, depth, {"stream": st.idx, **st.fps.stats()})
+                sbs_np, depth, fid, t0 = item
+                with annotate("d2s.sink", (fid,)):
+                    st.sink.push(sbs_np, depth, {"stream": st.idx, **st.fps.stats(),
+                                                 "t0": t0, "frame": fid})
         except BaseException as e:  # handed to run(), which re-raises it
             self._error = e
             self.shutdown.set()
@@ -144,22 +165,26 @@ class MultiStreamEngine:
     def _dispatch(self, st: _Stream, frame: np.ndarray):
         """Upload, run, and enqueue the output copies: → (sbs, depth, event)."""
         with torch.inference_mode():
-            if st.staging is None:
-                # a read-only source view (the tcp source's frames) is copied
-                x = torch.from_numpy(np.require(frame, requirements="CW"))
-            else:
-                x = st.staging.upload(frame)
-            sbs, depth = self.program(x, stream=st.idx)
+            with annotate("d2s.staging"):
+                if st.staging is None:
+                    # a read-only source view (the tcp source's frames) is copied
+                    x = torch.from_numpy(np.require(frame, requirements="CW"))
+                else:
+                    x = st.staging.upload(frame)
+            with annotate("d2s.call"):
+                sbs, depth = self.program(x, stream=st.idx)
             return _copy_out(self.device, sbs, depth if st.wants_depth else None)
 
     def _finish(self, st: _Stream) -> None:
-        sbs, depth, done, t0 = st.pending
+        (sbs, depth, done, fid, t0), dispatched = st.pending
         st.pending = None
-        st.out.put((*_to_numpy(sbs, depth, done), t0))
-        st.frames += 1
-        st.fps.tick()
+        with annotate("d2s.finish", dispatched.frames):
+            st.out.put((*_to_numpy(sbs, depth, done), fid, t0))
+            st.frames += 1
+            st.fps.tick()
 
     def _compute_loop(self) -> None:
+        profiling.bind(self.spans)
         trace = self.trace
         try:
             if trace is not None:
@@ -189,13 +214,15 @@ class MultiStreamEngine:
                     if st.pending is not None and st.done.is_set():
                         self._finish(st)
                     continue
-                frame, t0 = item
-                out = self._dispatch(st, frame)
+                frame, fid, t0 = item
+                self.spans.mark("taken", (fid,))
+                with annotate("d2s.dispatch", (fid,)) as dispatched:
+                    out = self._dispatch(st, frame)
                 # one-frame software pipeline per stream: finish the previous
                 # result while this one runs on the device
                 if st.pending is not None:
                     self._finish(st)
-                st.pending = (*out, t0)
+                st.pending = ((*out, fid, t0), dispatched)
                 progressed = True
             if not progressed:
                 # nothing new anywhere: flush the pending results, then idle
@@ -212,7 +239,8 @@ class MultiStreamEngine:
     def preload(self, frame: Any, stream: int = 0) -> None:
         """Enqueue a frame captured before start() (the CLI's shape probe)
         into a stream's raw mailbox, so that it is processed, not lost."""
-        self.streams[stream].raw.put((frame, time.perf_counter()))
+        st = self.streams[stream]
+        st.raw.put((frame, st.next_frame(), time.perf_counter()))
 
     def start(self) -> None:
         for st in self.streams:
@@ -317,11 +345,13 @@ class BatchedStreamEngine(MultiStreamEngine):
         """Upload the S rows, run, and enqueue the output copies (depth only
         if some sink reads it): → (sbs, depth, event)."""
         with torch.inference_mode():
-            if self._rows is None:
-                batch = torch.from_numpy(np.stack(frames))
-            else:
-                batch = self._rows.upload(frames, keys)
-            sbs, depth = self.program(batch, fresh=np.asarray(fresh, bool))
+            with annotate("d2s.staging"):
+                if self._rows is None:
+                    batch = torch.from_numpy(np.stack(frames))
+                else:
+                    batch = self._rows.upload(frames, keys)
+            with annotate("d2s.call"):
+                sbs, depth = self.program(batch, fresh=np.asarray(fresh, bool))
             want_depth = any(st.wants_depth for st in self.streams)
             return _copy_out(self.device, sbs, depth if want_depth else None)
 
@@ -333,7 +363,9 @@ class BatchedStreamEngine(MultiStreamEngine):
         keys: List[Any] = [None] * n                   # (stream, seq) of that frame
         fresh = [False] * n
         t0s = [0.0] * n
-        pending = None  # (sbs, depth, event, fresh mask, t0s)
+        fids: List[Any] = [None] * n                   # that frame's id
+        # ((sbs, depth, event, fresh mask, t0s, frame ids), its d2s.dispatch span)
+        pending = None
         stateless = not getattr(self.program, "stateful", False)
         while not self.shutdown.is_set():
             if trace is not None:
@@ -345,7 +377,8 @@ class BatchedStreamEngine(MultiStreamEngine):
                 item, seq = st.raw.get(timeout=0.0, last_seq=st.raw_seq)
                 if item is not None:
                     st.raw_seq = seq
-                    last[st.idx], t0s[st.idx] = item
+                    last[st.idx], fids[st.idx], t0s[st.idx] = item
+                    self.spans.mark("taken", (fids[st.idx],))
                     keys[st.idx] = (st.idx, seq)
                     fresh[st.idx] = True
                     got_any = True
@@ -356,7 +389,7 @@ class BatchedStreamEngine(MultiStreamEngine):
                         last[st.idx], keys[st.idx] = last[have[0]], keys[have[0]]
             if not got_any or any(f is None for f in last):
                 if pending is not None:
-                    self._finish_batch(pending)
+                    self._finish_step(pending)
                     pending = None
                 time.sleep(0.001)
                 continue
@@ -365,21 +398,30 @@ class BatchedStreamEngine(MultiStreamEngine):
                 raise RuntimeError(
                     f"--batched requires uniform frame shapes across streams, got "
                     f"{sorted(shapes)}; use plain --streams for mixed resolutions")
-            out = self._dispatch_batch(last, keys, fresh)
+            step = tuple(f for f, new in zip(fids, fresh) if new)
+            with annotate("d2s.dispatch", step) as dispatched:
+                out = self._dispatch_batch(last, keys, fresh)
             if pending is not None:
-                self._finish_batch(pending)
-            pending = (*out, list(fresh), list(t0s))
+                self._finish_step(pending)
+            pending = ((*out, list(fresh), list(t0s), list(fids)), dispatched)
             fresh = [False] * n
         if pending is not None:
-            self._finish_batch(pending)
+            self._finish_step(pending)
+
+    def _finish_step(self, pending) -> None:
+        result, dispatched = pending
+        with annotate("d2s.finish", dispatched.frames):
+            self._finish_batch(result)
 
     def _finish_batch(self, pending) -> None:
-        sbs, depth, done, fresh, t0s = pending
+        """Wait for a dispatched step, `pending` (sbs, depth, event, fresh
+        mask, t0s, frame ids), and hand each fresh row to its sink thread."""
+        sbs, depth, done, fresh, t0s, fids = pending
         sbs_np, depth_np = _to_numpy(sbs, depth, done)
         for st in self.streams:
             if not fresh[st.idx]:
                 continue  # no duplicate pushes
             d = depth_np[st.idx] if depth_np is not None and st.wants_depth else None
-            st.out.put((sbs_np[st.idx], d, t0s[st.idx]))
+            st.out.put((sbs_np[st.idx], d, fids[st.idx], t0s[st.idx]))
             st.frames += 1
             st.fps.tick()

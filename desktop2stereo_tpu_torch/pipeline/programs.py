@@ -29,13 +29,18 @@ empty carry (a new stream or output size) and `step` after it, as the JAX
 package's first and step programs do.  A stateless model runs `forward` and
 carries `()`.  Display mode, depth strength and edge feather switch live, at
 the start of the next frame, and every carry survives the switch.
+
+While a profiler records the thread that runs the frames, the model stage
+also opens a `d2s.model/<module>` range around each of the model's child
+modules (`profiling.ModuleRanges`); otherwise no hook is installed.  The
+warm-up records `d2s.setup.warmup` and its stages' first calls in the
+process-wide span log.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -53,7 +58,7 @@ from desktop2stereo_tpu_torch.ops.resize import (
     patch_aligned_size, resize, resize_halved)
 from desktop2stereo_tpu_torch.ops.stereo import (
     FEATHER_WIDTH, stereo_compose, stereo_compose_streams)
-from desktop2stereo_tpu_torch.pipeline.profiling import annotate
+from desktop2stereo_tpu_torch.pipeline.profiling import PROCESS_LOG, ModuleRanges, annotate
 
 HALF_MODES = ("Half-SBS", "Half-TAB")
 QUALITIES = ("high", "fast")
@@ -150,14 +155,18 @@ class FrameProgram:
     """The stages for one ProgramConfig and model; holds no frame state.
 
     `streams` 0 takes one frame [H, W, 4|3]; S > 0 takes a stream axis,
-    frames [S, H, W, 4|3], and every stage's tensors carry it in front."""
+    frames [S, H, W, 4|3], and every stage's tensors carry it in front.
+    `ranges`: the model's module ranges, shared by the programs of one
+    model (a new one otherwise)."""
 
     def __init__(self, cfg: ProgramConfig, model: torch.nn.Module,
                  spec: Optional[ModelSpec] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16, streams: int = 0) -> None:
+                 compute_dtype: torch.dtype = torch.bfloat16, streams: int = 0,
+                 ranges: Optional[ModuleRanges] = None) -> None:
         check_supported(cfg)
         self.cfg = cfg
         self.model = model
+        self.ranges = ranges if ranges is not None else ModuleRanges(model)
         self.streams = streams
         self.stateful = callable(getattr(model, "first", None)) and callable(
             getattr(model, "step", None))
@@ -319,7 +328,7 @@ class FrameProgram:
         `d2s.<stage>` profiler and NVTX range."""
         with annotate("d2s.preprocess"):
             rgb, model_in = self.preprocess(frame_u8)
-        with annotate("d2s.model"):
+        with annotate("d2s.model"), self.ranges:
             raw, carry = self.model_stage(model_in, state.model, fresh)
         if self.fused(frame_u8.shape[-3], frame_u8.shape[-2]):
             with annotate("d2s.tail"):
@@ -350,7 +359,8 @@ class _Switched:
         self._model = model
         self._compute_dtype = compute_dtype
         self._streams = streams
-        self.program = FrameProgram(cfg, model, spec, compute_dtype, streams)
+        self._ranges = ModuleRanges(model)
+        self.program = FrameProgram(cfg, model, spec, compute_dtype, streams, self._ranges)
         self.cfg = cfg
         self.spec = self.program.spec
         self.stateful = self.program.stateful
@@ -433,7 +443,7 @@ class _Switched:
             cfg = dataclasses.replace(self.cfg, display_mode=key[0],
                                       depth_strength=key[1], edge_feather=key[2])
             self.program = FrameProgram(cfg, self._model, self.spec, self._compute_dtype,
-                                        self._streams)
+                                        self._streams, self._ranges)
             self.cfg = cfg
 
     # ---- frames ----------------------------------------------------------
@@ -462,34 +472,37 @@ class _Switched:
         then `steps` whole frames (a stateful model's first frame, then
         steps); every carried state is discarded after.  Keys: pre_s,
         model_s, then tail_s (fused tail) or post_s and stereo_s (generic
-        tail)."""
-        if self._pending is not None:
-            self._apply_pending()
-        p = self.program
-        shape = ((self._streams,) if self._streams else ()) + tuple(frame_shape)
-        dummy = torch.zeros(shape, dtype=torch.uint8, device=self.device)
-        state = self._init_state(frame_shape[0], frame_shape[1])
-        report: Dict[str, float] = {}
+        tail).  The whole is the span `d2s.setup.warmup` in the process's
+        span log (`profiling.PROCESS_LOG`), each first call a child span
+        `d2s.setup.warmup.<stage>`."""
+        with annotate("d2s.setup.warmup", log=PROCESS_LOG):
+            if self._pending is not None:
+                self._apply_pending()
+            p = self.program
+            shape = ((self._streams,) if self._streams else ()) + tuple(frame_shape)
+            dummy = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+            state = self._init_state(frame_shape[0], frame_shape[1])
+            report: Dict[str, float] = {}
 
-        def timed(name, fn, *args):
-            t0 = time.perf_counter()
-            out = fn(*args)
+            def timed(name, fn, *args):
+                with annotate(f"d2s.setup.warmup.{name[:-2]}", log=PROCESS_LOG) as span:
+                    out = fn(*args)
+                    self._sync()
+                report[name] = span.seconds
+                return out
+
+            rgb, model_in = timed("pre_s", p.preprocess, dummy)
+            raw, _ = timed("model_s", p.model_stage, model_in, state.model)
+            if p.fused(frame_shape[0], frame_shape[1]):
+                timed("tail_s", p.post_stereo_stage, raw, state.ema_depth, rgb)
+            else:
+                small = timed("post_s", p.post_stage, raw, state.ema_depth)
+                timed("stereo_s", p.stereo_stage, rgb, small)
+            for _ in range(max(1, steps)):
+                self(dummy)
             self._sync()
-            report[name] = time.perf_counter() - t0
-            return out
-
-        rgb, model_in = timed("pre_s", p.preprocess, dummy)
-        raw, _ = timed("model_s", p.model_stage, model_in, state.model)
-        if p.fused(frame_shape[0], frame_shape[1]):
-            timed("tail_s", p.post_stereo_stage, raw, state.ema_depth, rgb)
-        else:
-            small = timed("post_s", p.post_stage, raw, state.ema_depth)
-            timed("stereo_s", p.stereo_stage, rgb, small)
-        for _ in range(max(1, steps)):
-            self(dummy)
-        self._sync()
-        self.reset()
-        return report
+            self.reset()
+            return report
 
 
 class ProgramCache(_Switched):

@@ -170,7 +170,7 @@ def test_unported_options_exit_naming_their_roadmap_item(tmp_path, monkeypatch, 
     --streams, --batched; A10: --profile-dir), run to the end on the CPU:
     two streams (round-robin and batched) each deliver their frames into a
     sink of their own; a profiled run writes a Chrome trace holding the
-    frame program's d2s.* ranges."""
+    frame program's d2s.* ranges, and beside it the engine's span log."""
     import json
 
     import desktop2stereo_tpu_torch.sinks as T_sinks
@@ -189,10 +189,13 @@ def test_unported_options_exit_naming_their_roadmap_item(tmp_path, monkeypatch, 
     assert len(made_sinks) == (2 if item == "A6" else 1)
     assert all(s.frames >= 1 and s.shapes == {(64, 112, 3)} for s in made_sinks)
     if item == "A10":
-        traces = list((tmp_path / "trace").glob("*.json"))
-        assert len(traces) == 1
+        spans = list((tmp_path / "trace").glob("*.spans.json"))
+        traces = [p for p in (tmp_path / "trace").glob("*.json") if p not in spans]
+        assert len(traces) == 1 and len(spans) == 1
         names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
         assert {"d2s.preprocess", "d2s.model", "d2s.tail"} <= names
+        assert {s["name"] for s in json.loads(spans[0].read_text())["spans"]} >= {
+            "d2s.dispatch", "d2s.model", "d2s.finish", "d2s.sink"}
 
 
 def test_batched_refuses_crop(tmp_path, monkeypatch, tiny_build):

@@ -1,7 +1,7 @@
 """The port's profiling hooks (`pipeline/profiling.py`) on the CPU: a
 torch.profiler Chrome trace with the frame program's `d2s.*` ranges, taken
 on the thread that runs the frames (torch.profiler records the CPU ranges
-of the thread that starts it); `StageTimer` against the JAX package's."""
+of the thread that starts it).  The span log: `tests/test_torch_spans.py`."""
 
 import json
 import threading
@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-import desktop2stereo_tpu.pipeline.profiling as J_profiling
 from desktop2stereo_tpu_torch.core.registry import ModelSpec as TSpec
 from desktop2stereo_tpu_torch.models.depth_anything import DepthAnything
 from desktop2stereo_tpu_torch.models.factory import init_random
@@ -116,18 +115,3 @@ def test_engine_traces_its_compute_thread(tmp_path):
     path = engine.trace.finish(timeout=60)
     assert Sink.count >= 1 and path is not None
     assert {"d2s.preprocess", "d2s.model", "d2s.tail"} <= _names(path)
-
-
-def test_stage_timer_records_a_raising_block_as_jax_does():
-    """A block that raises is still timed, under the same keys as the JAX
-    StageTimer's (the EMA and history are metrics.StageLatency in both)."""
-    timers = (P.StageTimer(alpha=0.5), J_profiling.StageTimer(alpha=0.5))
-    for timer in timers:
-        with timer.stage("ok"):
-            pass
-        with pytest.raises(ValueError):
-            with timer.stage("boom"):
-                raise ValueError("stage failed")
-    port, jax_side = (t.snapshot() for t in timers)
-    assert set(port) == set(jax_side) == {"ok", "boom"}
-    assert port == timers[0].latency and all(v >= 0.0 for v in port.values())
