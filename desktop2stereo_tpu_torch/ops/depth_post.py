@@ -49,8 +49,9 @@ def normalize_depth(depth: torch.Tensor, metric: bool = False,
         tc = torch.clamp(torch.round(percentile / 100.0 * (count - 1).float())
                          .to(torch.int32) + 1, 1, None)
         tc = torch.minimum(tc, count.clamp_min(1))
-        lo = sorted_v[torch.clamp(tc - 1, 0, n - 1)]
-        hi = sorted_v[torch.clamp(count - tc, 0, n - 1)]
+        # picked on the device: indexing with a 0-dim tensor reads it on the host
+        lo = sorted_v.index_select(0, torch.clamp(tc - 1, 0, n - 1).reshape(1)).reshape(())
+        hi = sorted_v.index_select(0, torch.clamp(count - tc, 0, n - 1).reshape(1)).reshape(())
         few = count <= 10
         lo = torch.where(few, 0.0, lo)
         hi = torch.where(few, 0.0, hi)

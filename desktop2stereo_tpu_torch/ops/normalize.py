@@ -5,6 +5,7 @@ Port of `desktop2stereo_tpu/ops/normalize.py`; NHWC like the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -37,10 +38,21 @@ def bgra_to_rgb(frame: torch.Tensor) -> torch.Tensor:
     return frame[..., :3].flip(-1)
 
 
+@functools.lru_cache(maxsize=16)
+def _norm_tables(norm_family: str, dtype: torch.dtype,
+                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, 1/std) on `device`, uploaded once per key: an upload from
+    pageable memory waits for the card's queue, so one per frame would hold
+    the host back until the previous frame is done.  Made outside inference
+    mode, so that tables first built under `torch.inference_mode` also serve
+    callers outside it."""
+    mean, std = norm_constants(norm_family)
+    with torch.inference_mode(False):
+        return (torch.tensor(mean, dtype=dtype, device=device),
+                torch.tensor([1.0 / s for s in std], dtype=dtype, device=device))
+
+
 def normalize_for_model(rgb01: torch.Tensor, norm_family: str = "imagenet") -> torch.Tensor:
     """(x - mean)/std with the family's constants; NHWC, x in [0,1]."""
-    mean, std = norm_constants(norm_family)
-    mean_t = torch.tensor(mean, dtype=rgb01.dtype, device=rgb01.device)
-    inv_std = torch.tensor([1.0 / s for s in std], dtype=rgb01.dtype,
-                           device=rgb01.device)
+    mean_t, inv_std = _norm_tables(norm_family, rgb01.dtype, rgb01.device)
     return (rgb01 - mean_t) * inv_std

@@ -522,6 +522,43 @@ def test_tiny_da3_on_the_card_like_the_cpu(dev):
             assert ((sc < da3.SKY_THRESHOLD) != non_sky).float().mean().item() <= 0.03
 
 
+def test_metric_program_call_waits_on_nothing(dev):
+    """A tiny DepthPro (K2's 64-wide heads) through ProgramCache: after one
+    warm call, a second enqueues the whole frame, the metric normalisation
+    included, under `set_sync_debug_mode("error")`, which raises on any call
+    that waits for the card."""
+    from desktop2stereo_tpu_torch.core.registry import get_spec
+    from desktop2stereo_tpu_torch.models.depthpro import DepthPro
+    from desktop2stereo_tpu_torch.models.factory import init_random
+    from desktop2stereo_tpu_torch.pipeline import programs as P
+
+    model = init_random(DepthPro(patch_px=32, vit_hidden=64, vit_layers=2, vit_heads=1,
+                                 vit_mlp=256, vit_patch=8, fusion=16, scaled_dims=(32, 32, 16),
+                                 hook_ids=(1, 0), hook_dims=(16, 16)), seed=0)
+    model = model.eval().to(dev, torch.bfloat16)
+    spec = get_spec("DepthPro-Large")
+    assert spec.metric
+    cfg = P.ProgramConfig(model_name=spec.name, depth_resolution=128, output_height=216,
+                          display_mode="Half-SBS", ipd=0.064, depth_strength=2.0,
+                          convergence=0.0, foreground_scale=0.0, aa_strength=2.0,
+                          ema_alpha=0.9, temporal_smooth=True, quality="high",
+                          emit_depth="model")
+    prog = P.ProgramCache(cfg, model, spec, compute_dtype=torch.bfloat16)
+    first, second = (torch.from_numpy(f).to(dev) for f in _moving_frames(2, 216, 384, seed=3))
+    prog(first)
+    torch.cuda.synchronize()
+    k2, k1 = K2.KERNEL.launches, K1.KERNEL.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sbs, depth = prog(second)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert K2.KERNEL.launches - k2 == 4 and K1.KERNEL.launches - k1 == 1
+    assert sbs.shape == (216, 384, 3) and depth.shape == (256, 256)
+    assert torch.isfinite(depth).all()
+
+
 # ---- K2 with an additive bias (DPT-BEiT's relative-position bias) --------------------------
 
 @pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
