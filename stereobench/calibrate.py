@@ -3,7 +3,8 @@ compares, for the program and for its control, over many seeds in one
 process (the benchmark's own runs never run this).
 
     python stereobench/calibrate.py --workload <cell> --seeds 1,2,3 --seconds 6 \\
-        [--control none,int8,fp8-reference,state-unchanged,half-batch,answer-altered] \\
+        [--control none,int8,fp8-reference,state-unchanged,half-batch,answer-altered,
+                   carry-frozen,carry-reset] \\
         [--out FILE]
 
 Each seed of each control named is one run of the cell at its own load (`harness.run_cell`) with
@@ -11,7 +12,8 @@ a short window.  The controls compute in the precision below the bfloat16
 the configurations state: `int8`, the program with its int8 encoder
 switched on (`--quant int8` of the CLI); `fp8-reference`, the plain
 reference computed in fp8 in the program's model stage (`control.py`).
-The faults of `faults.py` are planted in the program.  Prints one JSON line
+The faults of `faults.py` are planted in the program (`carry-frozen` and
+`carry-reset` only mean something for a stateful model).  Prints one JSON line
 a run, with every number the check computed and the verdict of the
 benchmark's own comparison (`run.verdict`: `correct` and each compared
 number with its limit), and appends each to FILE as it comes.
@@ -37,7 +39,8 @@ def main(argv=None) -> int:
     p.add_argument("--control", default="none",
                    help="comma-separated: none (the program); int8, the program with its "
                         "int8 encoder; fp8-reference, the reference computed in fp8 in the "
-                        "program's model stage; a fault of faults.py")
+                        "program's model stage; a fault of faults.py (state-unchanged, "
+                        "half-batch, answer-altered, carry-frozen, carry-reset)")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
 

@@ -25,6 +25,28 @@ that stage, so that each number reads one stage's error alone:
   depth: `sbs_off_share.worst`, the worst frame's share of u8 values more
   than 1 apart (and its mean difference, `sbs_mean_lsb.worst`).
 
+A stateful family (`STATEFUL` in `reference/<family>.py`) carries a window
+from call to call, and its carry is one more stage.  Its decoder runs on
+the program's encoder outputs and the carry the program's model was given
+for that call (None on a first call), and also returns the entries it adds
+to the window:
+
+- `carry_error_ratio`: the program's entries' mean |difference| from the
+  float32 reference's over the bfloat16 reference's, summed over the sample;
+- `carry_shift_off`: the share of the carry out of the call, as the
+  program holds it, whose values are not bit-equal to the carry in advanced
+  by the family's `advance` with the program's entries.  The update is a
+  copy, so a sound program reads 0;
+- `carry_in_off`: the share of the carry into the call whose values are
+  not bit-equal to the carry out of the row's previous call, as the
+  program held it (a first call takes none; a later call given none, or
+  another row's, is off).  Together with `carry_shift_off` it holds the
+  carry the decoder was given to the program's own entries, call after
+  call; a sound program reads 0.
+
+Both are counted when the sample takes the frame (`record.Recorder.
+carry_counts`), so that no whole carry is held for the check.
+
 The cell's limits file names the numbers that decide `correct`.
 """
 
@@ -120,6 +142,10 @@ def aggregate(per_frame: List[Dict[str, float]]) -> Dict[str, float]:
         out[f"{name}.worst"] = max(f[name] for f in per_frame)
     n = len(per_frame)
     out.update({"encoder_mean_abs": s["enc"] / n, "decoder_mean_abs": s["dec"] / n})
+    if "carry" in s:  # a stateful family
+        out["carry_error_ratio"] = ratio("carry", "carry_bf16")
+        out["carry_shift_off"] = s["shift_off"] / max(s["shift_values"], 1)
+        out["carry_in_off"] = s["chain_off"] / max(s["chain_values"], 1)
     return out
 
 
@@ -132,6 +158,7 @@ def reference_numbers(family, cfg: dict, display: dict, weights: Dict[str, torch
     keeps it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    stateful = getattr(family, "STATEFUL", False)
     paths = list(cfg["check_encoders"])
     at = producing_steps(steps, sample)
     keys = [steps[k].rows[feed][:2] for k, (feed, *_) in zip(at, sample)]
@@ -161,13 +188,19 @@ def reference_numbers(family, cfg: dict, display: dict, weights: Dict[str, torch
     pix32 = torch.zeros(1, 3, mh, mw, device=device)
     pix16 = pix32.to(torch.bfloat16)
 
-    def decoder(model, enc, pix, dtype, folded=False):
-        outs = {p: [t.to(dtype) for t in enc[p]] for p in paths}
+    def decoder(model, st, pix, dtype, folded=False):
+        """(raw depth, entries in float32 or None) from the program's encoder
+        outputs and, of a stateful family, the carry its model was given."""
+        outs = {p: [t.to(dtype) for t in st["enc"][p]] for p in paths}
         with contextlib.ExitStack() as stack:
             if folded:
                 stack.enter_context(tables.folded())
             stack.enter_context(encoders_replaced(model, outs))
-            return model(pix)[0].float()
+            if not stateful:
+                return model(pix)[0].float(), None
+            carry = None if st["carry_in"] is None else tuple(c.to(dtype) for c in st["carry_in"])
+            raw, entries = model(pix, carry)
+        return raw[0].float(), [e.float() for e in entries]
 
     per_frame: List[Dict[str, float]] = []
     for (feed, t0, got_sbs, st), key in zip(sample, keys):
@@ -177,9 +210,18 @@ def reference_numbers(family, cfg: dict, display: dict, weights: Dict[str, torch
         e32, e16 = enc_ref[key]
         enc = _flat(st["enc"], paths)
         raw = st["raw"].float()
-        r32 = decoder(ref32, st["enc"], pix32, torch.float32)
-        r16 = decoder(ref16, st["enc"], pix16, torch.bfloat16)
-        r16f = decoder(ref16, st["enc"], pix16, torch.bfloat16, folded=True)
+        r32, c32 = decoder(ref32, st, pix32, torch.float32)
+        r16, c16 = decoder(ref16, st, pix16, torch.bfloat16)
+        r16f, _ = decoder(ref16, st, pix16, torch.bfloat16, folded=True)
+        carried = {}
+        if stateful:
+            if st["chain"] is None:
+                raise RuntimeError(f"feed {feed}'s frame captured at {t0}: the previous "
+                                   f"call's carry was no longer held")
+            carried = {"carry": _abs_sum(st["entries"], c32), "carry_bf16": _abs_sum(c16, c32)}
+            for name in ("shift", "chain"):
+                off, values = st[name]
+                carried.update({f"{name}_off": int(off), f"{name}_values": values})
         if raw.shape != r32.shape:
             raise RuntimeError(f"raw depth {tuple(raw.shape)}, the reference's "
                                f"{tuple(r32.shape)}")
@@ -204,5 +246,5 @@ def reference_numbers(family, cfg: dict, display: dict, weights: Dict[str, torch
             "dec_bf16_folded": _abs_sum([r16f], [r32]),
             "depth_post_abs": (depth - shown).abs().mean().item(),
             "sbs_off_share": (lsb > 1).float().mean().item(),
-            "sbs_mean_lsb": lsb.float().mean().item()})
+            "sbs_mean_lsb": lsb.float().mean().item(), **carried})
     return aggregate(per_frame)

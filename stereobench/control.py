@@ -6,6 +6,13 @@ Every linear layer and convolution quantizes its weight and its input to
 float8 e4m3 (one scale a tensor, amax / 448) and computes from those in
 float32; the rest of the reference stays float32.  The program's own
 control is its int8 encoder (`harness.build_program(..., quant="int8")`).
+
+For a stateful family the reference stands in the model stage as the
+program's model does: `first(pixels)` and `step(pixels, carry)`, the carry
+advanced by the family's `advance` (float32, one window a feed, which the
+frame program keeps per row), each through `forward(pixels, frames,
+caches)`, the program model's call, so that the harness's hooks read it
+alike.
 """
 
 from __future__ import annotations
@@ -66,9 +73,33 @@ class ReferenceModel(nn.Module):
         return self.ref(pixels.permute(0, 3, 1, 2).float())
 
 
+class StatefulReferenceModel(ReferenceModel):
+    """A stateful reference as the program's model stage: NHWC pixels and
+    the carry → (depth [B, H, W], entries)."""
+
+    carry_per_stream = True
+
+    def __init__(self, ref: nn.Module, advance) -> None:
+        super().__init__(ref)
+        self.advance = advance
+
+    def forward(self, pixels: torch.Tensor, frames: int = 1, caches=None):
+        return self.ref(pixels.permute(0, 3, 1, 2).float(), caches)
+
+    def first(self, pixels: torch.Tensor):
+        raw, entries = self(pixels, 1, None)
+        return raw, self.advance(None, entries)
+
+    def step(self, pixels: torch.Tensor, carry):
+        raw, entries = self(pixels, 1, carry)
+        return raw, self.advance(carry, entries)
+
+
 def fp8_reference(family, cfg: dict, state: Dict[str, torch.Tensor],
                   device: torch.device) -> nn.Module:
     ref = family.build(cfg).to(device=device, dtype=torch.float32)
     ref.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
     _swap(ref)
+    if getattr(family, "STATEFUL", False):
+        return StatefulReferenceModel(ref, family.advance).eval()
     return ReferenceModel(ref).eval()

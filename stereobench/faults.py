@@ -6,7 +6,11 @@ the program's classes for the length of a `with planted(name):` block:
 - `half-batch`: on a batched call the second half of the rows' raw depth
   is replaced by the mean of the first half's;
 - `answer-altered`: the top eighth of every Half-SBS frame's rows comes out
-  inverted (255 - value) where the tail produces it.
+  inverted (255 - value) where the tail produces it;
+- `carry-frozen`: the model stage of a stateful model returns the carry it
+  was given, so the window built by the first frame never advances;
+- `carry-reset`: the model stage of a stateful model starts every call as
+  a first call, with no carry, so its window holds the one frame.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import contextlib
 
 import torch
 
-FAULTS = ("state-unchanged", "half-batch", "answer-altered")
+FAULTS = ("state-unchanged", "half-batch", "answer-altered", "carry-frozen", "carry-reset")
 
 
 @contextlib.contextmanager
@@ -51,6 +55,25 @@ def _half_batch(programs):
     return _patched(programs.FrameProgram, "model_stage", half)
 
 
+def _carry_frozen(programs):
+    stage = programs.FrameProgram.model_stage
+
+    def frozen(self, model_in, carry=(), fresh=None):
+        raw, new = stage(self, model_in, carry, fresh)
+        return raw, (carry if carry else new)
+
+    return _patched(programs.FrameProgram, "model_stage", frozen)
+
+
+def _carry_reset(programs):
+    stage = programs.FrameProgram.model_stage
+
+    def reset(self, model_in, carry=(), fresh=None):
+        return stage(self, model_in, (), fresh)
+
+    return _patched(programs.FrameProgram, "model_stage", reset)
+
+
 def _answer_altered(programs):
     dibr = programs.dibr_pair_half
 
@@ -68,6 +91,7 @@ def planted(name: str):
     import desktop2stereo_tpu_torch.pipeline.programs as programs
 
     make = {"state-unchanged": _state_unchanged, "half-batch": _half_batch,
-            "answer-altered": _answer_altered}[name]
+            "answer-altered": _answer_altered, "carry-frozen": _carry_frozen,
+            "carry-reset": _carry_reset}[name]
     with make(programs):
         yield

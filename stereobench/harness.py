@@ -16,6 +16,7 @@ seeded sample of the frames the window delivered (`check.py`).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import tempfile
@@ -70,21 +71,43 @@ def _sleep_until(t: float) -> None:
 
 def model_counts(family, cfg: dict, out_hw, batch: int):
     """(model FLOPs a frame, attention shapes of one call at `batch`),
-    counted on the meta device from the reference's shapes."""
+    counted on the meta device from the reference's shapes.  Of a stateful
+    family, one streaming step with a full window, its temporal modules
+    counted by `roofline.temporal_ops`."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from stereobench.reference import vit
+    from stereobench.roofline import temporal_ops
 
     with torch.device("meta"):
         ref = family.build(cfg)
         mh, mw = family.model_input_size(cfg, *out_hw)
         x = torch.empty(1, 3, mh, mw)
         counter = FlopCounterMode(display=False)
-        with counter:
-            ref(x)
+        if getattr(family, "STATEFUL", False):  # the temporal modules by their own count
+            temporal = temporal_step(family, ref, x, counter)
+            modules = {f"{type(ref).__name__}.{name}" for name, m in ref.named_modules()
+                       if isinstance(m, family.TemporalModule)}
+            counted = sum(sum(ops.values()) for name, ops in counter.get_flop_counts().items()
+                          if name in modules)
+            flops = float(counter.get_total_flops() - counted + temporal_ops(temporal))
+        else:
+            with counter:
+                ref(x)
+            flops = float(counter.get_total_flops())
         with vit.record_attention() as shapes:
             ref(torch.empty(batch, 3, mh, mw))
-    return float(counter.get_total_flops()), list(shapes)
+    return flops, list(shapes)
+
+
+def temporal_step(family, ref, x, counter=None) -> List[Tuple[int, int, int, int]]:
+    """One streaming step of a stateful reference with a full window (under
+    `counter`, where given); → its temporal modules' (B, P, n, C)."""
+    _, entries = ref(x)
+    carry = family.advance(None, entries)
+    with counter or contextlib.nullcontext(), family.record_temporal() as temporal:
+        ref(x, carry)
+    return temporal
 
 
 def build_program(cell, state: Dict[str, torch.Tensor], device, dtype, control: str = "none"):
@@ -173,7 +196,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device: torch.device
     program.warmup(tuple(mix["frame"]))
 
     sample = Reservoir(mix["check_frames"], traffic.derive_seed(seed, 3))
-    rec = record.Recorder(rings, sample, batched=mix["engine"] == "batched")
+    rec = record.Recorder(rings, sample, batched=mix["engine"] == "batched",
+                          advance=fam.advance if getattr(fam, "STATEFUL", False) else None)
     tap = record.StageTap(model, root, cfg["check_encoders"])
     timed = record.TimedProgram(program, rec, tap)
     sinks = [record.BenchSink(f, rec, (h, w, 3)) for f in range(mix["feeds"])]

@@ -17,7 +17,14 @@ hands the engine or what the engine instance holds:
   `fresh` rows; and, through forward hooks on the program's model
   (`StageTap`), what the call computed for the check: the encoders'
   outputs and the raw depth, with a device copy of the delivered depth,
-  held for the last `RING_STEPS` calls;
+  held for the last `RING_STEPS` calls.  A stateful program's model
+  returns (raw depth, entries); for it the call also keeps the carry into
+  the model call (its `caches` argument), the entries, and the carry out
+  as the program holds it after the call (the next call's carry in).
+  These are references, sound while the program builds a new carry every
+  step.  When the sample takes a frame, its row's carry is compared there,
+  on the device, with what it should be (`carry_counts`), and only its
+  carry in and entries are copied;
 - the sinks (`BenchSink`, which take no depth, as a display sink takes
   none): the delivery time of each frame, a check of its shape and dtype,
   and a seeded sample of the frames delivered in the window, each with
@@ -29,6 +36,7 @@ In a traced run each of these also opens a profiler range (`bench.staging`,
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 from dataclasses import dataclass, field
@@ -43,6 +51,7 @@ RANGE_STAGING = "bench.staging"
 RANGE_DISPATCH = "bench.dispatch"
 RANGE_FINISH = "bench.finish"
 RING_STEPS = 4  # program calls whose stages stay held until their frames are delivered
+CARRY_ARG = "caches"  # the argument that takes a stateful model's carry
 
 
 @dataclass
@@ -65,7 +74,7 @@ class Delivery:
 
 class Recorder:
     def __init__(self, rings: Sequence[Sequence[np.ndarray]], sample: Reservoir,
-                 batched: bool) -> None:
+                 batched: bool, advance=None) -> None:
         self.ring_of = {id(a): (f, i) for f, ring in enumerate(rings) for i, a in enumerate(ring)}
         self.ring_at = {a.ctypes.data: (f, i) for f, ring in enumerate(rings)
                         for i, a in enumerate(ring)}
@@ -75,6 +84,7 @@ class Recorder:
         self.out_dropped: List[Tuple[int, float]] = []
         self.sample = sample
         self.batched = batched
+        self.advance = advance  # a stateful family's `advance`; None for another
         self.stages: Dict[int, dict] = {}              # call index → what it computed
         self.call_of: Dict[Tuple[int, float], int] = {}  # (feed, t0) → call index
         self.window: Tuple[float, float] = (float("inf"), float("inf"))
@@ -110,20 +120,55 @@ class Recorder:
     def _stages_of(self, feed: int, t0: float) -> Optional[dict]:
         """The stages of the call that produced feed's frame captured at t0,
         feed's row alone (copied on a batched call), and whether that call
-        was the first (which starts from no EMA); None if no longer held."""
+        was the first (which starts from no EMA); of a stateful call also
+        its carry's counts (`carry_counts`); None if no longer held."""
         with self._lock:
             k = self.call_of.get((feed, t0))
             cur, prev = self.stages.get(k), self.stages.get(k - 1) if k is not None else None
         if cur is None:
             return None
         if not self.batched:
-            return {"enc": cur["enc"], "raw": cur["raw"][0], "depth": cur["depth"],
-                    "prev": None if prev is None else prev["depth"], "first": k == 0}
+            out = {"enc": cur["enc"], "raw": cur["raw"][0], "depth": cur["depth"],
+                   "prev": None if prev is None else prev["depth"], "first": k == 0}
+            if self.advance is not None:
+                out.update(self.carry_counts(cur, prev, k, slice(None)))
+            return out
         row = slice(feed, feed + 1)
-        return {"enc": {p: [t[row].clone() for t in ts] for p, ts in cur["enc"].items()},
-                "raw": cur["raw"][feed].clone(), "depth": cur["depth"][feed].clone(),
-                "prev": None if prev is None else prev["depth"][feed].clone(),
-                "first": k == 0}
+        out = {"enc": {p: [t[row].clone() for t in ts] for p, ts in cur["enc"].items()},
+               "raw": cur["raw"][feed].clone(), "depth": cur["depth"][feed].clone(),
+               "prev": None if prev is None else prev["depth"][feed].clone(),
+               "first": k == 0}
+        if self.advance is not None:
+            carry = self.carry_counts(cur, prev, k, row)
+            for name in ("carry_in", "entries"):  # the row copied, as the encoders' outputs
+                if carry[name] is not None:
+                    carry[name] = tuple(t.clone() for t in carry[name])
+            out.update(carry)
+        return out
+
+    def carry_counts(self, cur: dict, prev: Optional[dict], k: int, row: slice) -> dict:
+        """A stateful call's carry, at `row`: its carry in (None on a first
+        call) and its entries, as views, and two counts, each (values off, a
+        tensor on the device, not read yet; values compared):
+
+        - `shift`: the carry out, as the program holds it, against the
+          family's `advance` of the carry in and the entries;
+        - `chain`: the carry in against the carry out of the row's previous
+          call, or against none on the first call (None when that call is
+          no longer held).
+
+        A carry missing where one is due, or of another form, is off in
+        every value."""
+        at = lambda ts: None if ts is None else tuple(t[row] for t in ts)  # noqa: E731
+        c_in, entries = at(cur["carry_in"]), at(cur["entries"])
+        want = self.advance(c_in, entries)
+        values = sum(w.numel() for w in want)
+        if k == 0:
+            chain = (0, values) if c_in is None else (values, values)
+        else:
+            chain = None if prev is None else _off(at(prev["carry_out"]), c_in, values)
+        return {"carry_in": c_in, "entries": entries,
+                "shift": _off(want, at(cur["carry_out"]), values), "chain": chain}
 
     # ---- the sink threads --------------------------------------------------
 
@@ -181,21 +226,28 @@ def hooked_mailbox(base, feed: int, recorder: Optional[Recorder] = None):
 class StageTap:
     """Forward hooks on the program's model: each call's encoder outputs
     (the modules at `paths` under `root`) and the model's raw depth, as the
-    timed path computed them.  Keeps references; copies nothing."""
+    timed path computed them; of a model that returns (raw depth, entries),
+    also the entries and the carry it was given (`CARRY_ARG`, None on a
+    first call).  Keeps references; copies nothing."""
 
     def __init__(self, model: torch.nn.Module, root: torch.nn.Module,
                  paths: Sequence[str]) -> None:
         self.current: dict = {"enc": {}}
         self.handles = [root.get_submodule(p).register_forward_hook(self._encoder(p))
                         for p in paths]
-        self.handles.append(model.register_forward_hook(self._raw))
+        self._signature = inspect.signature(model.forward)
+        self.handles.append(model.register_forward_hook(self._raw, with_kwargs=True))
 
     def _encoder(self, path: str):
         def hook(module, args, out):
             self.current["enc"][path] = list(out)
         return hook
 
-    def _raw(self, module, args, out) -> None:
+    def _raw(self, module, args, kwargs, out) -> None:
+        if isinstance(out, tuple):  # a stateful model: (raw depth, entries)
+            out, self.current["entries"] = out
+            self.current["carry_in"] = self._signature.bind(*args, **kwargs).arguments.get(
+                CARRY_ARG)
         self.current["raw"] = out
 
     def take(self) -> dict:
@@ -236,8 +288,26 @@ class TimedProgram:
         dt = time.perf_counter() - t
         stages = self.tap.take()
         stages["depth"] = depth.clone()
+        if self.stateful:
+            stages["carry_out"] = held_carry(self.program)
         rec.dispatched(t, dt, kwargs.get("fresh"), stages)
         return sbs, depth
+
+
+def _off(want, got, values: int):
+    """(values of the carry `got` not bit-equal to `want`, `values`)."""
+    if not want or not got or [w.shape for w in want] != [g.shape for g in got]:
+        return values, values
+    return sum((g != w).sum() for w, g in zip(want, got)), values
+
+
+def held_carry(program) -> tuple:
+    """The model carry a `ProgramCache` or `BatchedProgramCache` holds for
+    the one frame size a run sends (`()` where it holds none)."""
+    states = list(program._states.values())
+    if len(states) != 1:
+        raise RuntimeError(f"the program holds {len(states)} states; a run sends one frame size")
+    return tuple(states[0].model)
 
 
 class BenchSink:
